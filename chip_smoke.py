@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--steps 2000] [--profile 0]
 
 Phases (any failure exits non-zero):
 1. device and build: the card's name and power limit; builds the fused
-   encode+MLP kernel from csrc/ and prints the build time.
+   encode+MLP, features-in forward and backward kernels from csrc/ and
+   prints the build time and ptxas's register and spill report.
 2. kernel against its plain PyTorch version, with the data/pretrain/hard
    weights, at the render path's point counts: 2.56M (a 40000-ray coarse
    chunk) and 7.68M (a fine chunk); error statistics and CUDA-event times.
@@ -18,14 +19,42 @@ Phases (any failure exits non-zero):
    the kernel off (the plain MLP) and the PSNR between the two renders;
    frame times, the kernel's launches (2 per ray chunk) and the plain
    MLP's calls (0 with the kernel on, 2 per chunk with it off).
+4. the training kernels against their plain versions on one real
+   1024-ray batch of the hard scene (its train views rendered on the card)
+   with the data/pretrain/hard weights: 65536 coarse and 196608 fine
+   points. The features-in forward is held to phase 2's check; the
+   backward, given the batch's real dloss/draw, by its bf16 deltas against
+   the plain version's element by element, its weight-gradient sums
+   against float64 sums of its own workspace, and every weight and bias
+   leaf against the plain backward in relative norm, with exactly zero
+   gradients on the padding. Two faulty plain backwards (deltas kept in
+   f32; the density head's path into the trunk dropped) must fail that
+   check. CUDA-event times of kernel and plain at both shapes.
+5. training: configs/nerf/hard.yaml at full width from a fresh init
+   (seed 0) on 20 of the hard scene's 100 train views at 800x800, 2000
+   steps (four 500-step epochs, the first under precrop) through the fused
+   kernels, and again through the nn.Module MLP. Per arm: rays/s, the
+   smoothed loss and train PSNR, peak memory, and the eval PSNR on hard
+   test views 0 and 4 through the eval renderer; the kernel arm makes 2
+   forward and 2 backward launches a step and no plain call, the
+   nn.Module arm no launch; both final PSNRs above the floor stated in
+   PERF.md, and the arms' mean PSNR at the ends of the last two epochs
+   within 0.5 dB of each other; a checkpoint of the kernel arm loads back
+   through load_network and renders the same image.
+   ``--steps`` shortens the run for a quick check; ``--profile N``
+   profiles N more steps of each arm with torch.profiler (tables under
+   build/).
 The last two lines are the kernel summary and the device, as JSON.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -56,6 +85,37 @@ PSNR_BUDGET_DB = 0.1
 KERNEL_VS_PLAIN_MIN_DB = 55.0   # read 65.17 dB
 POINTS = (2_560_000, 7_680_000)  # 40000 rays x 64 and x 192 samples
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Training path. Backward kernel against plain, on the same rounding
+# points, so they differ only where the f32 summation order flips a bf16
+# rounding of a delta. Three parts, bounds set from the readings with room
+# (PERF.md section 6):
+# - the bf16 deltas the kernel leaves in its workspace against the plain
+#   version's, plane by plane: at most DELTA_DIFF of the elements may
+#   differ at all (read <= 2.0e-4 on the H100, <= 1.3e-3 for a change of
+#   summation order on the CPU; the f32-delta control >= 4.7e-2);
+# - the weight-gradient kernel against float64 products of the kernel's
+#   own workspace, every leaf within WGRAD_REL in relative norm;
+# - every weight and bias leaf against the plain backward within GRAD_REL
+#   in relative norm (summation-order flips move a leaf by up to ~6e-3;
+#   a structural fault by O(1)), finite, and exactly zero on the padding.
+# GRAD_CONTROLS are faulty plain backwards that the check must reject.
+DELTA_DIFF = 5e-3
+WGRAD_REL = 1e-5
+GRAD_REL = 2e-2
+TRAIN_VIEWS = list(range(0, 100, 5))  # 20 of the 100 train views
+TRAIN_STEPS = 2000                    # four epochs of ep_iter steps
+TRAIN_PSNR_FLOOR_DB = 18.0            # the prediction in PERF.md section 6
+# The arms are compared on the mean eval PSNR at the ends of the last two
+# epochs: one run's eval PSNR swings by 0.5-0.9 dB from one epoch end to
+# the next at this stage, and over three seeds and four end points the
+# arms differ by -0.035 dB on average (PERF.md section 6).
+ARMS_MAX_DIFF_DB = 0.5
+TRAIN_ARGV = ["--cfg_file", "configs/nerf/hard.yaml", "device", "cuda",
+              "seed", "0", "train.epoch", "4", "save_result", "False",
+              "resume", "False", "trained_model_dir", "build/smoke_train",
+              "record_dir", "build/smoke_record"]
+CKPT_DIR = os.path.join(ROOT, "build", "smoke_ckpt")
 
 
 def _truncate_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -119,6 +179,111 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+GRAD_CONTROLS = {
+    "f32 deltas (no bf16 rounding)": {"_round_delta": lambda d: d.float()},
+    "no density path into the trunk": {
+        "_sigma_into_trunk": lambda d_sigma, w_alpha: 0.0},
+}
+
+
+def control_bwd(patches: dict, *args):
+    """The plain backward with ``patches`` applied to ops/mlp_train.py:
+    (its gradients, its planes)."""
+    from nerf_replication_tpu_torch.ops import mlp_train
+
+    keep = {}
+    with contextlib.ExitStack() as stack:
+        for name, fn in patches.items():
+            stack.enter_context(mock.patch.object(mlp_train, name, fn))
+        grads = mlp_train.fused_nerf_mlp_bwd_reference(*args, keep=keep)
+    return grads, keep["planes"]
+
+
+def _leaf_rel(k: torch.Tensor, p: torch.Tensor) -> float:
+    return float((k - p).norm() / p.norm().clamp_min(1e-30))
+
+
+def _leaves(flat_w, flat_b, packed):
+    """(name, weight-or-bias leaf) pairs of the two packs, 2-D weights."""
+    from nerf_replication_tpu_torch.ops import mlp_train
+
+    shapes, _, sizes, _ = mlp_train._unpack(packed)
+    at = 0
+    for name, rows, cols in shapes:
+        yield f"w{name}", flat_w[at:at + rows * cols].view(rows, cols)
+        at += rows * cols
+    at = 0
+    for name, size in sizes:
+        yield f"b{name}", flat_b[at:at + size][:, None]
+        at += size
+
+
+def _delta_planes(planes: dict) -> dict:
+    out = {f"d{i}": d for i, d in enumerate(planes["d"])}
+    out.update({k: planes[k] for k in ("d_af", "d_gpre", "d_rgb")})
+    return out
+
+
+def backward_agreement(out, ref, planes, ref_planes, packed, in_dim: int,
+                       view_dim: int, x=None, v=None,
+                       delta_diff: float = DELTA_DIFF) -> dict:
+    """The backward check of ``out`` (weight-pack grad, bias-pack grad) and
+    its delta ``planes`` against the plain ``ref`` and ``ref_planes``; with
+    the features ``x``, ``v`` (a kernel's output) also the weight-gradient
+    products against float64 sums of ``planes``. ``ok`` when every part
+    holds, at most ``delta_diff`` of the deltas differing; the worst plane
+    or leaf of each statistic."""
+    from nerf_replication_tpu_torch.ops import mlp_train
+
+    pad_rows = {"w0": in_dim, f"w{packed.skip + 1}x": in_dim, "wvd": view_dim}
+    pad_cols = {"wrgb": 3, "balpha": 1, "brgb": 3}
+    rel, pad_zero = {}, True
+    for (name, k), (_, p) in zip(_leaves(*out, packed), _leaves(*ref, packed)):
+        if name.startswith("b"):   # a bias: its padding is its tail
+            r, c = pad_cols.get(name, k.shape[0]), 1
+        else:
+            r, c = pad_rows.get(name, k.shape[0]), pad_cols.get(name,
+                                                                k.shape[1])
+        pad_zero &= not bool(k[r:].any()) and not bool(k[:, c:].any())
+        rel[name] = _leaf_rel(k[:r, :c], p[:r, :c])
+    diff = {}
+    ref_d = _delta_planes(ref_planes)
+    for name, d in _delta_planes(planes).items():
+        diff[name] = float((d.float() != ref_d[name].float()).float().mean())
+    wgrad = {}
+    if x is not None:
+        f64 = {k: ([t.double() for t in p] if isinstance(p, list)
+                   else p.double()) for k, p in planes.items()}
+        sums = mlp_train.weight_grads(f64, x.double(), v.double(), packed)
+        zeros = torch.zeros_like(out[1])
+        for (name, k), (_, p) in zip(_leaves(out[0], zeros, packed),
+                                     _leaves(sums.float(), zeros, packed)):
+            if name.startswith("w"):
+                wgrad[name] = _leaf_rel(k, p)
+    finite = bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all())
+    worst = lambda d: max(d, key=d.get) if d else "-"  # noqa: E731
+    a = dict(rel=max(rel.values()), rel_leaf=worst(rel),
+             diff=max(diff.values()), diff_plane=worst(diff),
+             wgrad=max(wgrad.values()) if wgrad else 0.0,
+             wgrad_leaf=worst(wgrad), pad_zero=pad_zero,
+             max_abs_err=float(max((out[0] - ref[0]).abs().max(),
+                                   (out[1] - ref[1]).abs().max())))
+    a["ok"] = (finite and pad_zero and a["rel"] <= GRAD_REL
+               and a["diff"] <= delta_diff
+               and a["wgrad"] <= WGRAD_REL)
+    return a
+
+
+def describe_grad(a: dict) -> str:
+    return (f"deltas: worst share differing {a['diff']:.2e} "
+            f"({a['diff_plane']}, <= "
+            f"{DELTA_DIFF}); weight-gradient sums vs f64 of the workspace "
+            f"{a['wgrad']:.2e} ({a['wgrad_leaf']}, <= {WGRAD_REL}); leaves: "
+            f"worst rel-norm err {a['rel']:.2e} ({a['rel_leaf']}, <= "
+            f"{GRAD_REL}), padding exactly zero {a['pad_zero']}, max_abs_err "
+            f"{a['max_abs_err']:.3e} {'ok' if a['ok'] else 'FAIL'}")
+
+
 def ray_points(n: int, gen: torch.Generator):
     """Points and unit directions along rays from a radius-4 camera
     sphere at depths 2..6, as the render path makes them."""
@@ -130,14 +295,310 @@ def ray_points(n: int, gen: torch.Generator):
     return (eye + t * d).contiguous(), d.contiguous()
 
 
-def main():
+def reset_counts():
+    """Every wrapper's launch count and every plain version's call count."""
+    from nerf_replication_tpu_torch.models.nerf.network import Network
+    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+
+    mlp_kernel.fused_nerf_mlp_enc.launches = 0
+    mlp_kernel.fused_nerf_mlp.launches = 0
+    mlp_train.fused_nerf_mlp_bwd.launches = 0
+    mlp_kernel.fused_nerf_mlp_enc_reference.calls = 0
+    mlp_kernel.fused_nerf_mlp_reference.calls = 0
+    mlp_train.fused_nerf_mlp_bwd_reference.calls = 0
+    Network.calls = 0
+
+
+def read_counts() -> dict:
+    from nerf_replication_tpu_torch.models.nerf.network import Network
+    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+
+    return {"enc": mlp_kernel.fused_nerf_mlp_enc.launches,
+            "fwd": mlp_kernel.fused_nerf_mlp.launches,
+            "bwd": mlp_train.fused_nerf_mlp_bwd.launches,
+            "plain": (mlp_kernel.fused_nerf_mlp_enc_reference.calls
+                      + mlp_kernel.fused_nerf_mlp_reference.calls
+                      + mlp_train.fused_nerf_mlp_bwd_reference.calls),
+            "module": Network.calls}
+
+
+def real_batch(cfg, net, arrays) -> dict:
+    """One 1024-ray batch of the hard scene through the fused train path
+    with ``net``'s weights: per branch, the kernels' inputs x, v and the
+    batch's real dloss/draw."""
+    from nerf_replication_tpu_torch.ops import mlp_kernel
+    from nerf_replication_tpu_torch.train import make_trainer
+    from nerf_replication_tpu_torch.train.cli import make_pipeline
+
+    wrapper = make_trainer(cfg, net).wrapper
+    fused = wrapper.renderer.train_apply
+    seen = {}
+
+    def capture(pts, viewdirs, model=""):
+        raw = fused(pts, viewdirs, model)
+        raw.retain_grad()
+        seen[model or "coarse"] = (pts, viewdirs, raw)
+        return raw
+
+    wrapper.renderer._train_apply = capture
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = make_pipeline(cfg, arrays, "cuda").sample(gen, 1 << 30)
+    loss, _ = wrapper.loss_fn(batch, gen, train=True)
+    loss.backward()
+    out = {}
+    for branch, (pts, viewdirs, raw) in seen.items():
+        p = pts.reshape(-1, 3).float()
+        d = viewdirs.expand(*pts.shape[:-1], 3).reshape(-1, 3).float()
+        x, v = mlp_kernel.encode_features(p, d, net.xyz_encoder.n_freqs,
+                                          net.dir_encoder.n_freqs)
+        out[branch] = (x, v, raw.grad.reshape(-1, 4).contiguous())
+    return out
+
+
+def phase_train_kernels(cfg, arrays) -> dict:
+    """Phase 4: the features-in forward and the backward against their
+    plain versions at the training shapes; returns errors and times."""
+    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+    from nerf_replication_tpu_torch.run import load_model
+
+    net = load_model(cfg, torch.device("cuda"))
+    enc = net.xyz_encoder.output_dim, net.dir_encoder.output_dim
+    res = {"fwd": [], "bwd": []}
+    for branch, (x, v, g) in real_batch(cfg, net, arrays).items():
+        mlp = getattr(net, branch)
+        packed = mlp_kernel.pack_nerf_params(mlp.state_dict(), *enc,
+                                             mlp.depth, mlp.skips[0])
+        n = x.shape[0]
+        out_k = mlp_kernel.fused_nerf_mlp(packed, x, v)
+        out_p = mlp_kernel.fused_nerf_mlp_reference(packed, x, v)
+        keep_k, keep_p = {}, {}
+        grad_k = mlp_train.fused_nerf_mlp_bwd(packed, x, v, g, keep_k)
+        grad_p = mlp_train.fused_nerf_mlp_bwd_reference(packed, x, v, g,
+                                                        keep_p)
+        torch.cuda.synchronize()
+        a = agreement(out_k, out_p)
+        b = backward_agreement(grad_k, grad_p, keep_k["planes"],
+                               keep_p["planes"], packed, *enc, x=x, v=v)
+        times = {
+            "fwd": (cuda_ms(lambda: mlp_kernel.fused_nerf_mlp(packed, x, v), 20),
+                    cuda_ms(lambda: mlp_kernel.fused_nerf_mlp_reference(
+                        packed, x, v), 5)),
+            "bwd": (cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(
+                        packed, x, v, g), 20),
+                    cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd_reference(
+                        packed, x, v, g), 5))}
+        for kind, check in (("fwd", a), ("bwd", b)):
+            ms_k, ms_p = times[kind]
+            res[kind].append(dict(n=n, err=check["max_abs_err"], ms=ms_k,
+                                  plain_ms=ms_p))
+        print(f"features-in forward vs plain, {branch} N={n}: {describe(a)} "
+              f"| kernel {times['fwd'][0]:.3f} ms, plain "
+              f"{times['fwd'][1]:.3f} ms")
+        print(f"backward vs plain, {branch} N={n}: {describe_grad(b)} | "
+              f"kernel {times['bwd'][0]:.3f} ms, plain {times['bwd'][1]:.3f} ms")
+        if not a["ok"]:
+            fail(f"features-in forward disagrees with plain at N={n}")
+        if not b["ok"]:
+            fail(f"backward disagrees with plain at N={n}")
+        del keep_k, grad_k
+        for label, patches in GRAD_CONTROLS.items():
+            grad_c, planes_c = control_bwd(patches, packed, x, v, g)
+            c = backward_agreement(grad_c, grad_p, planes_c,
+                                   keep_p["planes"], packed, *enc)
+            print(f"control, plain backward with {label}, {branch} N={n}: "
+                  f"{describe_grad(c)}")
+            if c["ok"]:
+                fail(f"the backward check accepts the plain backward with "
+                     f"{label}, so it cannot see such a fault")
+    del net
+    torch.cuda.empty_cache()
+    return res
+
+
+# device-kernel name fragments -> the part of a training step they are
+PROFILE_PARTS = (
+    ("MLP forward kernel", ("fused_nerf_mlp_kernel",)),
+    ("backward recompute + deltas", ("nerf_mlp_bwd_delta",)),
+    ("weight-gradient products", ("nerf_mlp_bwd_wgrad",)),
+    ("weight-gradient reduction", ("reduce_rows_kernel",)),
+    ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "cutlass", "xmma", "sm90_")),
+    ("sort", ("sort", "Sort")),
+    ("scans (cumsum/cumprod)", ("scan", "Scan", "cumsum", "cumprod")),
+    ("optimizer", ("multi_tensor_apply",)),
+)
+
+
+def profile_steps(trainer, pipeline, steps: int, tag: str):
+    """``steps`` more training steps under torch.profiler: the device time
+    a step by part (PROFILE_PARTS, the rest as "other") and the idle share
+    of the wall time; the full table goes to build/profile_<tag>.txt.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for _ in range(3):   # warm
+        trainer.train_step(pipeline.sample(gen, trainer.step), gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(pipeline.sample(gen, trainer.step), gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    parts = {}
+    for e in kernels:
+        part = next((name for name, keys in PROFILE_PARTS
+                     if any(k in e.key for k in keys)), "other")
+        parts[part] = parts.get(part, 0.0) + e.self_device_time_total
+    busy = sum(parts.values()) / 1e6
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", f"profile_{tag}.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+    print(f"profile {tag}: {steps} steps under the profiler, wall "
+          f"{wall * 1e3 / steps:.2f} ms a step, device busy "
+          f"{busy * 1e3 / steps:.2f} ms a step (idle "
+          f"{100 * (1 - busy / wall):.1f}%); device ms a step: " + "; ".join(
+              f"{name} {t / 1e3 / steps:.3f}" for name, t in
+              sorted(parts.items(), key=lambda kv: -kv[1])))
+
+
+def checkpoint_round_trip(arm: dict, view) -> bool:
+    """Save ``arm``'s network and optimizer with save_model, load the
+    weights back through load_network into a new network and render
+    ``view``: True when the image is the one the arm rendered."""
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.run import build_renderer
+    from nerf_replication_tpu_torch.utils.ckpt_utils import (
+        load_network,
+        params_from_jax,
+        save_model,
+    )
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    save_model(arm["net"], arm["trainer"].optimizer.state_dict(),
+               {"step": arm["steps"]}, {"step": arm["steps"], "epoch": 3}, 3,
+               CKPT_DIR)
+    net = make_network(arm["cfg"])
+    net.load_state_dict(params_from_jax(load_network(CKPT_DIR)))
+    again = build_renderer(arm["cfg"], net.cuda()).render(view)[0]
+    same = bool(np.array_equal(again.cpu().numpy(), arm["images"][0]))
+    print(f"checkpoint round trip: {CKPT_DIR} loaded by load_network renders "
+          f"view 0 {'identically' if same else 'DIFFERENTLY'}")
+    return same
+
+
+def train_arm(fused: bool, arrays, views, steps: int, profile: int) -> dict:
+    """Train one arm from the fresh seed-0 init; returns its readings (and,
+    for the kernel arm, whether its checkpoint round trip held)."""
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.evaluators import psnr_uint8
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.run import build_renderer
+    from nerf_replication_tpu_torch.train import make_trainer
+    from nerf_replication_tpu_torch.train.cli import make_pipeline
+
+    cfg = make_cfg(parse_args(TRAIN_ARGV + [
+        "network.use_pallas_mlp_train", str(fused),
+        "ep_iter", str(steps // 4)]))
+    net = make_network(cfg).cuda()
+    trainer = make_trainer(cfg, net)
+    trainer.wrapper.renderer.train_apply   # builds the kernels now
+    pipeline = make_pipeline(cfg, arrays, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def evaluate():
+        renderer = build_renderer(cfg, net)   # packs the current weights
+        images = [renderer.render(view)[0].cpu().numpy() for view in views]
+        return images, float(np.mean([psnr_uint8(img, view["colors"])
+                                      for img, view in zip(images, views)]))
+
+    reset_counts()
+    summaries = [trainer.train_device(e, pipeline) for e in range(3)]
+    counts = read_counts()
+    _, psnr_prev = evaluate()
+    reset_counts()
+    summaries.append(trainer.train_device(3, pipeline))
+    counts = {k: counts[k] + n for k, n in read_counts().items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = np.concatenate([s["loss"] for s in summaries])
+    psnrs = np.concatenate([s["psnr"] for s in summaries])
+    images, eval_psnr = evaluate()
+    arm = dict(cfg=cfg, net=net, trainer=trainer, counts=counts,
+               steps=trainer.step, losses=losses, images=images,
+               eval_psnr=eval_psnr, eval_mean=(psnr_prev + eval_psnr) / 2,
+               peak_gb=peak_gb,
+               rays_per_s=[s["rays_per_s"] for s in summaries],
+               loss=float(np.median(losses[-20:])),
+               psnr=float(np.median(psnrs[-20:])))
+    label = "kernels" if fused else "nn.Module"
+    print(f"train ({label}): {arm['steps']} steps, rays/s per epoch "
+          f"{[round(r) for r in arm['rays_per_s']]}, final smoothed loss "
+          f"{arm['loss']:.5f}, train PSNR {arm['psnr']:.2f} dB, peak memory "
+          f"{peak_gb:.2f} GB, eval PSNR (hard test views 0, 4, 800x800) "
+          f"{eval_psnr:.4f} dB after {arm['steps']} steps, {psnr_prev:.4f} "
+          f"dB after {3 * steps // 4}, counts in training {counts}")
+    if fused:
+        arm["round_trip"] = checkpoint_round_trip(arm, views[0])
+    if profile:
+        profile_steps(trainer, pipeline, profile, label.replace(".", ""))
+    return arm
+
+
+def phase_train(arrays, views, steps: int, profile: int) -> dict:
+    """Phase 5: the two arms and the checkpoint round trip."""
+    k = train_arm(True, arrays, views, steps, profile)
+    c = k["counts"]
+    if (c["fwd"], c["bwd"], c["plain"], c["module"], c["enc"]) != \
+            (2 * steps, 2 * steps, 0, 0, 0):
+        fail(f"the kernel arm did not train through the kernels alone: {c}")
+    del k["net"], k["trainer"]
+    torch.cuda.empty_cache()
+
+    m = train_arm(False, arrays, views, steps, profile)
+    c = m["counts"]
+    if c["fwd"] or c["bwd"] or c["enc"] or c["plain"] \
+            or c["module"] != 2 * steps:
+        fail(f"the nn.Module arm did not train through the nn.Module: {c}")
+    for arm in (k, m):
+        if not np.isfinite(arm["losses"]).all():
+            fail("a training loss is not finite")
+        if arm["eval_psnr"] < TRAIN_PSNR_FLOOR_DB:
+            fail(f"eval PSNR {arm['eval_psnr']:.4f} dB below the floor "
+                 f"{TRAIN_PSNR_FLOOR_DB} dB")
+    diff = abs(k["eval_mean"] - m["eval_mean"])
+    print(f"arms: eval PSNR at the last step kernels {k['eval_psnr']:.4f} "
+          f"dB, nn.Module {m['eval_psnr']:.4f} dB; mean of the last two "
+          f"epochs' ends kernels {k['eval_mean']:.4f} dB, nn.Module "
+          f"{m['eval_mean']:.4f} dB, difference {diff:.4f} dB (<= "
+          f"{ARMS_MAX_DIFF_DB}); train rays/s (epochs 1-3) kernels "
+          f"{np.mean(k['rays_per_s'][1:]):,.0f}, nn.Module "
+          f"{np.mean(m['rays_per_s'][1:]):,.0f}")
+    if diff > ARMS_MAX_DIFF_DB:
+        fail(f"the arms' eval PSNRs differ by {diff:.4f} dB")
+    if not k["round_trip"]:
+        fail("the saved checkpoint does not render what the network did")
+    return k["counts"]
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=TRAIN_STEPS,
+                        help="training steps per arm (a multiple of 4)")
+    parser.add_argument("--profile", type=int, default=0,
+                        help="profile this many more steps of each arm")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     from nerf_replication_tpu_torch.config import make_cfg, parse_args
     from nerf_replication_tpu_torch.evaluators import psnr_uint8
     from nerf_replication_tpu_torch.models.nerf.network import Network
     from nerf_replication_tpu_torch.models.nerf.renderer import RenderSettings
-    from nerf_replication_tpu_torch.ops import _build, mlp_kernel
+    from nerf_replication_tpu_torch.ops import _build, mlp_kernel, mlp_train
     from nerf_replication_tpu_torch.run import load_model, run_evaluate
     from nerf_replication_tpu_torch.utils import synthetic_scene
 
@@ -156,11 +617,13 @@ def main():
     print(f"device: {name} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    mlp_kernel.build()
+    mlp_train.build()   # both sources, compiled concurrently
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    log = _build.library_path("fused_nerf_mlp").with_suffix(".log")
-    print("ptxas:", " | ".join(line.strip() for line in
-                                log.read_text().splitlines() if line.strip()))
+    for lib in ("fused_nerf_mlp", "fused_nerf_mlp_bwd"):
+        log = _build.library_path(lib).with_suffix(".log")
+        print(f"ptxas {lib}:", " | ".join(
+            line.strip() for line in log.read_text().splitlines()
+            if "registers" in line or "spill" in line))
 
     # -- 2. kernel against plain at the render path's point counts --------
     argv = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard.yaml",
@@ -211,7 +674,7 @@ def main():
     print(f"ground truth: hard test views 0, 4 at {H}x{W} rendered on the "
           f"card in {time.perf_counter() - t0:.1f} s")
     chunks = math.ceil(H * W / RenderSettings.from_cfg(cfg).ray_chunk)
-    kernel.launches = plain.calls = Network.calls = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     res = run_evaluate(cfg, loader=views)
     launches, plain_calls = kernel.launches, plain.calls + Network.calls
@@ -255,7 +718,21 @@ def main():
         fail(f"kernel render vs plain render {vs_plain:.2f} dB < "
              f"{KERNEL_VS_PLAIN_MIN_DB} dB")
 
+    # -- 4. the training kernels against plain on a real batch ----------
+    t0 = time.perf_counter()
+    arrays = synthetic_scene.train_views("hard", H, W, TRAIN_VIEWS,
+                                         device="cuda")
+    print(f"ground truth: {len(TRAIN_VIEWS)} hard train views at {H}x{W} "
+          f"rendered on the card in {time.perf_counter() - t0:.1f} s")
+    train_cfg = make_cfg(parse_args(TRAIN_ARGV + [
+        "pretrain_path", "data/pretrain/hard"]))
+    train_checks = phase_train_kernels(train_cfg, arrays)
+
+    # -- 5. training ------------------------------------------------------
+    counts = phase_train(arrays, views, opts.steps, opts.profile)
+
     big = checks[(POINTS[1], "fine")]
+    fwd, bwd = train_checks["fwd"][-1], train_checks["bwd"][-1]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_nerf_mlp_enc", "route": "cuda",
@@ -263,7 +740,19 @@ def main():
         "replaces": "nerf_replication_tpu/ops/pallas/mlp_kernel.py:366",
         "launches": launches,
         "max_abs_err": max(c["err"] for c in checks.values()),
-        "ms": big["ms"], "plain_ms": big["plain_ms"]}]}))
+        "ms": big["ms"], "plain_ms": big["plain_ms"]}, {
+        "name": "fused_nerf_mlp", "route": "cuda",
+        "source": "nerf_replication_tpu_torch/csrc/fused_nerf_mlp.cu",
+        "replaces": "nerf_replication_tpu/ops/pallas/mlp_train.py:168",
+        "launches": counts["fwd"],
+        "max_abs_err": max(c["err"] for c in train_checks["fwd"]),
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"]}, {
+        "name": "fused_nerf_mlp_bwd", "route": "cuda",
+        "source": "nerf_replication_tpu_torch/csrc/fused_nerf_mlp_bwd.cu",
+        "replaces": "nerf_replication_tpu/ops/pallas/mlp_train.py:225",
+        "launches": counts["bwd"],
+        "max_abs_err": max(c["err"] for c in train_checks["bwd"]),
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

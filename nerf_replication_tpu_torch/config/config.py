@@ -8,7 +8,8 @@ without a default is taken as it is.
 
 Port-only keys: ``device`` (default ``cuda``) and ``pretrain_path`` (a
 ``data/pretrain/<name>`` directory to evaluate instead of
-``trained_model_dir``).
+``trained_model_dir``). The training keys and their defaults are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -28,17 +29,38 @@ def default_cfg() -> CN:
     c.save_result = True
     c.device = "cuda"
     c.pretrain_path = ""
+    c.pretrain = ""
+    c.resume = True
+    c.seed = 0
 
     # pluggable modules: registry names (see registry.py)
+    c.train_dataset_module = "src.datasets.nerf.blender"
     c.test_dataset_module = "src.datasets.nerf.blender"
     c.network_module = "src.models.nerf.network"
     c.renderer_module = "src.models.nerf.renderer.volume_renderer"
     c.evaluator_module = "src.evaluators.nerf"
+    c.loss_module = "src.train.trainers.nerf"
 
     c.task_arg = CN()
     c.test = CN({"epoch": -1})
 
+    # training (nerf_replication_tpu/config/config.py defaults)
+    c.ep_iter = -1
+    c.save_ep = 100000
+    c.save_latest_ep = 1
+    c.eval_ep = 1
+    c.train = CN()
+    c.train.epoch = 10000
+    c.train.eps = 1e-8
+    c.train.optim = "adam"
+    c.train.lr = 5e-4
+    c.train.weight_decay = 0.0
+    c.train.scheduler = CN(
+        {"type": "multi_step", "milestones": [80, 120, 200, 240], "gamma": 0.5})
+    c.train.clip_grad_value = 40.0
+
     c.trained_model_dir = "data/trained_model"
+    c.record_dir = "data/record"
     c.result_dir = "data/result"
 
     c.network = CN()
@@ -52,6 +74,7 @@ def parse_cfg(cfg: CN) -> None:
         raise ValueError("task must be specified")
     sub = os.path.join(cfg.task, cfg.scene, cfg.exp_name)
     cfg.trained_model_dir = os.path.join(cfg.trained_model_dir, sub)
+    cfg.record_dir = os.path.join(cfg.record_dir, sub)
     cfg.result_dir = os.path.join(cfg.result_dir, sub, cfg.save_tag)
 
 
@@ -84,6 +107,7 @@ def make_cfg(args) -> CN:
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg_file", default="configs/nerf/hard.yaml", type=str)
+    parser.add_argument("--test", action="store_true", default=False)
     parser.add_argument("--type", type=str, default="")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return parser

@@ -1,118 +1,30 @@
-// Fused frequency encoding + canonical NeRF MLP forward, for Hopper (sm_90a).
+// Canonical NeRF MLP forward for Hopper (sm_90a), with the frequency
+// encoding fused in (fused_nerf_mlp_enc) or from encoded features
+// (fused_nerf_mlp).
 //
 // Replaces the TPU Pallas kernels fused_nerf_mlp_enc_t and fused_nerf_mlp_enc
-// (nerf_replication_tpu/ops/pallas/mlp_kernel.py, _kernel_enc + _kernel_body).
+// (nerf_replication_tpu/ops/pallas/mlp_kernel.py, _kernel_enc +
+// _kernel_body), and fused_nerf_mlp (mlp_kernel.py, _kernel) with the
+// training forward that runs the same body (ops/pallas/mlp_train.py,
+// _fwd_impl).
 //
 // What bounds it: per point the MLP costs about 1.19 MFLOP against 24 bytes
-// of input and 16 bytes of output, so it is compute-bound on the tensor
-// cores. The design keeps every activation on chip: one block takes a tile
-// of 64 points, encodes them into shared memory and runs all layers on that
-// tile, so device memory sees only the raw points, directions and the
-// (N, 4) result. The bf16 weight pack (about 1.2 MB) is read from global
-// memory and stays resident in the 50 MB L2.
+// of input (or 192 bytes of bf16 features) and 16 bytes of output, so it is
+// compute-bound on the tensor cores. The design keeps every activation on
+// chip: one block takes a tile of 64 points, encodes or loads them into
+// shared memory and runs all layers on that tile, so device memory sees only
+// the inputs and the (N, 4) result. The bf16 weight pack (about 1.2 MB) is
+// read from global memory and stays resident in the 50 MB L2.
 //
-// Numerics follow the TPU kernel: bf16 operands, f32 accumulation, f32
-// bias + ReLU, rounded to bf16 before each next matmul; the density comes
-// from the f32 accumulator. The encoding uses precise sinf/cosf: the top
-// band reaches |2^9 x| ~ 3000 rad, where the fast intrinsics lose all
-// accuracy, so this file must never be built with --use_fast_math.
-//
-// Layout of the weight pack (bf16, row-major (in, out), in order):
-//   W0 [64 x 256]; for i in 1..depth-1: (i == skip + 1: W_ix [64 x 256]),
-//   W_i [256 x 256]; W_feat [256 x 256]; w_alpha [256];
-//   Wv_f [256 x 128]; Wv_d [32 x 128]; W_rgb [128 x 16].
-// Bias pack (f32): b_0..b_{depth-1} [256 each]; b_feat [256];
-//   b_alpha [16, first used]; b_v [128]; b_rgb [16, first 3 used].
-// nerf_replication_tpu_torch/ops/mlp_kernel.py builds both packs.
+// The encoding uses precise sinf/cosf: the top band reaches |2^9 x| ~ 3000
+// rad, where the fast intrinsics lose all accuracy, so this file must never
+// be built with --use_fast_math. Packs and numerics: nerf_mlp_tile.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cstddef>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "nerf_mlp_tile.cuh"
 
 namespace {
 
-constexpr int kTileM = 64;           // points per block
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kWidth = 256;          // trunk width
-constexpr int kHalf = 128;           // view layer width
-constexpr int kXDim = 64;            // encoded point features, padded to 16s
-constexpr int kVDim = 32;            // encoded direction features, padded
-constexpr int kRgbCols = 16;         // RGB head, padded
-// shared-memory row pitches, skewed by 16 bytes against bank conflicts
-constexpr int kLdH = kWidth + 8;
-constexpr int kLdX = kXDim + 8;
-constexpr int kLdV = kVDim + 8;
-
-struct Smem {
-  bf16 h[kTileM * kLdH];             // activations, updated in place
-  bf16 x[kTileM * kLdX];             // encoded points (the skip input too)
-  bf16 v[kTileM * kLdV];             // encoded directions
-  float stage[kWarps * 256];         // one 16x16 f32 tile per warp
-  float sigma[kTileM];
-};
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero(FragC (&acc)[MT][NT]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-}
-
-// acc[i][j] += A[16i.., 0:K] @ B[0:K, 16j..]. A lies in shared memory
-// (pitch lda, offset to the warp's first row), B in global memory (pitch
-// ldb, offset to the warp's first column).
-template <int MT, int NT>
-__device__ __forceinline__ void mma_tiles(FragC (&acc)[MT][NT], const bf16* A,
-                                          int lda, const bf16* __restrict__ B,
-                                          int ldb, int K) {
-  for (int k = 0; k < K; k += 16) {
-    FragA a[MT];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-      wmma::load_matrix_sync(a[i], A + i * 16 * lda + k, lda);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      FragB b;
-      wmma::load_matrix_sync(b, B + static_cast<size_t>(k) * ldb + j * 16, ldb);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-    }
-  }
-}
-
-// f32 bias (+ ReLU), rounded to bf16 into shared memory: the value the next
-// layer's matmul reads. The accumulator goes through the warp's staging
-// tile because the fragment's element order is opaque.
-template <int MT, int NT, bool kRelu>
-__device__ __forceinline__ void store_bf16(FragC (&acc)[MT][NT], float* stage,
-                                           const float* __restrict__ bias,
-                                           bf16* dst, int ldd, int lane) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, c = e & 15;
-        float val = stage[e] + __ldg(bias + j * 16 + c);
-        if (kRelu) val = fmaxf(val, 0.0f);
-        dst[(i * 16 + r) * ldd + j * 16 + c] = __float2bfloat16_rn(val);
-      }
-      __syncwarp();
-    }
-}
+using namespace nerf;
 
 // Frequency encoding of a tile, freq_encode's layout: [x, sin(2^0 x),
 // cos(2^0 x), sin(2^1 x), ...], each over all three dims. Columns past the
@@ -140,6 +52,38 @@ __device__ __forceinline__ void encode(const float* __restrict__ src, int n,
   }
 }
 
+struct NoHook {
+  __device__ void operator()(int) const {}
+};
+
+// Runs the MLP on the tile in s.x / s.v and writes out = [rgb, sigma].
+__device__ __forceinline__ void mlp_tile_out(Smem& s, float* __restrict__ out,
+                                             int n, int row0,
+                                             const bf16* __restrict__ w,
+                                             const float* __restrict__ b,
+                                             int depth, int skip) {
+  forward_tile<true>(s, w, b, depth, skip, NoHook());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* stage = s.stage + warp * 256;
+  // RGB head: warps 0..3 take 16 rows each; out = [rgb, sigma]
+  if (warp < 4) {
+    const bf16* __restrict__ wr = w + w_rgb_offset(depth, skip);
+    const float* __restrict__ br = b + b_rgb_offset(depth);
+    FragC accr[1][1];
+    zero(accr);
+    mma_tiles<1, 1>(accr, s.h + warp * 16 * kLdH, kLdH, wr, kRgbCols, kHalf);
+    wmma::store_matrix_sync(stage, accr[0][0], 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 16 * 4; e += 32) {
+      const int r = e >> 2, c = e & 3;
+      const int gp = row0 + warp * 16 + r;
+      if (gp < n)
+        out[static_cast<size_t>(gp) * 4 + c] =
+            c < 3 ? stage[r * 16 + c] + br[c] : s.sigma[warp * 16 + r];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 fused_nerf_mlp_enc_kernel(const float* __restrict__ pts,
                           const float* __restrict__ dirs,
@@ -149,90 +93,32 @@ fused_nerf_mlp_enc_kernel(const float* __restrict__ pts,
                           int xyz_freqs, int view_freqs) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * kTileM;
-  float* stage = s.stage + warp * 256;
-
-  encode(pts, n, row0, xyz_freqs, s.x, kLdX, kXDim, tid);
-  encode(dirs, n, row0, view_freqs, s.v, kLdV, kVDim, tid);
+  encode(pts, n, row0, xyz_freqs, s.x, kLdX, kXDim, threadIdx.x);
+  encode(dirs, n, row0, view_freqs, s.v, kLdV, kVDim, threadIdx.x);
   __syncthreads();
+  mlp_tile_out(s, out, n, row0, w, b, depth, skip);
+}
 
-  // each warp owns 32 of the 256 output columns, for all 64 rows
-  const int n0 = warp * 32;
-  FragC acc[4][2];
-
-  zero(acc);
-  mma_tiles<4, 2>(acc, s.x, kLdX, w + n0, kWidth, kXDim);
-  w += kXDim * kWidth;
-  store_bf16<4, 2, true>(acc, stage, b + n0, s.h + n0, kLdH, lane);
-  b += kWidth;
+__global__ void __launch_bounds__(kThreads, 2)
+fused_nerf_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ v,
+                      float* __restrict__ out, int n,
+                      const bf16* __restrict__ w, const float* __restrict__ b,
+                      int depth, int skip) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  const int row0 = blockIdx.x * kTileM;
+  load_rows(x, n, row0, kXDim, s.x, kLdX, threadIdx.x);
+  load_rows(v, n, row0, kVDim, s.v, kLdV, threadIdx.x);
   __syncthreads();
+  mlp_tile_out(s, out, n, row0, w, b, depth, skip);
+}
 
-  for (int i = 1; i < depth; ++i) {
-    zero(acc);
-    if (i == skip + 1) {  // the [x, h] concat as a split matmul
-      mma_tiles<4, 2>(acc, s.x, kLdX, w + n0, kWidth, kXDim);
-      w += kXDim * kWidth;
-    }
-    mma_tiles<4, 2>(acc, s.h, kLdH, w + n0, kWidth, kWidth);
-    w += kWidth * kWidth;
-    __syncthreads();  // every warp has read h before it is overwritten
-    store_bf16<4, 2, true>(acc, stage, b + n0, s.h + n0, kLdH, lane);
-    b += kWidth;
-    __syncthreads();
-  }
-
-  // density head: an f32 dot of the bf16 activations, 4 threads per point
-  {
-    const bf16* __restrict__ wa = w + kWidth * kWidth;
-    const int p = tid >> 2, q = tid & 3;
-    const bf16* hp = s.h + p * kLdH + q * 64;
-    float sum = 0.0f;
-    for (int k = 0; k < 64; ++k)
-      sum += __bfloat162float(hp[k]) * __bfloat162float(wa[q * 64 + k]);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (q == 0) s.sigma[p] = sum + b[kWidth];
-  }
-  // feature head: no ReLU
-  zero(acc);
-  mma_tiles<4, 2>(acc, s.h, kLdH, w + n0, kWidth, kWidth);
-  w += kWidth * kWidth + kWidth;
-  __syncthreads();
-  store_bf16<4, 2, false>(acc, stage, b + n0, s.h + n0, kLdH, lane);
-  b += kWidth + 16;
-  __syncthreads();
-
-  // view layer: relu(feat @ Wv_f + v @ Wv_d + b_v), 16 columns per warp
-  {
-    const int nv = warp * 16;
-    FragC accv[4][1];
-    zero(accv);
-    mma_tiles<4, 1>(accv, s.h, kLdH, w + nv, kHalf, kWidth);
-    w += kWidth * kHalf;
-    mma_tiles<4, 1>(accv, s.v, kLdV, w + nv, kHalf, kVDim);
-    w += kVDim * kHalf;
-    __syncthreads();
-    store_bf16<4, 1, true>(accv, stage, b + nv, s.h + nv, kLdH, lane);
-    b += kHalf;
-    __syncthreads();
-  }
-
-  // RGB head: warps 0..3 take 16 rows each; out = [rgb, sigma]
-  if (warp < 4) {
-    FragC accr[1][1];
-    zero(accr);
-    mma_tiles<1, 1>(accr, s.h + warp * 16 * kLdH, kLdH, w, kRgbCols, kHalf);
-    wmma::store_matrix_sync(stage, accr[0][0], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 16 * 4; e += 32) {
-      const int r = e >> 2, c = e & 3;
-      const int gp = row0 + warp * 16 + r;
-      if (gp < n)
-        out[static_cast<size_t>(gp) * 4 + c] =
-            c < 3 ? stage[r * 16 + c] + b[c] : s.sigma[warp * 16 + r];
-    }
-  }
+template <typename Kernel>
+int set_smem(Kernel kernel) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(Smem))));
 }
 
 }  // namespace
@@ -244,16 +130,26 @@ int fused_nerf_mlp_enc(const float* pts, const float* dirs, float* out, int n,
                        const void* w, const float* b, int depth, int skip,
                        int xyz_freqs, int view_freqs, void* stream) {
   if (n <= 0) return 0;
-  const int smem = static_cast<int>(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_nerf_mlp_enc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (int err = set_smem(fused_nerf_mlp_enc_kernel)) return err;
   const int blocks = (n + kTileM - 1) / kTileM;
-  fused_nerf_mlp_enc_kernel<<<blocks, kThreads, smem,
+  fused_nerf_mlp_enc_kernel<<<blocks, kThreads, sizeof(Smem),
                               static_cast<cudaStream_t>(stream)>>>(
       pts, dirs, out, n, static_cast<const bf16*>(w), b, depth, skip,
       xyz_freqs, view_freqs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (n, 64) and v (n, 32) bf16 encoded features, zero-padded columns.
+int fused_nerf_mlp(const void* x, const void* v, float* out, int n,
+                   const void* w, const float* b, int depth, int skip,
+                   void* stream) {
+  if (n <= 0) return 0;
+  if (int err = set_smem(fused_nerf_mlp_kernel)) return err;
+  const int blocks = (n + kTileM - 1) / kTileM;
+  fused_nerf_mlp_kernel<<<blocks, kThreads, sizeof(Smem),
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(v), out, n,
+      static_cast<const bf16*>(w), b, depth, skip);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,8 @@ package cannot be imported without JAX. Same behaviour: loads
 ``camera_angle_x``; the train split returns a random ``N_rays`` subset of
 pixels, test/val every pixel. ``__getitem__`` returns the same batch dict
 (colors, rays_o, rays_d, H, W, id, pose, focal, and depth/normal on the
-test split when present).
+test split when present). ``as_arrays`` stacks the split for the
+device-resident training sampler (datasets/pipeline.py).
 """
 
 from __future__ import annotations
@@ -90,6 +91,14 @@ class Dataset:
     @property
     def focal(self) -> float:
         return self.W / (2.0 * np.tan(self.camera_angle_x / 2.0))
+
+    def as_arrays(self):
+        """The whole split for the device-resident sampler: (images
+        (N, H, W, 3) float32, poses (N, 4, 4) float32, K (3, 3) float32)."""
+        f = self.focal
+        K = np.array([[f, 0, self.W / 2.0], [0, f, self.H / 2.0],
+                      [0, 0, 1.0]], dtype=np.float32)
+        return np.stack(self.images), np.stack(self.poses), K
 
     def _rays_for_pixels(self, pose, u, v):
         f = self.focal

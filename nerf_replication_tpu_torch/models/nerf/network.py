@@ -13,6 +13,11 @@ Dtype policy of network.py:47-72: float32 parameters, every matmul in
 ``dtype`` as Flax's ``Dense(dtype=bf16)`` does, float32 raw output.
 Submodule names give state_dict keys ``pts.{i}``, ``feature``, ``alpha``,
 ``views.{i}``, ``rgb`` for Flax's ``pts_{i}``, ..., ``views_{i}``.
+
+Initialisation is Flax ``nn.Dense``'s: kernels ``lecun_normal`` (a normal
+truncated at +-2 sigma, sigma = 1/sqrt(fan_in) / 0.87962566 so that the
+truncated variance is 1/fan_in), biases zero and the ``alpha`` bias
+``density_bias``, drawn from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,19 @@ from ...config import as_bool
 from ..encoding import get_encoder
 
 
+# std of a unit normal truncated at +-2: lecun_normal divides by it
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(layer: nn.Linear, generator: torch.Generator) -> None:
+    """Flax's ``lecun_normal`` kernel and zero bias, in place."""
+    std = layer.in_features ** -0.5 / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+        layer.bias.zero_()
+
+
 def _dense(layer: nn.Linear, h: torch.Tensor, dtype) -> torch.Tensor:
     return F.linear(h, layer.weight.to(dtype), layer.bias.to(dtype))
 
@@ -36,7 +54,8 @@ class NeRFMLP(nn.Module):
                  width: int = 256, view_depth: int = 1,
                  skips: Sequence[int] = (4,), use_viewdirs: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
-                 density_bias: float = 0.0):
+                 density_bias: float = 0.0,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.depth, self.width, self.view_depth = depth, width, view_depth
         self.skips = tuple(skips)
@@ -48,7 +67,6 @@ class NeRFMLP(nn.Module):
                                  for i in range(depth))
         if use_viewdirs:
             self.alpha = nn.Linear(dims[-1], 1)
-            nn.init.constant_(self.alpha.bias, density_bias)
             self.feature = nn.Linear(dims[-1], width)
             self.views = nn.ModuleList(
                 nn.Linear(width + view_dim if i == 0 else width // 2,
@@ -56,6 +74,13 @@ class NeRFMLP(nn.Module):
             self.rgb = nn.Linear(width // 2, 3)
         else:
             self.output = nn.Linear(dims[-1], 4)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                lecun_normal_(m, generator)
+        if use_viewdirs:
+            nn.init.constant_(self.alpha.bias, density_bias)
 
     def forward(self, pts_feat: torch.Tensor,
                 view_feat: torch.Tensor | None = None) -> torch.Tensor:
@@ -105,8 +130,12 @@ class Network(nn.Module):
         return mlp(pts_feat, view_feat).reshape(*shape, 4)
 
 
-def make_network(cfg) -> Network:
+def make_network(cfg, generator: torch.Generator | None = None) -> Network:
+    """The config's Network, initialised from ``generator`` (default: a
+    CPU generator seeded with ``cfg.seed``); coarse draws before fine."""
     c = cfg.network
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     use_viewdirs = as_bool(cfg.get("task_arg", {}).get("use_viewdirs", True),
                            "task_arg.use_viewdirs")
     dtype = getattr(torch, c.get("dtype", "bfloat16"))
@@ -118,6 +147,7 @@ def make_network(cfg) -> Network:
             in_dim=xyz_encoder.output_dim, view_dim=dir_encoder.output_dim,
             depth=c.nerf.D, width=c.nerf.W, view_depth=c.nerf.get("V_D", 1),
             skips=tuple(c.nerf.skips), use_viewdirs=use_viewdirs, dtype=dtype,
-            density_bias=float(c.nerf.get("density_bias", 0.0)))
+            density_bias=float(c.nerf.get("density_bias", 0.0)),
+            generator=generator)
 
     return Network(mk(), mk(), xyz_encoder, dir_encoder, use_viewdirs)

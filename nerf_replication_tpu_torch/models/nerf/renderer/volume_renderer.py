@@ -1,11 +1,20 @@
-"""Hierarchical volume renderer, eval path.
+"""Hierarchical volume renderer, eval and train paths.
 
 The counterpart of nerf_replication_tpu/models/nerf/renderer/
 volume_renderer.py: stratified coarse samples -> coarse MLP -> weights ->
 inverse-CDF importance samples -> sorted union -> fine MLP -> composite.
-PyTorch runs it eagerly, one ray chunk at a time.
+PyTorch runs it eagerly, one ray chunk at a time for eval and one ray
+batch per training step.
 
-Not ported yet (ROADMAP.md A.5): the train path, ``render_image_fast``,
+Training (``render_rays(..., generator, train=True)``) jitters the coarse
+samples (``perturb``), draws the importance samples at random ``u`` from
+the coarse weights with their gradient stopped, and adds ``raw_noise_std``
+noise to the densities, all from one ``torch.Generator``. Its MLP is
+:attr:`Renderer.train_apply`: the differentiable fused kernels
+(ops/mlp_train.py) with ``network.use_pallas_mlp_train`` True, the port's
+default, else the ``nn.Module`` with autograd (the JAX package's XLA arm).
+
+Not ported yet (ROADMAP.md A.5): ``render_image_fast``,
 ``make_frame_renderer``, ``fine_stage_ert`` and the ESS/ERT masks;
 :meth:`RenderSettings.from_cfg` refuses configs that ask for them.
 """
@@ -17,7 +26,7 @@ import dataclasses
 import torch
 
 from ....config import as_bool
-from ....ops import mlp_kernel
+from ....ops import mlp_kernel, mlp_train
 from ....ops.ray_ops import (
     composite,
     compute_weights,
@@ -35,6 +44,8 @@ class RenderSettings:
     far: float = 6.0
     white_bkgd: bool = True
     lindisp: bool = False
+    perturb: bool = True           # jitter coarse samples in training
+    raw_noise_std: float = 0.0     # density noise in training
     ray_chunk: int = 8192          # rays per eval chunk
     density_activation: str = "relu"
     finite_tail: bool = False
@@ -60,6 +71,8 @@ class RenderSettings:
             far=float(get("far", 6.0)),
             white_bkgd=as_bool(get("white_bkgd", True), "white_bkgd"),
             lindisp=as_bool(get("lindisp", False), "lindisp"),
+            perturb=as_bool(get("perturb", True), "perturb"),
+            raw_noise_std=float(get("raw_noise_std", 0.0)),
             ray_chunk=int(get("ray_chunk", 8192)),
             density_activation=str(get("density_activation", "relu")),
             finite_tail=as_bool(get("finite_tail", False), "finite_tail"),
@@ -67,29 +80,39 @@ class RenderSettings:
 
 
 def fine_stage(apply_fn, rays_o, rays_d, viewdirs, t_coarse, w_c,
-               s: RenderSettings) -> dict:
-    """Importance-resample from the coarse weights, sort the union of
-    coarse and fine depths, run the fine MLP and composite."""
+               s: RenderSettings, generator: torch.Generator | None = None,
+               train: bool = False) -> dict:
+    """Importance-resample from the coarse weights (their gradient
+    stopped), sort the union of coarse and fine depths, run the fine MLP
+    and composite. In training the CDF is sampled at random ``u`` and the
+    densities get ``raw_noise_std`` noise, both from ``generator``."""
+    gen = generator if train else None
     bins = 0.5 * (t_coarse[..., 1:] + t_coarse[..., :-1])
-    t_fine = sample_pdf(bins, w_c[..., 1:-1], s.N_importance)
+    t_fine = sample_pdf(bins, w_c[..., 1:-1].detach(), s.N_importance,
+                        generator=gen)
     t_all, _ = torch.sort(torch.cat([t_coarse, t_fine], dim=-1), dim=-1)
     pts = rays_o[:, None] + rays_d[:, None] * t_all[..., None]
     raw = apply_fn(pts, viewdirs[:, None], "fine")
     w_f, _, _ = compute_weights(
         raw[..., 3], t_all, activation=density_activation(s.density_activation),
-        finite_tail=s.finite_tail)
+        finite_tail=s.finite_tail, raw_noise_std=s.raw_noise_std,
+        generator=gen)
     rgb, depth, acc = composite(torch.sigmoid(raw[..., :3]), w_f, t_all,
                                 s.white_bkgd)
     return {"rgb": rgb, "depth": depth, "acc": acc}
 
 
 def render_rays(apply_fn, rays_o: torch.Tensor, rays_d: torch.Tensor,
-                s: RenderSettings) -> dict:
-    """Render a flat batch of rays (N, 3) deterministically (eval).
-    ``apply_fn(pts, viewdirs, model) -> raw (..., 4)``. Returns rgb, depth,
-    acc, plus the coarse composite as rgb_coarse/depth_coarse/acc_coarse
-    when N_importance > 0."""
+                s: RenderSettings, generator: torch.Generator | None = None,
+                train: bool = False) -> dict:
+    """Render a flat batch of rays (N, 3).
+    ``apply_fn(pts, viewdirs, model) -> raw (..., 4)``. Deterministic
+    unless ``train`` and a ``generator`` are given (the JAX package's
+    ``key``). Returns rgb, depth, acc, plus the coarse composite as
+    rgb_coarse/depth_coarse/acc_coarse when N_importance > 0."""
+    gen = generator if train else None
     t_coarse = stratified_sample(rays_o.shape[0], s.N_samples, s.near, s.far,
+                                 generator=gen if s.perturb else None,
                                  lindisp=s.lindisp, device=rays_o.device)
     pts = rays_o[:, None] + rays_d[:, None] * t_coarse[..., None]
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
@@ -97,12 +120,14 @@ def render_rays(apply_fn, rays_o: torch.Tensor, rays_d: torch.Tensor,
     w_c, _, _ = compute_weights(
         raw[..., 3], t_coarse,
         activation=density_activation(s.density_activation),
-        finite_tail=s.finite_tail)
+        finite_tail=s.finite_tail, raw_noise_std=s.raw_noise_std,
+        generator=gen)
     rgb_c, depth_c, acc_c = composite(torch.sigmoid(raw[..., :3]), w_c,
                                       t_coarse, s.white_bkgd)
     if s.N_importance <= 0:
         return {"rgb": rgb_c, "depth": depth_c, "acc": acc_c}
-    out = fine_stage(apply_fn, rays_o, rays_d, viewdirs, t_coarse, w_c, s)
+    out = fine_stage(apply_fn, rays_o, rays_d, viewdirs, t_coarse, w_c, s,
+                     generator=gen, train=train)
     out.update(rgb_coarse=rgb_c, depth_coarse=depth_c, acc_coarse=acc_c)
     return out
 
@@ -117,6 +142,11 @@ class Renderer:
         self.settings = (RenderSettings.from_cfg(cfg) if cfg is not None
                          else RenderSettings())
         self.apply_fn = net
+        network_cfg = cfg.get("network", {}) if cfg is not None else {}
+        self.fused_train = as_bool(
+            network_cfg.get("use_pallas_mlp_train", True),
+            "network.use_pallas_mlp_train")
+        self._train_apply = None
 
     @property
     def device(self) -> torch.device:
@@ -135,6 +165,29 @@ class Renderer:
             mlp_kernel.build()
         self.apply_fn = fused
         return True
+
+    @property
+    def train_apply(self):
+        """The training MLP, made at first use: the differentiable fused
+        kernels with ``network.use_pallas_mlp_train`` True (built now on a
+        CUDA network, so a failed build raises; a network they do not
+        cover raises), else the ``nn.Module`` with autograd."""
+        if self._train_apply is None:
+            if not self.fused_train:
+                self._train_apply = self.net
+            else:
+                fused = mlp_train.make_fused_train_apply(self.net)
+                if fused is None:
+                    raise ValueError(
+                        "network.use_pallas_mlp_train is on, but the fused "
+                        "MLP kernels do not cover "
+                        f"{mlp_kernel.unsupported(self.net)}; set "
+                        "network.use_pallas_mlp_train False for the "
+                        "nn.Module MLP")
+                if self.device.type == "cuda":
+                    mlp_train.build()
+                self._train_apply = fused
+        return self._train_apply
 
     @torch.inference_mode()
     def render_rays_batch(self, rays_o, rays_d) -> dict:

@@ -2,14 +2,16 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled at
 first use into ``<repo>/build/lib<name>-<hash>.so``, keyed by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged
-one is loaded as it is. ``nvcc -Xptxas -v`` output (registers, shared
-memory, spills) is kept beside the library as ``.log``.
+the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source rebuilds and an unchanged one is loaded as it is. ``nvcc -Xptxas
+-v`` output (registers, shared memory, spills) is kept beside the library
+as ``.log``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import concurrent.futures
 import hashlib
 import os
 import shutil
@@ -40,6 +42,8 @@ def library_path(name: str) -> Path:
     source or the flags changed since the last build."""
     src = CSRC_DIR / f"{name}.cu"
     key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # the shared headers
+        key += header.read_bytes()
     lib = BUILD_DIR / f"lib{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
     if lib.exists():
         return lib
@@ -53,6 +57,13 @@ def library_path(name: str) -> Path:
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
     return lib
+
+
+def build_all(names) -> None:
+    """Build every source in ``names`` that needs it, one nvcc each, all
+    started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(library_path, names))
 
 
 def load(name: str) -> ctypes.CDLL:

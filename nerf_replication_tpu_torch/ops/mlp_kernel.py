@@ -1,24 +1,29 @@
-"""Fused frequency-encode + NeRF-MLP forward: the CUDA kernel, its wrapper
-and its plain PyTorch version.
+"""Fused NeRF-MLP forward: the CUDA kernels, their wrappers and their plain
+PyTorch versions.
 
 Replaces the TPU Pallas kernels ``fused_nerf_mlp_enc_t``
 (nerf_replication_tpu/ops/pallas/mlp_kernel.py:279) and
 ``fused_nerf_mlp_enc`` (:220), which the JAX renderer reaches through
-``make_fused_apply`` for frequency encoders. The kernel lives in
-``csrc/fused_nerf_mlp.cu``; it is compute-bound (about 1.19 MFLOP and 24 B
-of input per point) and keeps every activation of a 64-point tile in
-shared memory, so device memory sees only points, directions and the
-(N, 4) output.
+``make_fused_apply`` for frequency encoders, and ``fused_nerf_mlp``
+(:94), whose body the training forward runs
+(nerf_replication_tpu/ops/pallas/mlp_train.py:168). The kernels live in
+``csrc/fused_nerf_mlp.cu``; they are compute-bound (about 1.19 MFLOP per
+point) and keep every activation of a 64-point tile in shared memory, so
+device memory sees only the inputs and the (N, 4) output.
+
+* :func:`fused_nerf_mlp_enc` encodes raw points and directions in the
+  kernel (the eval path);
+* :func:`fused_nerf_mlp` takes encoded bf16 features (N, 64) and (N, 32)
+  (the training path, ops/mlp_train.py).
 
 Only the canonical architecture is covered, as on the TPU: width 256, one
 skip, one 128-wide view layer, frequency encoders with at most 10 point
 and 4 direction bands (63 -> 64 and 27 -> 32 encoded columns).
 
-:func:`fused_nerf_mlp_enc` launches the kernel for CUDA tensors and uses
-:func:`fused_nerf_mlp_enc_reference` only for tensors on the CPU. Both
-count their calls (``.launches`` / ``.calls``), and so does the plain
-``nn.Module`` MLP (``Network.calls``), so a run can show which path it
-went through.
+Each wrapper launches its kernel for CUDA tensors and uses its plain
+version only for tensors on the CPU. Both count their calls
+(``.launches`` / ``.calls``), and so does the plain ``nn.Module`` MLP
+(``Network.calls``), so a run can show which path it went through.
 """
 
 from __future__ import annotations
@@ -53,30 +58,30 @@ class PackedMLP:
     skip: int
 
 
-def pack_nerf_params(state: dict, in_dim: int, view_dim: int, depth: int,
-                     skip: int) -> PackedMLP:
-    """A NeRFMLP state_dict (``nn.Linear`` weights are (out, in)) -> the
-    kernel's pack. Every matrix is transposed to (in, out); the skip
-    layer splits at ``in_dim`` rows and ``views.0`` at 256, as in
-    nerf_replication_tpu/ops/pallas/mlp_kernel.py:62-80."""
+def pack_tensors(weight, bias, in_dim: int, view_dim: int, depth: int,
+                 skip: int):
+    """The flat f32 weight and bias packs (the layout of
+    ``csrc/nerf_mlp_tile.cuh``) from ``weight(name)`` (an ``nn.Linear``
+    weight, (out, in)) and ``bias(name)``, by transpose, pad, split and
+    concat only, so autograd routes gradients of the packs back to the
+    parameters. The skip layer splits at ``in_dim`` rows and ``views.0``
+    at 256, as in nerf_replication_tpu/ops/pallas/mlp_kernel.py:62-80."""
     if in_dim > X_DIM or view_dim > V_DIM:
         raise ValueError(f"fused kernel: encoded widths {in_dim}/{view_dim} "
                          f"exceed {X_DIM}/{V_DIM}")
     if not 0 <= skip < depth - 1:
         raise ValueError(f"fused kernel: skip {skip} must feed a trunk "
                          f"layer (depth {depth})")
-    if any(k.startswith("views.1.") for k in state):
-        raise ValueError("fused kernel: one view layer only")
 
     def w(name, rows, cols):
-        m = state[f"{name}.weight"].detach().float().t()
+        m = weight(name).float().t()
         if tuple(m.shape) != (rows, cols):
             raise ValueError(f"fused kernel: {name} is {tuple(m.shape)}, "
                              f"expected {(rows, cols)}")
         return m
 
     def b(name, pad=0):
-        return F.pad(state[f"{name}.bias"].detach().float(), (0, pad))
+        return F.pad(bias(name).float(), (0, pad))
 
     def pad_rows(m, rows):
         return F.pad(m, (0, 0, 0, rows - m.shape[0]))
@@ -96,9 +101,20 @@ def pack_nerf_params(state: dict, in_dim: int, view_dim: int, depth: int,
     ws += [wv[:WIDTH], pad_rows(wv[WIDTH:], V_DIM),
            F.pad(w("rgb", HALF, 3), (0, RGB_COLS - 3))]
     bs += [b("views.0"), b("rgb", RGB_COLS - 3)]
-    return PackedMLP(
-        w=torch.cat([m.reshape(-1) for m in ws]).to(torch.bfloat16),
-        b=torch.cat(bs), depth=depth, skip=skip)
+    return torch.cat([m.reshape(-1) for m in ws]), torch.cat(bs)
+
+
+def pack_nerf_params(state: dict, in_dim: int, view_dim: int, depth: int,
+                     skip: int) -> PackedMLP:
+    """A NeRFMLP state_dict (``nn.Linear`` weights are (out, in)) -> the
+    kernel's pack: bf16 weights, f32 biases, detached."""
+    if any(k.startswith("views.1.") for k in state):
+        raise ValueError("fused kernel: one view layer only")
+    with torch.no_grad():
+        w, b = pack_tensors(lambda n: state[f"{n}.weight"].detach(),
+                            lambda n: state[f"{n}.bias"].detach(),
+                            in_dim, view_dim, depth, skip)
+    return PackedMLP(w=w.to(torch.bfloat16), b=b, depth=depth, skip=skip)
 
 
 def _take(flat: torch.Tensor, at: int, rows: int, cols: int):
@@ -115,18 +131,14 @@ def _encode(x: torch.Tensor, n_freqs: int, cols: int) -> torch.Tensor:
     return _bf16(F.pad(feats, (0, cols - feats.shape[-1])))
 
 
-def fused_nerf_mlp_enc_reference(packed: PackedMLP, pts: torch.Tensor,
-                                 dirs: torch.Tensor, xyz_freqs: int,
-                                 view_freqs: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel with the same rounding points:
+def _mlp_body(packed: PackedMLP, x: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """The kernels' MLP on bf16-valued f32 features x (N, 64), v (N, 32):
     bf16-valued operands multiplied in f32 (exact products, f32 sums, as
-    bf16 x bf16 -> f32 on the tensor cores), f32 bias and ReLU. Reads the
-    same pack, so it checks the packing too. f32 matmuls must not run in
-    TF32 (``torch.backends.cuda.matmul.allow_tf32`` False, the default).
-    (N, 3), (N, 3) -> raw (N, 4) float32."""
-    fused_nerf_mlp_enc_reference.calls += 1
-    x = _encode(pts, xyz_freqs, X_DIM)
-    v = _encode(dirs, view_freqs, V_DIM)
+    bf16 x bf16 -> f32 on the tensor cores), f32 bias and ReLU, each
+    activation rounded to bf16 before the next product. Reads the pack,
+    so it checks the packing too. f32 matmuls must not run in TF32
+    (``torch.backends.cuda.matmul.allow_tf32`` False, the default)."""
     w, b = packed.w, packed.b
     wa = ba = 0
 
@@ -153,7 +165,38 @@ def fused_nerf_mlp_enc_reference(packed: PackedMLP, pts: torch.Tensor,
     return torch.cat([rgb, sigma], dim=-1)
 
 
+def fused_nerf_mlp_enc_reference(packed: PackedMLP, pts: torch.Tensor,
+                                 dirs: torch.Tensor, xyz_freqs: int,
+                                 view_freqs: int) -> torch.Tensor:
+    """Plain PyTorch version of the encode+MLP kernel with the same
+    rounding points (see :func:`_mlp_body`).
+    (N, 3), (N, 3) -> raw (N, 4) float32."""
+    fused_nerf_mlp_enc_reference.calls += 1
+    return _mlp_body(packed, _encode(pts, xyz_freqs, X_DIM),
+                     _encode(dirs, view_freqs, V_DIM))
+
+
 fused_nerf_mlp_enc_reference.calls = 0
+
+
+def encode_features(pts: torch.Tensor, dirs: torch.Tensor, xyz_freqs: int,
+                    view_freqs: int):
+    """Raw (N, 3) points and directions -> the features-in kernel's bf16
+    inputs x (N, 64) and v (N, 32), zero-padded, contiguous."""
+    return (_encode(pts, xyz_freqs, X_DIM).to(torch.bfloat16).contiguous(),
+            _encode(dirs, view_freqs, V_DIM).to(torch.bfloat16).contiguous())
+
+
+def fused_nerf_mlp_reference(packed: PackedMLP, x: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the features-in kernel with the same
+    rounding points (see :func:`_mlp_body`). bf16 x (N, 64), v (N, 32) ->
+    raw (N, 4) float32."""
+    fused_nerf_mlp_reference.calls += 1
+    return _mlp_body(packed, x.float(), v.float())
+
+
+fused_nerf_mlp_reference.calls = 0
 
 
 @functools.cache
@@ -163,14 +206,33 @@ def _kernel():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32, i32, i32, i32, ptr]
     fn.restype = i32
+    lib.fused_nerf_mlp.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32, i32, ptr]
+    lib.fused_nerf_mlp.restype = i32
     lib.nerf_cuda_error_string.argtypes = [i32]
     lib.nerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def build() -> None:
-    """Build and load the kernel now, so that a failed build raises here."""
+    """Build and load the kernels now, so that a failed build raises here."""
     _kernel()
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise on a non-zero CUDA error code returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + _kernel().nerf_cuda_error_string(err).decode())
+
+
+def check_pack(packed: PackedMLP, device: torch.device) -> None:
+    for t in (packed.w, packed.b):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError("fused kernel: weight pack must be contiguous "
+                             f"on {device}")
+    if packed.w.dtype != torch.bfloat16 or packed.b.dtype != torch.float32:
+        raise ValueError("fused kernel: the pack must be bf16 weights and "
+                         "f32 biases")
 
 
 def fused_nerf_mlp_enc(packed: PackedMLP, pts: torch.Tensor,
@@ -192,10 +254,7 @@ def fused_nerf_mlp_enc(packed: PackedMLP, pts: torch.Tensor,
                 or not t.is_contiguous() or t.device != pts.device:
             raise ValueError(f"fused kernel: {name} must be a contiguous "
                              f"float32 ({n}, 3) tensor on {pts.device}")
-    for t in (packed.w, packed.b):
-        if t.device != pts.device or not t.is_contiguous():
-            raise ValueError("fused kernel: weight pack must be contiguous "
-                             f"on {pts.device}")
+    check_pack(packed, pts.device)
     if 3 * (1 + 2 * xyz_freqs) > X_DIM or 3 * (1 + 2 * view_freqs) > V_DIM:
         raise ValueError(f"fused kernel: at most {(X_DIM // 3 - 1) // 2} "
                          f"and {(V_DIM // 3 - 1) // 2} bands")
@@ -211,14 +270,56 @@ def fused_nerf_mlp_enc(packed: PackedMLP, pts: torch.Tensor,
             packed.w.data_ptr(), packed.b.data_ptr(), packed.depth,
             packed.skip, xyz_freqs, view_freqs,
             torch.cuda.current_stream(pts.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("fused_nerf_mlp_enc launch failed: "
-                           + lib.nerf_cuda_error_string(err).decode())
+    check_launch(err, "fused_nerf_mlp_enc")
     fused_nerf_mlp_enc.launches += 1
     return out
 
 
 fused_nerf_mlp_enc.launches = 0
+
+
+def check_features(x: torch.Tensor, v: torch.Tensor) -> int:
+    """The number of points of the features-in kernels' inputs: bf16,
+    contiguous (N, 64) and (N, 32) on one CUDA device; raises otherwise."""
+    n = x.shape[0]
+    for name, t, cols in (("x", x, X_DIM), ("v", v, V_DIM)):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != (n, cols) \
+                or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"fused kernel: {name} must be a contiguous "
+                             f"bfloat16 ({n}, {cols}) tensor on {x.device}")
+    if n >= 2 ** 31 // WIDTH:
+        raise ValueError(f"fused kernel: {n} points exceed the int32 index")
+    return n
+
+
+def fused_nerf_mlp(packed: PackedMLP, x: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Encoded bf16 features x (N, 64), v (N, 32) (see
+    :func:`encode_features`) -> raw (N, 4) float32 ``[rgb, sigma]``.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    """
+    if x.device.type == "cpu":
+        return fused_nerf_mlp_reference(packed, x, v)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused kernel: unsupported device {x.device}")
+    n = check_features(x, v)
+    check_pack(packed, x.device)
+    out = torch.empty((n, 4), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    lib = _kernel()
+    with torch.cuda.device(x.device):
+        err = lib.fused_nerf_mlp(
+            x.data_ptr(), v.data_ptr(), out.data_ptr(), n,
+            packed.w.data_ptr(), packed.b.data_ptr(), packed.depth,
+            packed.skip, torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(err, "fused_nerf_mlp")
+    fused_nerf_mlp.launches += 1
+    return out
+
+
+fused_nerf_mlp.launches = 0
 
 
 def flops_per_point(packed: PackedMLP) -> int:
@@ -275,6 +376,7 @@ def make_fused_apply(net):
     return apply_fn
 
 
-__all__ = ["PackedMLP", "pack_nerf_params", "fused_nerf_mlp_enc",
-           "fused_nerf_mlp_enc_reference", "unsupported", "make_fused_apply",
-           "build", "flops_per_point"]
+__all__ = ["PackedMLP", "pack_tensors", "pack_nerf_params",
+           "fused_nerf_mlp_enc", "fused_nerf_mlp_enc_reference",
+           "fused_nerf_mlp", "fused_nerf_mlp_reference", "encode_features",
+           "unsupported", "make_fused_apply", "build", "flops_per_point"]

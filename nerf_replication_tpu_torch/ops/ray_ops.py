@@ -62,15 +62,22 @@ def density_activation(name: str):
 
 
 def compute_weights(sigma: torch.Tensor, t: torch.Tensor,
-                    activation=torch.relu, finite_tail: bool = False):
+                    activation=torch.relu, finite_tail: bool = False,
+                    raw_noise_std: float = 0.0,
+                    generator: torch.Generator | None = None):
     """Compositing weights from raw densities ``sigma`` (..., S) at depths
     ``t`` (..., S). The last interval is 1e10 long, or as long as the one
-    before it with ``finite_tail``. Returns ``(weights, alpha, trans)``
-    with the exclusive transmittance T_i = prod_{j<i}(1 - alpha_j + eps)."""
+    before it with ``finite_tail``. With ``raw_noise_std`` > 0 and a
+    ``generator`` (training), Gaussian noise of that std is added to the
+    raw densities. Returns ``(weights, alpha, trans)`` with the exclusive
+    transmittance T_i = prod_{j<i}(1 - alpha_j + eps)."""
     delta = t[..., 1:] - t[..., :-1]
     tail = (delta[..., -1:] if finite_tail
             else torch.full_like(delta[..., :1], 1e10))
     delta = torch.cat([delta, tail], dim=-1)
+    if raw_noise_std > 0.0 and generator is not None:
+        sigma = sigma + raw_noise_std * torch.randn(
+            sigma.shape, generator=generator, device=sigma.device)
     alpha = 1.0 - torch.exp(-activation(sigma) * delta)
     trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]],
@@ -79,10 +86,12 @@ def compute_weights(sigma: torch.Tensor, t: torch.Tensor,
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
-               n_importance: int) -> torch.Tensor:
-    """Deterministic inverse-CDF sampling of ``n_importance`` depths per
-    ray at ``u = linspace(0, 1)``; ``bins`` (..., B+1) are edges,
-    ``weights`` (..., B) their weights. Unsorted.
+               n_importance: int,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverse-CDF sampling of ``n_importance`` depths per ray: at
+    ``u = linspace(0, 1)`` (eval), or at uniform ``u`` drawn from
+    ``generator`` (training); ``bins`` (..., B+1) are edges, ``weights``
+    (..., B) their weights. Unsorted.
 
     Ties and tails as the JAX masked-reduction form (ray_ops.py:181-210):
     the segment is [last cdf entry <= u, first entry > u], so repeated
@@ -94,8 +103,12 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
     pdf = weights / weights.sum(dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
-    u = torch.linspace(0.0, 1.0, n_importance, device=cdf.device)
-    u = u.expand(*cdf.shape[:-1], n_importance).contiguous()
+    shape = (*cdf.shape[:-1], n_importance)
+    if generator is not None:
+        u = torch.rand(shape, generator=generator, device=cdf.device)
+    else:
+        u = torch.linspace(0.0, 1.0, n_importance, device=cdf.device)
+        u = u.expand(shape).contiguous()
 
     above = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = (above - 1).clamp(min=0)

@@ -8,7 +8,8 @@ analytic sphere field at 384 samples — on any torch device.
 writes it and the Blender loader reads it: the same poses
 (``rng(seed + 3)``, 8 test views, radius 4), the image quantized to RGBA
 uint8 and composited onto white. These are the views the JAX package's
-test PSNRs were measured on.
+test PSNRs were measured on. :func:`train_views` does the same for the
+train split (``rng(seed + 1)``, 100 views, as the hard scene was made).
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ CAMERA_ANGLE_X = 0.6911112070083618  # the Blender lego field of view
 # generate_scene's defaults, with which the hard scene was made: the test
 # poses depend on all three
 SEED, N_TEST, RADIUS = 0, 8, 4.0
+N_TRAIN = 100   # the hard scene's train views (scripts/tpu_queue_r5.sh:40)
 
 
 def _sphere_fields(sphere):
@@ -109,15 +111,27 @@ def camera_rays(pose: np.ndarray, H: int, W: int, focal: float):
     return rays_o, rays_d
 
 
-def test_poses():
-    """The test-split camera poses that ``generate_scene`` writes."""
-    g = np.random.default_rng(SEED + 3)
-    phis = g.uniform(0, 2 * np.pi, N_TEST)
-    thetas = np.arccos(g.uniform(0.15, 0.85, N_TEST))  # avoid the poles
+def split_poses(n: int, split_seed: int):
+    """The ``n`` poses of a split as ``generate_scene`` draws them: all
+    phis, then all thetas, from ``rng(SEED + split_seed)``; so a subset
+    must be taken after drawing all ``n``."""
+    g = np.random.default_rng(SEED + split_seed)
+    phis = g.uniform(0, 2 * np.pi, n)
+    thetas = np.arccos(g.uniform(0.15, 0.85, n))  # avoid the poles
     eyes = np.stack([RADIUS * np.sin(thetas) * np.cos(phis),
                      RADIUS * np.sin(thetas) * np.sin(phis),
                      RADIUS * np.cos(thetas)], -1)
     return [look_at_pose(e) for e in eyes]
+
+
+def test_poses():
+    """The test-split camera poses that ``generate_scene`` writes."""
+    return split_poses(N_TEST, 3)
+
+
+def train_poses():
+    """The train-split camera poses of a 100-view ``generate_scene``."""
+    return split_poses(N_TRAIN, 1)
 
 
 @torch.inference_mode()
@@ -164,6 +178,31 @@ def render_gt(pose, H, W, focal, spheres=DEFAULT_SPHERES, n_samples=384,
             torch.cat(depth_out).cpu().numpy().reshape(H, W))
 
 
+def _stored_and_loaded(pose, H, W, focal, scene, device) -> np.ndarray:
+    """Ground truth as ``generate_scene`` stores it (RGBA uint8) and the
+    Blender loader reads it (composited onto white, float32 (H, W, 3))."""
+    rgb, alpha, _ = render_gt(pose, H, W, focal, SCENES[scene], device=device)
+    rgba = np.concatenate([rgb, alpha[..., None]], -1)
+    img = (np.clip(rgba, 0, 1) * 255).astype(np.uint8)
+    img = np.asarray(img, dtype=np.float32) / 255.0
+    return img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+
+
+def train_views(scene: str, H: int, W: int, idx, device="cpu"):
+    """Train views ``idx`` of a 100-view ``generate_scene(scene)`` as the
+    Blender loader's ``as_arrays`` gives them: (images (n, H, W, 3)
+    float32, poses (n, 4, 4) float32, K (3, 3) float32), ground truth from
+    :func:`render_gt` on ``device``."""
+    focal = W / (2.0 * np.tan(CAMERA_ANGLE_X / 2.0))
+    poses = train_poses()
+    images = [_stored_and_loaded(poses[i], H, W, focal, scene, device)
+              for i in idx]
+    K = np.array([[focal, 0, W / 2.0], [0, focal, H / 2.0], [0, 0, 1.0]],
+                 dtype=np.float32)
+    return (np.stack(images).astype(np.float32),
+            np.stack([poses[i] for i in idx]).astype(np.float32), K)
+
+
 def test_views(scene: str, H: int, W: int, idx, device="cpu") -> list[dict]:
     """Test views ``idx`` of ``generate_scene(scene)`` as the
     Blender loader's test batches (colors, rays_o, rays_d, H, W, id,
@@ -175,12 +214,7 @@ def test_views(scene: str, H: int, W: int, idx, device="cpu") -> list[dict]:
     batches = []
     for i in idx:
         pose = poses[i]
-        rgb, alpha, _ = render_gt(pose, H, W, focal, SCENES[scene],
-                                  device=device)
-        rgba = np.concatenate([rgb, alpha[..., None]], -1)
-        img = (np.clip(rgba, 0, 1) * 255).astype(np.uint8)
-        img = np.asarray(img, dtype=np.float32) / 255.0
-        img = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+        img = _stored_and_loaded(pose, H, W, focal, scene, device)
         rays_o, rays_d = camera_rays(pose, H, W, focal)
         batches.append({
             "colors": img.reshape(-1, 3).astype(np.float32),
