@@ -5,8 +5,10 @@
 
 Phases (any failure exits non-zero):
 1. device and build: the card's name and power limit; builds the fused
-   encode+MLP, features-in forward and backward kernels from csrc/ and
-   prints the build time and ptxas's register and spill report.
+   encode+MLP, features-in forward and backward kernels and the NGP
+   brick-encode and fused encode+MLP kernels from csrc/, one nvcc each,
+   all started together, and prints the build time and ptxas's register
+   and spill report.
 2. kernel against its plain PyTorch version, with the data/pretrain/hard
    weights, at the render path's point counts: 2.56M (a 40000-ray coarse
    chunk) and 7.68M (a fine chunk); error statistics and CUDA-event times.
@@ -42,9 +44,25 @@ Phases (any failure exits non-zero):
    within 0.5 dB of each other; a checkpoint of the kernel arm loads back
    through load_network and renders the same image.
    ``--steps`` shortens the run for a quick check; ``--profile N``
-   profiles N more steps of each arm with torch.profiler (tables under
-   build/).
-The last two lines are the kernel summary and the device, as JSON.
+   profiles N more steps of each arm with torch.profiler, and 5 frames of
+   phase 6's fused route (tables under build/).
+6. NGP eval: configs/nerf/hard_ngp.yaml with data/pretrain/hard_ngp_b9
+   (``network.xyz_encoder.log2_bricks 9``). (a) The brick-encode and the
+   fused encode+MLP kernels against their plain versions on the samples
+   of one real 8000-ray chunk of hard view 0 (384,000 coarse and 896,000
+   fine points, each through its branch), with three lower-precision
+   plain versions that must fail the same check (the table read in f32,
+   the MLP in bf16, the MLP in TF32); CUDA-event times beside each
+   kernel's bound. (b) ``run_evaluate`` on hard test views 0 and 4 at
+   800x800 through the fused route: mean uint8 PSNR against the JAX
+   record 30.28 dB, SSIM, frame times, 2 fused launches a chunk and no
+   other kernel or plain call. (c) View 0 through the unfused route (the
+   encode kernel and the nn.Module MLP, 2 of each a chunk) and the plain
+   route (``network.use_pallas_mlp False``, no launch): each one's PSNR
+   against the fused render and its frame time.
+The last three lines are the card's name and power limit, the kernel
+summary (each kernel's launches on its path, error, times and bound) and
+the device, the last two as JSON.
 """
 
 from __future__ import annotations
@@ -58,10 +76,21 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 from unittest import mock
 
 import numpy as np
 import torch
+
+
+class Bounds(NamedTuple):
+    """A kernel-against-plain check (see :func:`agreement`)."""
+    col_rtol: float       # every element within col_rtol x its column's max
+    atol: float           # the elementwise bound ...
+    rtol: float
+    outlier_frac: float   # ... that at most this share of elements exceeds
+    median_rtol: float    # each column's median error / its max
+
 
 # Kernel against plain: the same rounding points, so they differ only where
 # the f32 summation order flips a bf16 rounding of an activation. Most
@@ -80,7 +109,9 @@ KERNEL_ATOL, KERNEL_RTOL = 2e-2, 5e-2
 COL_RTOL = 1e-2
 OUTLIER_FRAC = 1e-5
 MEDIAN_RTOL = 1e-6
-JAX_PSNR_DB = 31.75      # dense test PSNR of data/pretrain/hard, JAX record
+MLP_BOUNDS = Bounds(COL_RTOL, KERNEL_ATOL, KERNEL_RTOL, OUTLIER_FRAC,
+                    MEDIAN_RTOL)
+JAX_PSNR_DB = 31.75     # dense test PSNR of data/pretrain/hard, JAX record
 PSNR_BUDGET_DB = 0.1
 KERNEL_VS_PLAIN_MIN_DB = 55.0   # read 65.17 dB
 POINTS = (2_560_000, 7_680_000)  # 40000 rays x 64 and x 192 samples
@@ -117,6 +148,66 @@ TRAIN_ARGV = ["--cfg_file", "configs/nerf/hard.yaml", "device", "cuda",
               "record_dir", "build/smoke_record"]
 CKPT_DIR = os.path.join(ROOT, "build", "smoke_ckpt")
 
+# NGP eval (phase 6), in float32. The encode kernel sums the same bf16
+# table values in the same order with the same roundings as its plain
+# version (read: bit-equal); the fused MLP differs from the plain one only
+# in its f32 summation order (fmaf chains against cuBLAS), which moves an
+# output by <= 6.1e-7 of its column's range (read at 384,000 and 896,000
+# points; column medians <= 3.7e-8, no element outside atol + rtol 1e-4).
+# The controls (NGP_CONTROLS) read 2.9e-3 (table in f32), 2.0e-2 (MLP in
+# bf16) and 3.0e-3 (MLP in TF32) of the range.
+NGP_BOUNDS = Bounds(col_rtol=1e-5, atol=1e-4, rtol=1e-4, outlier_frac=1e-5,
+                    median_rtol=1e-6)
+NGP_ARGV = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard_ngp.yaml",
+            "pretrain_path", "data/pretrain/hard_ngp_b9",
+            "network.xyz_encoder.log2_bricks", "9", "save_result", "False",
+            "device", "cuda"]
+NGP_JAX_PSNR_DB = 30.28   # dense test PSNR of hard_ngp_b9, JAX record
+NGP_ROUTES_MIN_DB = 60.0  # unfused and plain render against the fused one
+NGP_CHUNK = 40            # the ray chunk of view 0 phase 6 (a) checks
+NGP_PROFILE_FRAMES = 5    # fused frames of view 0 under --profile
+
+# Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W): a
+# kernel's bound is the larger of its bytes over the memory rate and its
+# operations over the rate of their type.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
+    """``bound_ms`` and ``bound_by`` for moving ``n_bytes`` and doing
+    ``n_ops`` operations of type ``kind``."""
+    ms_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ms_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(ms_bytes, ms_ops),
+            "bound_by": "bytes" if ms_bytes >= ms_ops else "operations"}
+
+
+def mlp_flops(mlp) -> int:
+    """2 x the multiply-adds of one point through an MLP's unpadded
+    weights."""
+    return 2 * sum(p.numel() for name, p in mlp.state_dict().items()
+                   if name.endswith("weight"))
+
+
+def input_side_flops(mlp, x_dim: int, v_dim: int) -> int:
+    """2 x the multiply-adds of one point through the weight rows that read
+    the inputs x and v: all of pts.0, the x rows of each layer after a
+    skip (the heads' too when the last layer skips) and the v rows of
+    views.0. A backward that returns no input gradients forms no deltas
+    through them."""
+    state = mlp.state_dict()
+    readers = ["pts.0"] + [f"pts.{s + 1}" for s in mlp.skips
+                           if s + 1 < mlp.depth]
+    if mlp.depth - 1 in mlp.skips:
+        readers += ["alpha", "feature"]
+    macs = sum(state[f"{r}.weight"].shape[0] * x_dim for r in readers)
+    return 2 * (macs + state["views.0.weight"].shape[0] * v_dim)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
 
 def _truncate_bf16(x: torch.Tensor) -> torch.Tensor:
     """bf16 by dropping the low 16 bits: rounding toward zero."""
@@ -135,28 +226,30 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def agreement(out: torch.Tensor, ref: torch.Tensor) -> dict:
-    """The kernel-against-plain check on (N, 4) outputs: its statistics,
+def agreement(out: torch.Tensor, ref: torch.Tensor,
+              bounds: Bounds = MLP_BOUNDS) -> dict:
+    """The kernel-against-plain check on (N, C) outputs: its statistics,
     and ``ok`` when all three bounds hold and ``out`` is finite."""
     err = (out - ref).abs()
-    col_max = ref.abs().amax(dim=0)
+    col_max = ref.abs().amax(dim=0).clamp_min(1e-30)
     col = float((err.amax(dim=0) / col_max).max())
-    outside = float((err > KERNEL_ATOL + KERNEL_RTOL * ref.abs())
+    outside = float((err > bounds.atol + bounds.rtol * ref.abs())
                     .float().mean())
     median = float((err.median(dim=0).values / col_max).max())
-    ok = (bool(torch.isfinite(out).all()) and col <= COL_RTOL
-          and outside <= OUTLIER_FRAC and median <= MEDIAN_RTOL)
+    ok = (bool(torch.isfinite(out).all()) and col <= bounds.col_rtol
+          and outside <= bounds.outlier_frac and median <= bounds.median_rtol)
     return dict(ok=ok, max_abs_err=float(err.max()), col=col,
-                outside=outside, median=median,
+                outside=outside, median=median, bounds=bounds,
                 col_max=[round(float(c), 1) for c in col_max])
 
 
 def describe(a: dict) -> str:
+    b = a["bounds"]
     return (f"max_abs_err {a['max_abs_err']:.3e}, max err / column max "
-            f"|plain| {a['col']:.2e} (<= {COL_RTOL}), outside atol "
-            f"{KERNEL_ATOL} + rtol {KERNEL_RTOL}: {a['outside']:.2e} "
-            f"(<= {OUTLIER_FRAC}), column median err / column max |plain| "
-            f"{a['median']:.2e} (<= {MEDIAN_RTOL}), column max |plain| "
+            f"|plain| {a['col']:.2e} (<= {b.col_rtol}), outside atol "
+            f"{b.atol} + rtol {b.rtol}: {a['outside']:.2e} "
+            f"(<= {b.outlier_frac}), column median err / column max |plain| "
+            f"{a['median']:.2e} (<= {b.median_rtol}), column max |plain| "
             f"{a['col_max']} {'ok' if a['ok'] else 'FAIL'}")
 
 
@@ -295,31 +388,46 @@ def ray_points(n: int, gen: torch.Generator):
     return (eye + t * d).contiguous(), d.contiguous()
 
 
+def _counters():
+    """(object, attribute) of every wrapper's launch count and every plain
+    version's and nn.Module's call count."""
+    from nerf_replication_tpu_torch.models.nerf.network import NeRFMLP, Network
+    from nerf_replication_tpu_torch.ops import (
+        eval_encode,
+        fused_ngp,
+        mlp_kernel,
+        mlp_train,
+    )
+
+    return {
+        "enc": [(mlp_kernel.fused_nerf_mlp_enc, "launches")],
+        "fwd": [(mlp_kernel.fused_nerf_mlp, "launches")],
+        "bwd": [(mlp_train.fused_nerf_mlp_bwd, "launches")],
+        "ngp_enc": [(eval_encode.brick_encode_eval, "launches")],
+        "ngp": [(fused_ngp.fused_ngp_eval, "launches")],
+        "plain": [(f, "calls") for f in (
+            mlp_kernel.fused_nerf_mlp_enc_reference,
+            mlp_kernel.fused_nerf_mlp_reference,
+            mlp_train.fused_nerf_mlp_bwd_reference,
+            eval_encode.brick_encode_eval_reference,
+            fused_ngp.fused_ngp_eval_reference)],
+        "module": [(Network, "calls")],
+        "mlp": [(NeRFMLP, "calls")],
+    }
+
+
 def reset_counts():
     """Every wrapper's launch count and every plain version's call count."""
-    from nerf_replication_tpu_torch.models.nerf.network import Network
-    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
-
-    mlp_kernel.fused_nerf_mlp_enc.launches = 0
-    mlp_kernel.fused_nerf_mlp.launches = 0
-    mlp_train.fused_nerf_mlp_bwd.launches = 0
-    mlp_kernel.fused_nerf_mlp_enc_reference.calls = 0
-    mlp_kernel.fused_nerf_mlp_reference.calls = 0
-    mlp_train.fused_nerf_mlp_bwd_reference.calls = 0
-    Network.calls = 0
+    for counter in _counters().values():
+        for obj, attr in counter:
+            setattr(obj, attr, 0)
 
 
 def read_counts() -> dict:
-    from nerf_replication_tpu_torch.models.nerf.network import Network
-    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
-
-    return {"enc": mlp_kernel.fused_nerf_mlp_enc.launches,
-            "fwd": mlp_kernel.fused_nerf_mlp.launches,
-            "bwd": mlp_train.fused_nerf_mlp_bwd.launches,
-            "plain": (mlp_kernel.fused_nerf_mlp_enc_reference.calls
-                      + mlp_kernel.fused_nerf_mlp_reference.calls
-                      + mlp_train.fused_nerf_mlp_bwd_reference.calls),
-            "module": Network.calls}
+    """Launches of each kernel; calls of the plain versions (summed), of
+    ``Network.forward`` (module) and of ``NeRFMLP.forward`` (mlp)."""
+    return {name: sum(getattr(obj, attr) for obj, attr in counter)
+            for name, counter in _counters().items()}
 
 
 def real_batch(cfg, net, arrays) -> dict:
@@ -387,10 +495,19 @@ def phase_train_kernels(cfg, arrays) -> dict:
                         packed, x, v, g), 20),
                     cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd_reference(
                         packed, x, v, g), 5))}
+        # the backward recomputes the forward, then forms the weight
+        # gradients (a forward's products) and the deltas (a forward's
+        # products less those of the input rows: no input gradients)
+        flops = n * mlp_flops(mlp)
+        bwd_flops = 3 * flops - n * input_side_flops(mlp, *enc)
+        bounds = {"fwd": bound(nbytes(x, v, packed.w, packed.b, out_k),
+                               flops, "bf16"),
+                  "bwd": bound(nbytes(x, v, g, packed.w, packed.b, *grad_k),
+                               bwd_flops, "bf16")}
         for kind, check in (("fwd", a), ("bwd", b)):
             ms_k, ms_p = times[kind]
             res[kind].append(dict(n=n, err=check["max_abs_err"], ms=ms_k,
-                                  plain_ms=ms_p))
+                                  plain_ms=ms_p, **bounds[kind]))
         print(f"features-in forward vs plain, {branch} N={n}: {describe(a)} "
               f"| kernel {times['fwd'][0]:.3f} ms, plain "
               f"{times['fwd'][1]:.3f} ms")
@@ -415,12 +532,14 @@ def phase_train_kernels(cfg, arrays) -> dict:
     return res
 
 
-# device-kernel name fragments -> the part of a training step they are
+# device-kernel name fragments -> the part of a step or frame they are
 PROFILE_PARTS = (
     ("MLP forward kernel", ("fused_nerf_mlp_kernel",)),
     ("backward recompute + deltas", ("nerf_mlp_bwd_delta",)),
     ("weight-gradient products", ("nerf_mlp_bwd_wgrad",)),
     ("weight-gradient reduction", ("reduce_rows_kernel",)),
+    ("fused NGP encode+MLP kernel", ("fused_ngp_kernel",)),
+    ("brick encode kernel", ("brick_encode_eval_kernel",)),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "cutlass", "xmma", "sm90_")),
     ("sort", ("sort", "Sort")),
     ("scans (cumsum/cumprod)", ("scan", "Scan", "cumsum", "cumprod")),
@@ -428,23 +547,22 @@ PROFILE_PARTS = (
 )
 
 
-def profile_steps(trainer, pipeline, steps: int, tag: str):
-    """``steps`` more training steps under torch.profiler: the device time
-    a step by part (PROFILE_PARTS, the rest as "other") and the idle share
-    of the wall time; the full table goes to build/profile_<tag>.txt.
-    """
+def profile_runs(run, count: int, unit: str, tag: str):
+    """``count`` calls of ``run`` (after 3 to warm up) under torch.profiler:
+    the device time a call by part (PROFILE_PARTS, the rest as "other")
+    and the idle share of the wall time; the full table goes to
+    build/profile_<tag>.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    for _ in range(3):   # warm
-        trainer.train_step(pipeline.sample(gen, trainer.step), gen)
+    for _ in range(3):
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train_step(pipeline.sample(gen, trainer.step), gen)
+        for _ in range(count):
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -458,12 +576,19 @@ def profile_steps(trainer, pipeline, steps: int, tag: str):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", f"profile_{tag}.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
-    print(f"profile {tag}: {steps} steps under the profiler, wall "
-          f"{wall * 1e3 / steps:.2f} ms a step, device busy "
-          f"{busy * 1e3 / steps:.2f} ms a step (idle "
-          f"{100 * (1 - busy / wall):.1f}%); device ms a step: " + "; ".join(
-              f"{name} {t / 1e3 / steps:.3f}" for name, t in
+    print(f"profile {tag}: {count} {unit}s under the profiler, wall "
+          f"{wall * 1e3 / count:.2f} ms a {unit}, device busy "
+          f"{busy * 1e3 / count:.2f} ms a {unit} (idle "
+          f"{100 * (1 - busy / wall):.1f}%); device ms a {unit}: " + "; ".join(
+              f"{name} {t / 1e3 / count:.3f}" for name, t in
               sorted(parts.items(), key=lambda kv: -kv[1])))
+
+
+def profile_steps(trainer, pipeline, steps: int, tag: str):
+    """``steps`` more training steps under the profiler."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    profile_runs(lambda: trainer.train_step(
+        pipeline.sample(gen, trainer.step), gen), steps, "step", tag)
 
 
 def checkpoint_round_trip(arm: dict, view) -> bool:
@@ -585,12 +710,220 @@ def phase_train(arrays, views, steps: int, profile: int) -> dict:
     return k["counts"]
 
 
+def ngp_chunk_samples(cfg, net, view) -> dict:
+    """The samples of ray chunk NGP_CHUNK of ``view`` as the fused route
+    evaluates them: branch -> (pts (rays, samples, 3), viewdirs (rays, 1,
+    3))."""
+    from nerf_replication_tpu_torch.models.nerf.renderer import RenderSettings
+    from nerf_replication_tpu_torch.run import build_renderer
+
+    renderer = build_renderer(cfg, net)
+    fused = renderer.apply_fn
+    seen = {}
+
+    def capture(pts, viewdirs, model=""):
+        seen[model or "coarse"] = (pts.clone(), viewdirs.clone())
+        return fused(pts, viewdirs, model)
+
+    renderer.use_apply(capture)
+    size = RenderSettings.from_cfg(cfg).ray_chunk
+    rays = slice(NGP_CHUNK * size, (NGP_CHUNK + 1) * size)
+    renderer.render_rays_batch(view["rays_o"][rays], view["rays_d"][rays])
+    return seen
+
+
+def _table_in_f32(enc, x, plain):
+    """The plain encode with the table read in f32: the training forward's
+    plain version with every level above its bf16 threshold."""
+    from nerf_replication_tpu_torch.ops import hashgrid_kernel
+
+    with mock.patch.object(hashgrid_kernel, "MXU_MAX_ROWS", 0):
+        return hashgrid_kernel.brick_encode_reference(
+            enc.layout, enc.table.detach(), x)
+
+
+def _mlp_in_bf16(enc, x, plain):
+    """``plain`` (the plain fused version) with its MLP products in bf16."""
+    from nerf_replication_tpu_torch.ops import fused_ngp
+
+    bf16 = lambda a, b: (a.bfloat16() @ b.bfloat16()).float()  # noqa: E731
+    with mock.patch.object(fused_ngp, "_matmul", bf16):
+        return plain()
+
+
+def _mlp_in_tf32(enc, x, plain):
+    """``plain`` with its MLP products in TF32 (on a card only)."""
+    keep = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return plain()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep
+
+
+# phase 6's controls: label -> (the kernel whose check must reject it, the
+# control's output from (encoder, points, that kernel's plain version))
+NGP_CONTROLS = {
+    "table read in f32 (no bf16 rounding)": ("encode", _table_in_f32),
+    "MLP in bf16": ("fused", _mlp_in_bf16),
+    "MLP in TF32": ("fused", _mlp_in_tf32),
+}
+
+
+def ngp_kernels_against_plain(cfg, net, view) -> dict:
+    """Phase 6 (a): each NGP kernel against its plain version on the
+    samples of one real chunk, each branch on its own pass's points; the
+    controls on the coarse points. Returns, per kernel, its readings at
+    each size."""
+    from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
+    from nerf_replication_tpu_torch.ops import eval_encode, fused_ngp
+
+    enc = net.xyz_encoder
+    layout = enc.layout
+    packed = eval_encode.pack_eval_table(enc.table.detach())
+    res = {"encode": [], "fused": []}
+    for branch, (pts, viewdirs) in ngp_chunk_samples(cfg, net, view).items():
+        mlp = getattr(net, branch)
+        ops, meta = fused_ngp.extract_mlp_weights(
+            mlp.state_dict(), enc.output_dim, mlp.depth, mlp.skips,
+            mlp.view_depth)
+        x, sh = ngp_renderer.fused_inputs(net, pts, viewdirs)
+        n = x.shape[0]
+        runs = {"encode": (
+            lambda: eval_encode.brick_encode_eval(layout, packed, x),
+            lambda: eval_encode.brick_encode_eval_reference(layout, packed, x),
+            eval_encode.encode_flops_per_point(layout)), "fused": (
+            lambda: fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh),
+            lambda: fused_ngp.fused_ngp_eval_reference(layout, meta, packed,
+                                                       ops, x, sh),
+            fused_ngp.flops_per_point(layout, ops))}
+        for name, (kernel, plain, flops) in runs.items():
+            out_k, out_p = kernel(), plain()
+            torch.cuda.synchronize()
+            a = agreement(out_k, out_p, NGP_BOUNDS)
+            ms_k, ms_p = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+            inputs = (x, packed) + ((sh, ops.flat) if name == "fused" else ())
+            b = bound(nbytes(*inputs, out_k), n * flops, "f32")
+            res[name].append(dict(n=n, err=a["max_abs_err"], ms=ms_k,
+                                  plain_ms=ms_p, **b))
+            print(f"NGP {name} kernel vs plain, {branch} N={n}: "
+                  f"{describe(a)}, bit-equal {torch.equal(out_k, out_p)} | "
+                  f"kernel {ms_k:.4f} ms (bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']}, {flops * n / ms_k / 1e9:.1f} TFLOP/s), "
+                  f"plain {ms_p:.3f} ms")
+            if not a["ok"]:
+                fail(f"NGP {name} kernel disagrees with its plain version "
+                     f"at N={n}")
+            controls = NGP_CONTROLS.items() if branch == "coarse" else ()
+            for label, (target, control) in controls:
+                if target == name:
+                    c = agreement(control(enc, x, plain), out_p, NGP_BOUNDS)
+                    print(f"control, NGP {name} plain with {label}, "
+                          f"{branch} N={n}: {describe(c)}")
+                    if c["ok"]:
+                        fail(f"the NGP check accepts the plain {name} with "
+                             f"{label}, so it cannot see such a fault")
+            del out_k, out_p
+    return res
+
+
+def phase_ngp(views, profile: bool) -> dict:
+    """Phase 6: the NGP eval kernels against plain, then the fused,
+    unfused and plain routes; with ``profile``, NGP_PROFILE_FRAMES fused
+    frames of view 0 under the profiler. Returns the kernels' readings
+    with their launches on their routes."""
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.evaluators import psnr_uint8
+    from nerf_replication_tpu_torch.models.nerf.renderer import (
+        RenderSettings,
+        make_renderer,
+        ngp_renderer,
+    )
+    from nerf_replication_tpu_torch.run import (
+        build_renderer,
+        load_model,
+        resolve_device,
+        run_evaluate,
+    )
+
+    cfg = make_cfg(parse_args(NGP_ARGV))
+    net = load_model(cfg, resolve_device(cfg))
+    with torch.no_grad():
+        res = ngp_kernels_against_plain(cfg, net, views[0])
+    torch.cuda.empty_cache()
+
+    # (b) the slice: the fused route, as `run --type evaluate` runs it
+    H, W = int(views[0]["H"]), int(views[0]["W"])
+    chunks = math.ceil(H * W / RenderSettings.from_cfg(cfg).ray_chunk)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    fused = run_evaluate(cfg, loader=views)
+    counts = fused_counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for rgb in fused["rgb"]:
+        if rgb.shape != (H * W, 3) or not np.isfinite(rgb).all():
+            fail(f"NGP render output is not a finite ({H * W}, 3) image")
+    print(f"NGP slice (fused): PSNR {fused['psnr']:.4f} dB, SSIM "
+          f"{fused['ssim']:.4f} (JAX record {NGP_JAX_PSNR_DB} dB), frame "
+          f"times {[round(t, 4) for t in fused['net_time']]} s, counts "
+          f"{counts} (expected ngp {2 * chunks * len(views)}, every other 0), "
+          f"peak memory {peak_gb:.2f} GB")
+    expect = dict.fromkeys(counts, 0) | {"ngp": 2 * chunks * len(views)}
+    if counts != expect:
+        fail(f"the NGP slice did not run through the fused kernel alone: "
+             f"{counts}")
+    if abs(fused["psnr"] - NGP_JAX_PSNR_DB) > PSNR_BUDGET_DB:
+        fail(f"NGP PSNR {fused['psnr']:.4f} dB is not within "
+             f"{PSNR_BUDGET_DB} dB of {NGP_JAX_PSNR_DB} dB")
+    if profile:
+        renderer = build_renderer(cfg, net)
+        profile_runs(lambda: renderer.render(views[0]), NGP_PROFILE_FRAMES,
+                     "frame", "ngp_fused")
+        del renderer
+
+    # (c) view 0 through the unfused route and the plain route
+    unfused = make_renderer(cfg, net).use_apply(
+        ngp_renderer.make_ngp_eval_apply(net, fused=False))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb = unfused.render(views[0])[0]
+    torch.cuda.synchronize()
+    routes = {"unfused": (rgb.cpu().numpy(), time.perf_counter() - t0,
+                          read_counts(), {"ngp_enc": 2 * chunks,
+                                          "mlp": 2 * chunks})}
+    del net, unfused
+    cfg_plain = make_cfg(parse_args(NGP_ARGV + ["network.use_pallas_mlp",
+                                                "False"]))
+    reset_counts()
+    plain = run_evaluate(cfg_plain, loader=views[:1])
+    routes["plain"] = (plain["rgb"][0], plain["net_time"][0], read_counts(),
+                       {"module": 2 * chunks, "mlp": 2 * chunks})
+    for route, (image, seconds, counts, nonzero) in routes.items():
+        vs_fused = psnr_uint8(image, fused["rgb"][0])
+        print(f"NGP {route} route, view 0: PSNR vs the fused render "
+              f"{vs_fused:.2f} dB (>= {NGP_ROUTES_MIN_DB}), vs GT "
+              f"{psnr_uint8(image, views[0]['colors']):.4f} dB, frame "
+              f"{seconds:.4f} s against {fused['net_time'][0]:.4f} s fused, "
+              f"counts {counts}")
+        if counts != dict.fromkeys(counts, 0) | nonzero:
+            fail(f"the NGP {route} route did not run its own path: {counts}")
+        if vs_fused < NGP_ROUTES_MIN_DB:
+            fail(f"the NGP {route} render is {vs_fused:.2f} dB from the "
+                 f"fused render")
+    torch.cuda.empty_cache()
+    res["launches"] = {"fused": fused_counts["ngp"],
+                       "encode": routes["unfused"][2]["ngp_enc"]}
+    return res
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=TRAIN_STEPS,
                         help="training steps per arm (a multiple of 4)")
     parser.add_argument("--profile", type=int, default=0,
-                        help="profile this many more steps of each arm")
+                        help="profile this many more steps of each arm "
+                             "(and 5 fused NGP frames)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -598,7 +931,7 @@ def main(argv=None):
     from nerf_replication_tpu_torch.evaluators import psnr_uint8
     from nerf_replication_tpu_torch.models.nerf.network import Network
     from nerf_replication_tpu_torch.models.nerf.renderer import RenderSettings
-    from nerf_replication_tpu_torch.ops import _build, mlp_kernel, mlp_train
+    from nerf_replication_tpu_torch.ops import _build, fused_ngp, mlp_kernel
     from nerf_replication_tpu_torch.run import load_model, run_evaluate
     from nerf_replication_tpu_torch.utils import synthetic_scene
 
@@ -617,13 +950,15 @@ def main(argv=None):
     print(f"device: {name} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    mlp_train.build()   # both sources, compiled concurrently
+    libs = ["fused_nerf_mlp", "fused_nerf_mlp_bwd", "brick_encode_eval",
+            "fused_ngp"]
+    _build.build_all(libs)   # one nvcc each, all started together
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    for lib in ("fused_nerf_mlp", "fused_nerf_mlp_bwd"):
+    for lib in libs:
         log = _build.library_path(lib).with_suffix(".log")
-        print(f"ptxas {lib}:", " | ".join(
-            line.strip() for line in log.read_text().splitlines()
-            if "registers" in line or "spill" in line))
+        print(f"ptxas {lib}:",
+              " | ".join(line.strip() for line in log.read_text().splitlines()
+                         if "registers" in line or "spill" in line))
 
     # -- 2. kernel against plain at the render path's point counts --------
     argv = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard.yaml",
@@ -649,8 +984,10 @@ def main(argv=None):
             ms_k = cuda_ms(lambda: kernel(*args), 5)
             ms_p = cuda_ms(lambda: plain(*args), 2)
             tflops = mlp_kernel.flops_per_point(packed) * n / ms_k / 1e9
-            checks[(n, branch)] = dict(err=a["max_abs_err"], ms=ms_k,
-                                       plain_ms=ms_p)
+            checks[(n, branch)] = dict(
+                err=a["max_abs_err"], ms=ms_k, plain_ms=ms_p,
+                **bound(nbytes(pts, dirs, packed.w, packed.b, out_k),
+                        n * mlp_flops(mlp), "bf16"))
             print(f"kernel vs plain, {branch} N={n}: {describe(a)} | kernel "
                   f"{ms_k:.2f} ms ({tflops:.0f} TFLOP/s), plain {ms_p:.2f} ms")
             if not a["ok"]:
@@ -730,29 +1067,39 @@ def main(argv=None):
 
     # -- 5. training ------------------------------------------------------
     counts = phase_train(arrays, views, opts.steps, opts.profile)
+    del arrays
+    torch.cuda.empty_cache()
 
-    big = checks[(POINTS[1], "fine")]
-    fwd, bwd = train_checks["fwd"][-1], train_checks["bwd"][-1]
+    # -- 6. NGP eval ------------------------------------------------------
+    ngp = phase_ngp(views, opts.profile > 0)
+
+    def entry(name, source, replaces, launches, readings):
+        """One kernel of the summary: its last reading (its largest size
+        on its path); no PyTorch call computes any of these functions, so
+        library_ms is null."""
+        big = readings[-1]
+        return {"name": name, "route": "cuda",
+                "source": f"nerf_replication_tpu_torch/csrc/{source}",
+                "replaces": f"nerf_replication_tpu/ops/pallas/{replaces}",
+                "launches": launches,
+                "max_abs_err": max(r["err"] for r in readings),
+                "ms": big["ms"], "plain_ms": big["plain_ms"],
+                "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+                "library_ms": None}
+
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "fused_nerf_mlp_enc", "route": "cuda",
-        "source": "nerf_replication_tpu_torch/csrc/fused_nerf_mlp.cu",
-        "replaces": "nerf_replication_tpu/ops/pallas/mlp_kernel.py:366",
-        "launches": launches,
-        "max_abs_err": max(c["err"] for c in checks.values()),
-        "ms": big["ms"], "plain_ms": big["plain_ms"]}, {
-        "name": "fused_nerf_mlp", "route": "cuda",
-        "source": "nerf_replication_tpu_torch/csrc/fused_nerf_mlp.cu",
-        "replaces": "nerf_replication_tpu/ops/pallas/mlp_train.py:168",
-        "launches": counts["fwd"],
-        "max_abs_err": max(c["err"] for c in train_checks["fwd"]),
-        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"]}, {
-        "name": "fused_nerf_mlp_bwd", "route": "cuda",
-        "source": "nerf_replication_tpu_torch/csrc/fused_nerf_mlp_bwd.cu",
-        "replaces": "nerf_replication_tpu/ops/pallas/mlp_train.py:225",
-        "launches": counts["bwd"],
-        "max_abs_err": max(c["err"] for c in train_checks["bwd"]),
-        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"]}]}))
+    print(json.dumps({"kernels": [
+        entry("fused_nerf_mlp_enc", "fused_nerf_mlp.cu", "mlp_kernel.py:366",
+              launches, list(checks.values())),
+        entry("fused_nerf_mlp", "fused_nerf_mlp.cu", "mlp_train.py:168",
+              counts["fwd"], train_checks["fwd"]),
+        entry("fused_nerf_mlp_bwd", "fused_nerf_mlp_bwd.cu",
+              "mlp_train.py:225", counts["bwd"], train_checks["bwd"]),
+        entry("brick_encode_eval", "brick_encode_eval.cu",
+              "eval_encode.py:202 and :245", ngp["launches"]["encode"],
+              ngp["encode"]),
+        entry("fused_ngp_eval", "fused_ngp.cu", "fused_ngp.py:258",
+              ngp["launches"]["fused"], ngp["fused"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

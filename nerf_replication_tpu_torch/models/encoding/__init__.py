@@ -1,7 +1,8 @@
 """Encoder dispatch: the config ``type`` names of
 nerf_replication_tpu/models/encoding/__init__.py. The port has the
-frequency encoder; every other name raises ``NotImplementedError`` naming
-the ROADMAP.md item that ports it."""
+frequency and spherical-harmonics encoders and the brick backend of the
+hash grid; every other name (and the hash grid's ``xla`` backend) raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it."""
 
 from __future__ import annotations
 
@@ -10,18 +11,17 @@ from .freq import FrequencyEncoder, freq_encode
 
 # type name -> the ROADMAP.md item (queue A) that ports it
 _NOT_PORTED = {
-    "sphere_harmonics": "A.2 (sh.py)",
-    **{t: "A.10 (hashgrid.py, slice 3)"
-       for t in ("hashgrid", "cuda_hashgrid", "grid_hash")},
-    **{t: "A.12 (composite encoders)"
-       for t in ("triplane", "cuda_triplane", "cuda_hashgrid_latent",
-                 "cuda_hashgrid_4d", "cuda_hashgrid_coef", "cuda_motion2d",
-                 "dnerf", "dnerf_mlp_tensorf", "dnerf_ngp_mlp",
-                 "dnerf_ngp_tensorf", "cuda_dnerf_ngp_tensorf")},
+    t: "A.12 (composite encoders)"
+    for t in ("triplane", "cuda_triplane", "cuda_hashgrid_latent",
+              "cuda_hashgrid_4d", "cuda_hashgrid_coef", "cuda_motion2d",
+              "dnerf", "dnerf_mlp_tensorf", "dnerf_ngp_mlp",
+              "dnerf_ngp_tensorf", "cuda_dnerf_ngp_tensorf")
 }
 
 
-def get_encoder(enc_cfg):
+def get_encoder(enc_cfg, generator=None):
+    """The encoder of ``enc_cfg``; a hash grid draws its table's init from
+    ``generator`` (a torch.Generator)."""
     t = enc_cfg.type
     if t == "frequency":
         return FrequencyEncoder(
@@ -30,6 +30,13 @@ def get_encoder(enc_cfg):
             include_input=as_bool(enc_cfg.get("include_input", True),
                                   "include_input"),
         )
+    if t == "sphere_harmonics":
+        from .sh import SHEncoder
+        return SHEncoder(degree=enc_cfg.get("degree", 4),
+                         input_dim=enc_cfg.get("input_dim", 3))
+    if t in ("hashgrid", "cuda_hashgrid", "grid_hash"):
+        from .hashgrid import HashGridEncoder
+        return HashGridEncoder.from_cfg(enc_cfg, generator=generator)
     if t in _NOT_PORTED:
         raise NotImplementedError(
             f"encoder type {t!r} is not ported yet: ROADMAP.md item "

@@ -9,8 +9,12 @@ The counterpart of nerf_replication_tpu/models/nerf/network.py:
 * :class:`Network` — coarse + fine MLPs and the config's encoders.
 
 Dtype policy of network.py:47-72: float32 parameters, every matmul in
-``dtype`` (bfloat16 for the shipped configs) with its output rounded to
-``dtype`` as Flax's ``Dense(dtype=bf16)`` does, float32 raw output.
+``dtype`` (``network.dtype``: bfloat16 for the frequency configs) with its
+output rounded to ``dtype`` as Flax's ``Dense(dtype=bf16)`` does, float32
+raw output. The NGP configs set float32: every product is then f32, and
+must not run in TF32 (``torch.backends.cuda.matmul.allow_tf32`` False, as
+the entry points set it). A hash-grid encoder is a submodule, so its
+table is the state_dict's ``xyz_encoder.table``.
 Submodule names give state_dict keys ``pts.{i}``, ``feature``, ``alpha``,
 ``views.{i}``, ``rgb`` for Flax's ``pts_{i}``, ..., ``views_{i}``.
 
@@ -50,6 +54,10 @@ def _dense(layer: nn.Linear, h: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class NeRFMLP(nn.Module):
+    """``NeRFMLP.calls`` counts forward calls of every instance."""
+
+    calls = 0
+
     def __init__(self, in_dim: int, view_dim: int, depth: int = 8,
                  width: int = 256, view_depth: int = 1,
                  skips: Sequence[int] = (4,), use_viewdirs: bool = True,
@@ -85,6 +93,7 @@ class NeRFMLP(nn.Module):
     def forward(self, pts_feat: torch.Tensor,
                 view_feat: torch.Tensor | None = None) -> torch.Tensor:
         """(N, C_pts), (N, C_dir) -> raw (N, 4) = [rgb, sigma], float32."""
+        NeRFMLP.calls += 1
         dt = self.dtype
         x = pts_feat.to(dt)
         h = x
@@ -132,14 +141,15 @@ class Network(nn.Module):
 
 def make_network(cfg, generator: torch.Generator | None = None) -> Network:
     """The config's Network, initialised from ``generator`` (default: a
-    CPU generator seeded with ``cfg.seed``); coarse draws before fine."""
+    CPU generator seeded with ``cfg.seed``): a hash-grid table first, then
+    coarse, then fine."""
     c = cfg.network
     if generator is None:
         generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     use_viewdirs = as_bool(cfg.get("task_arg", {}).get("use_viewdirs", True),
                            "task_arg.use_viewdirs")
     dtype = getattr(torch, c.get("dtype", "bfloat16"))
-    xyz_encoder = get_encoder(c.xyz_encoder)
+    xyz_encoder = get_encoder(c.xyz_encoder, generator)
     dir_encoder = get_encoder(c.dir_encoder)
 
     def mk():

@@ -152,6 +152,13 @@ class Renderer:
     def device(self) -> torch.device:
         return next(self.net.parameters()).device
 
+    def use_apply(self, apply_fn) -> "Renderer":
+        """Route eval through a custom ``apply_fn(pts, viewdirs, model)``
+        (e.g. ``ngp_renderer.make_ngp_eval_apply``); training keeps
+        :attr:`train_apply`."""
+        self.apply_fn = apply_fn
+        return self
+
     def enable_fused_mlp(self) -> bool:
         """Route the MLP through the fused CUDA kernel
         (ops/mlp_kernel.py), with the weights packed now. On a CUDA

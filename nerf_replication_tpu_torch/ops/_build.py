@@ -70,3 +70,12 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; callers keep the
     handle (and the ``argtypes`` they set on it)."""
     return ctypes.CDLL(str(library_path(name)))
+
+
+def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise on a non-zero CUDA error code returned by a launch of ``lib``,
+    a library that exports ``nerf_cuda_error_string``."""
+    if err != 0:
+        text = lib.nerf_cuda_error_string
+        text.argtypes, text.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{name} launch failed: {text(err).decode()}")

@@ -208,8 +208,6 @@ def _kernel():
     fn.restype = i32
     lib.fused_nerf_mlp.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32, i32, ptr]
     lib.fused_nerf_mlp.restype = i32
-    lib.nerf_cuda_error_string.argtypes = [i32]
-    lib.nerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -220,9 +218,7 @@ def build() -> None:
 
 def check_launch(err: int, name: str) -> None:
     """Raise on a non-zero CUDA error code returned by a launch."""
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + _kernel().nerf_cuda_error_string(err).decode())
+    _build.check_launch(_kernel(), err, name)
 
 
 def check_pack(packed: PackedMLP, device: torch.device) -> None:

@@ -11,8 +11,16 @@ The weights come from ``pretrain_path`` when it is set, else from the
 newest checkpoint under ``trained_model_dir``. The device is the config's
 ``device`` (``cuda`` unless overridden, e.g. ``device cpu``); CUDA that is
 absent raises. ``network.use_pallas_mlp`` (a strict boolean, default True
-in the port) routes the MLP through the fused CUDA kernel; a network the
-kernel does not cover then raises.
+in the port) routes the MLP through the fused CUDA kernel of the model
+family: the encode+MLP kernel for frequency NeRFs, the fused brick
+encode + NGP MLP kernel for brick hash-grid NGP networks, e.g.
+
+    python -m nerf_replication_tpu_torch.run --type evaluate \
+        --cfg_file configs/nerf/hard_ngp.yaml \
+        pretrain_path data/pretrain/hard_ngp_b9 network.xyz_encoder.log2_bricks 9
+
+A network the kernel does not cover then raises; with the flag off the
+plain ``nn.Module`` network runs.
 ``--type dataset/input/mesh`` are not ported yet (ROADMAP.md A.7).
 """
 
@@ -28,7 +36,7 @@ from .config import as_bool, make_cfg, parse_args
 from .datasets import make_test_dataset
 from .evaluators import make_evaluator, psnr_uint8
 from .models import make_network
-from .models.nerf.renderer import make_renderer
+from .models.nerf.renderer import make_renderer, ngp_renderer
 from .ops import mlp_kernel
 from .utils.ckpt_utils import load_network, load_pretrain, params_from_jax
 
@@ -43,27 +51,43 @@ def resolve_device(cfg) -> torch.device:
 
 
 def load_model(cfg, device):
-    """The config's Network with its trained weights, on ``device``."""
+    """The config's Network with its trained weights, on ``device``. A
+    checkpoint that does not fit the config raises (a strict load), e.g. a
+    hash-grid table of another ``log2_bricks``."""
     network = make_network(cfg)
     tree = (load_pretrain(cfg.pretrain_path) if cfg.get("pretrain_path")
             else load_network(cfg.trained_model_dir, epoch=cfg.test.epoch))
-    network.load_state_dict(params_from_jax(tree))
+    state = params_from_jax(tree)
+    layout = getattr(network.xyz_encoder, "layout", None)
+    rows = state.get("xyz_encoder.table", torch.empty(0)).shape[0]
+    if layout is not None and rows != layout.n_rows:
+        raise ValueError(
+            f"the checkpoint's hash-grid table has {rows} rows, the config's "
+            f"layout {layout.n_rows}: set network.xyz_encoder.log2_bricks to "
+            "the checkpoint's")
+    network.load_state_dict(state)
     return network.to(device).eval()
 
 
 def build_renderer(cfg, network):
-    """The config's renderer. With ``network.use_pallas_mlp`` on, the MLP
-    runs through the fused kernel, and a network that the kernel does not
-    cover raises rather than running the plain MLP."""
+    """The config's renderer. With ``network.use_pallas_mlp`` on, a brick
+    NGP network runs through the fused NGP kernel and any other through
+    the fused MLP kernel; a network that its kernel does not cover raises
+    rather than running the plain network."""
     renderer = make_renderer(cfg, network)
-    if as_bool(cfg.network.get("use_pallas_mlp", True),
-               "network.use_pallas_mlp"):
-        if not renderer.enable_fused_mlp():
-            raise ValueError(
-                "network.use_pallas_mlp is on, but the fused MLP kernel does "
-                f"not cover {mlp_kernel.unsupported(network)}; set "
-                "network.use_pallas_mlp False for the plain MLP")
-        print("fused CUDA MLP: True")
+    if not as_bool(cfg.network.get("use_pallas_mlp", True),
+                   "network.use_pallas_mlp"):
+        return renderer
+    if ngp_renderer.is_brick_ngp(network):
+        renderer.use_apply(ngp_renderer.make_ngp_eval_apply(network))
+        print("fused CUDA NGP eval: True")
+        return renderer
+    if not renderer.enable_fused_mlp():
+        raise ValueError(
+            "network.use_pallas_mlp is on, but the fused MLP kernel does "
+            f"not cover {mlp_kernel.unsupported(network)}; set "
+            "network.use_pallas_mlp False for the plain MLP")
+    print("fused CUDA MLP: True")
     return renderer
 
 

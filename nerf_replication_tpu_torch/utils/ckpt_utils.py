@@ -148,13 +148,18 @@ _INDEXED = re.compile(r"^(pts|views)_(\d+)$")
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """A Flax NeRF params tree ``{"params": {"coarse"|"fine": {layer:
-    {kernel (in, out), bias}}}}`` (numpy) -> the port Network's
-    state_dict. Flax's ``Dense.kernel`` is (in, out) and
-    ``nn.Linear.weight`` (out, in), so every kernel is transposed;
-    ``pts_{i}``/``views_{i}`` become ``pts.{i}``/``views.{i}``."""
+    {kernel (in, out), bias}}, "xyz_encoder": {"table": array}}}`` (numpy)
+    -> the port Network's state_dict. Flax's ``Dense.kernel`` is (in, out)
+    and ``nn.Linear.weight`` (out, in), so every kernel is transposed;
+    ``pts_{i}``/``views_{i}`` become ``pts.{i}``/``views.{i}``. A leaf that
+    is an array itself (a hash-grid table) keeps its name and layout."""
     state = {}
     for branch, layers in tree["params"].items():
         for name, leaf in layers.items():
+            if not isinstance(leaf, dict):
+                state[f"{branch}.{name}"] = torch.from_numpy(
+                    np.array(leaf, dtype=np.float32))
+                continue
             m = _INDEXED.match(name)
             key = f"{branch}.{m[1]}.{m[2]}" if m else f"{branch}.{name}"
             kernel = np.asarray(leaf["kernel"], dtype=np.float32)
@@ -166,14 +171,18 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
 def params_to_jax(state: dict) -> dict:
     """The inverse of :func:`params_from_jax`: a port Network's state_dict
-    -> the Flax params tree (numpy float32, kernels (in, out))."""
+    -> the Flax params tree (numpy float32, kernels (in, out), other
+    parameters as they are)."""
     tree: dict = {"params": {}}
     for key, value in state.items():
         branch, rest = key.split(".", 1)
-        layer, leaf = rest.rsplit(".", 1)
-        layer = layer.replace(".", "_")          # pts.3 -> pts_3
         arr = value.detach().cpu().float().numpy()
-        entry = tree["params"].setdefault(branch, {}).setdefault(layer, {})
+        entries = tree["params"].setdefault(branch, {})
+        layer, _, leaf = rest.rpartition(".")
+        if leaf not in ("weight", "bias"):       # e.g. xyz_encoder.table
+            entries[rest] = arr.copy()
+            continue
+        entry = entries.setdefault(layer.replace(".", "_"), {})  # pts.3 -> pts_3
         if leaf == "weight":
             entry["kernel"] = np.ascontiguousarray(arr.T)
         else:

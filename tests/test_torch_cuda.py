@@ -13,13 +13,22 @@ import torch
 
 import chip_smoke
 from nerf_replication_tpu_torch.config import make_cfg, parse_args
-from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
+from nerf_replication_tpu_torch.ops import (
+    eval_encode,
+    fused_ngp,
+    mlp_kernel,
+    mlp_train,
+)
 from nerf_replication_tpu_torch.run import build_renderer, load_model
 from nerf_replication_tpu_torch.utils import synthetic_scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGV = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard.yaml",
         "pretrain_path", "data/pretrain/hard", "save_result", "False"]
+NGP_ARGV = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard_ngp.yaml",
+            "pretrain_path", "data/pretrain/hard_ngp_b9",
+            "network.xyz_encoder.log2_bricks", "9", "save_result", "False"]
 
 
 @pytest.fixture()
@@ -175,3 +184,88 @@ def test_train_step_on_gpu_matches_cpu(cuda, monkeypatch):
         g_gpu = res["cuda"][1][name]
         assert float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30)) \
             < 2e-2, name
+
+
+def _ngp(monkeypatch, device):
+    monkeypatch.chdir(ROOT)
+    cfg = make_cfg(parse_args(NGP_ARGV + ["device", device.type]))
+    return cfg, load_model(cfg, device)
+
+
+def _ngp_inputs(net, n, seed, device):
+    """n world points of rays through the scene's bounds, 0 and 1 of the
+    unit cube among them, and per-point SH features of their rays."""
+    pts, dirs = _ray_points(n, seed, device)
+    pts = pts * 0.3
+    pts[:2] = torch.tensor([[-1.2] * 3, [1.2] * 3], device=device)[:n]
+    return ngp_renderer.fused_inputs(net, pts[:, None], dirs[:, None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1000])
+def test_ngp_kernels_match_plain_versions(cuda, monkeypatch, n):
+    """The brick encode (TPU kernels #8/#9) and the fused encode+MLP (#10)
+    on the trained hard_ngp_b9 network at ragged point counts around the
+    128-thread block. The encode rounds as its plain version does: bit
+    for bit. The fused MLP differs only in f32 summation order: within
+    1e-5 of each column's range (chip_smoke.py read <= 7.2e-7)."""
+    _, net = _ngp(monkeypatch, cuda)
+    layout = net.xyz_encoder.layout
+    packed = eval_encode.pack_eval_table(net.xyz_encoder.table.detach())
+    x, sh = _ngp_inputs(net, n, seed=n, device=cuda)
+    launches = eval_encode.brick_encode_eval.launches
+    feats = eval_encode.brick_encode_eval(layout, packed, x)
+    torch.cuda.synchronize()
+    assert eval_encode.brick_encode_eval.launches == launches + 1
+    assert feats.shape == (n, 24)
+    assert torch.equal(
+        feats, eval_encode.brick_encode_eval_reference(layout, packed, x))
+    for mlp in (net.coarse, net.fine):
+        ops, meta = fused_ngp.extract_mlp_weights(
+            mlp.state_dict(), 24, mlp.depth, mlp.skips, mlp.view_depth)
+        launches = fused_ngp.fused_ngp_eval.launches
+        out = fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh)
+        torch.cuda.synchronize()
+        assert fused_ngp.fused_ngp_eval.launches == launches + 1
+        ref = fused_ngp.fused_ngp_eval_reference(layout, meta, packed, ops,
+                                                 x, sh)
+        scale = ref.abs().amax(dim=0).clamp_min(1.0)
+        assert out.shape == (n, 4) and bool(torch.isfinite(out).all())
+        assert float(((out - ref).abs() / scale).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ngp_wrappers_refuse_what_the_kernels_do_not_take(cuda, monkeypatch):
+    _, net = _ngp(monkeypatch, cuda)
+    layout = net.xyz_encoder.layout
+    packed = eval_encode.pack_eval_table(net.xyz_encoder.table.detach())
+    x, sh = _ngp_inputs(net, 8, seed=0, device=cuda)
+    ops, meta = fused_ngp.extract_mlp_weights(
+        net.fine.state_dict(), 24, net.fine.depth, net.fine.skips, 1)
+    strided = torch.empty(8, 6, device=cuda)[:, :3].copy_(x)
+    for bad_x in (x.double(), strided):
+        with pytest.raises(ValueError):
+            eval_encode.brick_encode_eval(layout, packed, bad_x)
+        with pytest.raises(ValueError):
+            fused_ngp.fused_ngp_eval(layout, meta, packed, ops, bad_x, sh)
+    with pytest.raises(ValueError):
+        eval_encode.brick_encode_eval(layout, packed.float(), x)
+    with pytest.raises(ValueError):
+        fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh[:, :9])
+    # contiguous, but 4 bytes off the 16-byte alignment of its float4 reads
+    misaligned = torch.empty(sh.numel() + 1, device=cuda)[1:].view_as(sh)
+    misaligned.copy_(sh)
+    with pytest.raises(ValueError):
+        fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, misaligned)
+
+
+@pytest.mark.cuda
+def test_ngp_render_on_gpu_matches_cpu_plain_render(cuda, monkeypatch):
+    """16x16 hard view 0 through the fused route: the kernel on the GPU
+    against its plain version on the CPU through the whole renderer."""
+    views = synthetic_scene.test_views("hard", 16, 16, [0])
+    outs = {}
+    for device in (torch.device("cpu"), cuda):
+        cfg, net = _ngp(monkeypatch, device)
+        outs[device.type] = build_renderer(cfg, net).render(views[0])[0].cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=1e-4, rtol=0)

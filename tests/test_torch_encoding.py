@@ -1,5 +1,5 @@
-"""Port parity: the frequency encoder against the JAX package, and the
-encoder dispatch of the port."""
+"""Port parity: the frequency and spherical-harmonics encoders against the
+JAX package, and the encoder dispatch of the port."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -7,9 +7,12 @@ import pytest
 import torch
 
 from nerf_replication_tpu.models.encoding.freq import freq_encode as jax_freq
+from nerf_replication_tpu.models.encoding.sh import SHEncoder as JaxSHEncoder
+from nerf_replication_tpu.models.encoding.sh import sh_encode as jax_sh
 from nerf_replication_tpu_torch.config import CN
 from nerf_replication_tpu_torch.models.encoding import get_encoder
 from nerf_replication_tpu_torch.models.encoding.freq import freq_encode
+from nerf_replication_tpu_torch.models.encoding.sh import SHEncoder, sh_encode
 
 
 @pytest.mark.parametrize("n_freqs,include_input",
@@ -26,9 +29,41 @@ def test_freq_encode_matches_jax(n_freqs, include_input):
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
 
 
-# every name the JAX dispatch knows besides "frequency"
+@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+def test_sh_encode_matches_jax(degree):
+    """Unit directions: the same f32 products and sums in the same order;
+    XLA may contract a product and a sum into one FMA, so values of order
+    1 agree to atol 1e-6."""
+    d = np.random.default_rng(degree).normal(size=(500, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    out = sh_encode(torch.from_numpy(d), degree).numpy()
+    ref = np.asarray(jax_sh(jnp.asarray(d), degree))
+    assert out.shape == ref.shape == (500, degree ** 2)
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+
+
+def test_sh_encoder_normalises_as_jax_does():
+    """Raw ray directions, a tiny and a zero one among them: divided by
+    |d| + 1e-8 first (a zero direction gives the constant band alone);
+    atol 1e-6 as above. The dispatch builds it from the config names."""
+    d = np.random.default_rng(7).normal(scale=3.0, size=(64, 3))
+    d[0], d[1] = 0.0, 1e-9
+    d = d.astype(np.float32)
+    enc = get_encoder(CN({"type": "sphere_harmonics", "degree": 4}))
+    assert isinstance(enc, SHEncoder) and enc.output_dim == 16
+    out = enc(torch.from_numpy(d)).numpy()
+    np.testing.assert_allclose(out, np.asarray(JaxSHEncoder(4)(jnp.asarray(d))),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(out[0, 1:], 0.0)
+    with pytest.raises(ValueError):
+        SHEncoder(degree=5)
+
+
+# every name the JAX dispatch knows besides the ported "frequency" and
+# "sphere_harmonics" (the hash-grid names default to the unported xla
+# backend)
 OTHER_TYPES = [
-    "sphere_harmonics", "hashgrid", "cuda_hashgrid", "grid_hash",
+    "hashgrid", "cuda_hashgrid", "grid_hash",
     "triplane", "cuda_triplane", "cuda_hashgrid_latent", "cuda_hashgrid_4d",
     "cuda_hashgrid_coef", "cuda_motion2d", "dnerf", "dnerf_mlp_tensorf",
     "dnerf_ngp_mlp", "dnerf_ngp_tensorf", "cuda_dnerf_ngp_tensorf",
