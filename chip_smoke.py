@@ -5,10 +5,11 @@
 
 Phases (any failure exits non-zero):
 1. device and build: the card's name and power limit; builds the fused
-   encode+MLP, features-in forward and backward kernels and the NGP
-   brick-encode and fused encode+MLP kernels from csrc/, one nvcc each,
-   all started together, and prints the build time and ptxas's register
-   and spill report.
+   encode+MLP, features-in forward and backward kernels, the NGP
+   brick-encode and fused encode+MLP eval kernels, the brick training
+   encode with its table gradient and the gather probes from csrc/, one
+   nvcc each, all started together, and prints the build time and ptxas's
+   register and spill report.
 2. kernel against its plain PyTorch version, with the data/pretrain/hard
    weights, at the render path's point counts: 2.56M (a 40000-ray coarse
    chunk) and 7.68M (a fine chunk); error statistics and CUDA-event times.
@@ -45,7 +46,8 @@ Phases (any failure exits non-zero):
    through load_network and renders the same image.
    ``--steps`` shortens the run for a quick check; ``--profile N``
    profiles N more steps of each arm with torch.profiler, and 5 frames of
-   phase 6's fused route (tables under build/).
+   phase 6's fused route and N more steps of phase 7's kernel arm (tables
+   under build/).
 6. NGP eval: configs/nerf/hard_ngp.yaml with data/pretrain/hard_ngp_b9
    (``network.xyz_encoder.log2_bricks 9``). (a) The brick-encode and the
    fused encode+MLP kernels against their plain versions on the samples
@@ -58,8 +60,38 @@ Phases (any failure exits non-zero):
    record 30.28 dB, SSIM, frame times, 2 fused launches a chunk and no
    other kernel or plain call. (c) View 0 through the unfused route (the
    encode kernel and the nn.Module MLP, 2 of each a chunk) and the plain
-   route (``network.use_pallas_mlp False``, no launch): each one's PSNR
-   against the fused render and its frame time.
+   route (``network.use_pallas_mlp False``: the nn.Module network, whose
+   encoder launches the training forward kernel, 2 a chunk): each one's
+   PSNR against the fused render and its frame time.
+7. NGP training: configs/nerf/hard_ngp.yaml as committed (12 levels,
+   ``log2_bricks`` 12, a 34432 x 256 f32 table, 1024 rays, 48 + 64
+   samples, ``random_bkgd``) on the 20 train views of phase 5 with their
+   alphas. (a) The training forward and the table-gradient kernel against
+   their plain versions on the sample points of one real batch (49,152
+   coarse and 114,688 fine points) of a network 200 steps from its
+   seed-0 init, with the loss's own gradient, at the config's layout and
+   at ``log2_bricks`` 13, whose levels of 8064 and 8192 rows take the f32
+   branch: the forward bit for bit (the plain version with the table read
+   in f32 must differ), the gradient against the plain backward summed in
+   f64, every level within 1e-5 of its max |gradient| (f32 atomic sums in
+   any order), the padding exactly zero; the plain backward with f32
+   contributions on the bf16 levels, and with bf16 by truncation, must
+   fail that check. CUDA-event times beside the bounds, and the time of
+   one ``index_add_`` over the same (address, value) pairs. (b) 2000 steps
+   from a fresh init (seed 0) through the train CLI's ``train()``, four
+   epochs, each after the first resumed from the checkpoint: rays/s, peak
+   memory, 2 forward and 2 backward launches a step and no plain call,
+   eval PSNR of hard test views 0 and 4 through the fused NGP eval kernel
+   after every epoch, the last above the floor in PERF.md. (c) The first
+   1000 of those steps with the encode forced to its plain forward and
+   backward (~170 ms a step, so half the steps): no launch, the arms'
+   mean eval PSNR over steps 500 and 1000 within 0.5 dB. (d) The kernel
+   arm's checkpoint read back: every parameter (the table too) and every
+   optimizer moment bit for bit, and the same render. Cut for time: 20 of
+   100 views, 2000 of the schedule's steps.
+8. the gather probes (scripts/probe_cuda_gather.py): row, element and
+   lane gathers and atomic adds at two contention levels against PyTorch
+   indexing, each with its time, the PyTorch call's and its byte bound.
 The last three lines are the card's name and power limit, the kernel
 summary (each kernel's launches on its path, error, times and bound) and
 the device, the last two as JSON.
@@ -166,6 +198,24 @@ NGP_JAX_PSNR_DB = 30.28   # dense test PSNR of hard_ngp_b9, JAX record
 NGP_ROUTES_MIN_DB = 60.0  # unfused and plain render against the fused one
 NGP_CHUNK = 40            # the ray chunk of view 0 phase 6 (a) checks
 NGP_PROFILE_FRAMES = 5    # fused frames of view 0 under --profile
+
+# NGP training (phase 7), in float32. The training forward sums the
+# plain version's products in its order, one rounding each: bit-equal.
+# The table gradient adds the plain backward's contributions with
+# atomicAdd, so it differs from an order-free f64 sum of them by f32
+# summation order alone, by far less than BRICK_BWD_TOL of a level's max
+# |gradient| (the readings are in PERF.md section 6); a fault in the
+# contributions' rounding moves a level by ~1e-3 (BRICK_BWD_CONTROLS).
+BRICK_BWD_TOL = 1e-5
+NGP_WARM_STEPS = 200       # steps before phase 7 (a) takes its batch
+NGP_LAYOUTS = (12, 13)     # log2_bricks: the config's; one with f32 levels
+NGP_TRAIN_PSNR_FLOOR_DB = 20.0    # the prediction in PERF.md section 6
+NGP_ARMS_MAX_DIFF_DB = 0.5
+NGP_PLAIN_STOPS = (1, 2)   # the plain arm's epochs: half the kernel arm's
+NGP_TRAIN_ARGV = ["--cfg_file", "configs/nerf/hard_ngp.yaml", "device",
+                  "cuda", "seed", "0", "save_result", "False", "save_ep",
+                  "1000", "eval_ep", "1000", "save_latest_ep", "1",
+                  "record_dir", "build/smoke_ngp_record"]
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W): a
 # kernel's bound is the larger of its bytes over the memory rate and its
@@ -395,11 +445,14 @@ def _counters():
     from nerf_replication_tpu_torch.ops import (
         eval_encode,
         fused_ngp,
+        hashgrid_kernel,
         mlp_kernel,
         mlp_train,
     )
 
     return {
+        "brick_fwd": [(hashgrid_kernel.brick_hash_encode, "launches")],
+        "brick_bwd": [(hashgrid_kernel.brick_hash_encode_bwd, "launches")],
         "enc": [(mlp_kernel.fused_nerf_mlp_enc, "launches")],
         "fwd": [(mlp_kernel.fused_nerf_mlp, "launches")],
         "bwd": [(mlp_train.fused_nerf_mlp_bwd, "launches")],
@@ -410,7 +463,9 @@ def _counters():
             mlp_kernel.fused_nerf_mlp_reference,
             mlp_train.fused_nerf_mlp_bwd_reference,
             eval_encode.brick_encode_eval_reference,
-            fused_ngp.fused_ngp_eval_reference)],
+            fused_ngp.fused_ngp_eval_reference,
+            hashgrid_kernel.brick_encode_reference,
+            hashgrid_kernel.brick_encode_bwd_reference)],
         "module": [(Network, "calls")],
         "mlp": [(NeRFMLP, "calls")],
     }
@@ -540,6 +595,9 @@ PROFILE_PARTS = (
     ("weight-gradient reduction", ("reduce_rows_kernel",)),
     ("fused NGP encode+MLP kernel", ("fused_ngp_kernel",)),
     ("brick encode kernel", ("brick_encode_eval_kernel",)),
+    ("brick training forward", ("brick_hash_encode_fwd_kernel",)),
+    ("brick table gradient", ("brick_hash_encode_bwd_kernel",)),
+    ("memset", ("Memset",)),
     ("GEMMs (cuBLAS/CUTLASS)", ("gemm", "cutlass", "xmma", "sm90_")),
     ("sort", ("sort", "Sort")),
     ("scans (cumsum/cumprod)", ("scan", "Scan", "cumsum", "cumprod")),
@@ -776,7 +834,11 @@ def ngp_kernels_against_plain(cfg, net, view) -> dict:
     controls on the coarse points. Returns, per kernel, its readings at
     each size."""
     from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
-    from nerf_replication_tpu_torch.ops import eval_encode, fused_ngp
+    from nerf_replication_tpu_torch.ops import (
+        eval_encode,
+        fused_ngp,
+        hashgrid_kernel,
+    )
 
     enc = net.xyz_encoder
     layout = enc.layout
@@ -792,7 +854,7 @@ def ngp_kernels_against_plain(cfg, net, view) -> dict:
         runs = {"encode": (
             lambda: eval_encode.brick_encode_eval(layout, packed, x),
             lambda: eval_encode.brick_encode_eval_reference(layout, packed, x),
-            eval_encode.encode_flops_per_point(layout)), "fused": (
+            hashgrid_kernel.encode_flops_per_point(layout)), "fused": (
             lambda: fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh),
             lambda: fused_ngp.fused_ngp_eval_reference(layout, meta, packed,
                                                        ops, x, sh),
@@ -898,7 +960,8 @@ def phase_ngp(views, profile: bool) -> dict:
     reset_counts()
     plain = run_evaluate(cfg_plain, loader=views[:1])
     routes["plain"] = (plain["rgb"][0], plain["net_time"][0], read_counts(),
-                       {"module": 2 * chunks, "mlp": 2 * chunks})
+                       {"module": 2 * chunks, "mlp": 2 * chunks,
+                        "brick_fwd": 2 * chunks})
     for route, (image, seconds, counts, nonzero) in routes.items():
         vs_fused = psnr_uint8(image, fused["rgb"][0])
         print(f"NGP {route} route, view 0: PSNR vs the fused render "
@@ -917,13 +980,369 @@ def phase_ngp(views, profile: bool) -> dict:
     return res
 
 
+def _ngp_train_cfg(*opts):
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+
+    return make_cfg(parse_args(NGP_TRAIN_ARGV + list(opts)))
+
+
+def _bwd_f32_contributions(layout, x, g):
+    """The plain backward summed in f64 with f32 contributions on every
+    level: every level above its bf16 threshold."""
+    from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
+
+    with mock.patch.object(hk, "MXU_MAX_ROWS", 0):
+        return hk.brick_encode_bwd_reference(layout, x, g, torch.float64)
+
+
+def _bwd_truncated_bf16(layout, x, g):
+    """The plain backward summed in f64 with the contributions' bf16
+    rounding replaced by truncation."""
+    from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
+
+    with mock.patch.object(hk, "_round_bf16", _truncate_bf16):
+        return hk.brick_encode_bwd_reference(layout, x, g, torch.float64)
+
+
+BRICK_BWD_CONTROLS = {
+    "f32 contributions on the bf16 levels": _bwd_f32_contributions,
+    "contributions truncated to bf16": _bwd_truncated_bf16,
+}
+
+
+def brick_bwd_agreement(layout, dtable, ref64, live) -> dict:
+    """The table-gradient check of ``dtable`` against the order-free f64
+    sums ``ref64``: per level the largest error over its max |gradient|;
+    ``ok`` when every level is within BRICK_BWD_TOL, all is finite and the
+    padding (not ``live``) is exactly zero."""
+    err = (dtable.double() - ref64).abs()
+    levels = []
+    for level in range(len(layout.scales)):
+        rows = slice(layout.offsets[level], layout.offsets[level + 1])
+        levels.append(float(err[rows].max()
+                            / ref64[rows].abs().max().clamp_min(1e-300)))
+    pad_zero = not bool(dtable[~live].any())
+    ok = (bool(torch.isfinite(dtable).all()) and pad_zero
+          and max(levels) <= BRICK_BWD_TOL)
+    return dict(ok=ok, levels=levels, worst=max(levels), pad_zero=pad_zero,
+                max_abs_err=float(err.max()))
+
+
+def describe_brick_bwd(a: dict) -> str:
+    return (f"worst level err / level max |gradient| {a['worst']:.2e} (level "
+            f"{a['levels'].index(a['worst'])}, <= {BRICK_BWD_TOL}), padding "
+            f"exactly zero {a['pad_zero']}, max_abs_err "
+            f"{a['max_abs_err']:.3e} {'ok' if a['ok'] else 'FAIL'}")
+
+
+def brick_real_batch(log2_bricks: int, arrays):
+    """A hard_ngp network of that brick cap, NGP_WARM_STEPS training steps
+    from its seed-0 init, and what its encoder sees on one more real
+    batch: [(x, g) of the coarse pass, (x, g) of the fine pass], g the
+    loss's gradient with respect to the encoder's output."""
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.train import make_trainer
+    from nerf_replication_tpu_torch.train.cli import make_pipeline
+
+    cfg = _ngp_train_cfg("network.xyz_encoder.log2_bricks", str(log2_bricks),
+                         "ep_iter", str(NGP_WARM_STEPS))
+    net = make_network(cfg).cuda()
+    trainer = make_trainer(cfg, net)
+    pipeline = make_pipeline(cfg, arrays, "cuda")
+    trainer.train_device(0, pipeline)
+    seen = []
+
+    def capture(encoder, inputs, output):
+        x = encoder.to_unit(inputs[0].detach().reshape(-1, 3).float())
+        output.register_hook(lambda g: seen.append(
+            (x.contiguous(), g.reshape(-1, encoder.output_dim))))
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    hook = net.xyz_encoder.register_forward_hook(capture)
+    loss, _ = trainer.wrapper.loss_fn(pipeline.sample(gen, trainer.step), gen,
+                                      train=True)
+    loss.backward()
+    hook.remove()
+    net.zero_grad(set_to_none=True)
+    return net, sorted(seen, key=lambda xg: xg[0].shape[0])
+
+
+def brick_kernels_against_plain(log2_bricks: int, arrays) -> dict:
+    """Phase 7 (a) at one brick cap: the training forward and the table
+    gradient against their plain versions on a real batch; returns, per
+    kernel, its readings at the coarse and the fine size."""
+    from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
+
+    net, batches = brick_real_batch(log2_bricks, arrays)
+    enc = net.xyz_encoder
+    layout, table = enc.layout, enc.table.detach()
+    live = hk.live_entries(layout).cuda()
+    rows = [hk.level_rows(layout, level)
+            for level in range(len(layout.scales))]
+    print(f"brick layout log2_bricks {log2_bricks}: {layout.n_rows} rows, "
+          f"levels of {rows} rows, {sum(r > hk.MXU_MAX_ROWS for r in rows)} "
+          f"of them f32; table max |value| {float(table.abs().max()):.3f} "
+          f"after {NGP_WARM_STEPS} steps")
+    res = {"fwd": [], "bwd": []}
+    for x, g in batches:
+        n = x.shape[0]
+        tag = f"b{log2_bricks} N={n}"
+        out_k = hk.brick_hash_encode(layout, table, x)
+        out_p = hk.brick_encode_reference(layout, table, x)
+        out_c = _table_in_f32(enc, x, None)
+        d_k = hk.brick_hash_encode_bwd(layout, x, g)
+        d_64 = hk.brick_encode_bwd_reference(layout, x, g, torch.float64)
+        torch.cuda.synchronize()
+        fwd_err = float((out_k - out_p).abs().max())
+        equal = torch.equal(out_k, out_p)
+        a = brick_bwd_agreement(layout, d_k, d_64, live)
+        touched = hk.touched_entries(layout, x)
+        flops = n * hk.encode_flops_per_point(layout)
+        ms = {"fwd": (cuda_ms(lambda: hk.brick_hash_encode(layout, table, x),
+                              20),
+                      cuda_ms(lambda: hk.brick_encode_reference(layout, table,
+                                                                x), 3)),
+              "bwd": (cuda_ms(lambda: hk.brick_hash_encode_bwd(layout, x, g),
+                              20),
+                      cuda_ms(lambda: hk.brick_encode_bwd_reference(
+                          layout, x, g), 3))}
+        # each input once, each output once: the points, the touched table
+        # entries and the features; for the gradient also g, and the whole
+        # dtable zeroed before the touched entries are written
+        bounds = {"fwd": bound(nbytes(x, out_k) + 4 * touched, flops, "f32"),
+                  "bwd": bound(nbytes(x, g, d_k) + 4 * touched, flops, "f32")}
+        index, value = (torch.cat(t) for t in zip(*hk._corner_updates(
+            layout, x, g.float())))
+        flat = torch.zeros(layout.n_rows * hk.ROW, device="cuda")
+        scatter_ms = cuda_ms(lambda: flat.index_add_(0, index, value), 5)
+        del index, value, flat
+        print(f"brick training forward vs plain, {tag}: bit-equal {equal}, "
+              f"max_abs_err {fwd_err:.3e}; plain with the table read in f32 "
+              f"differs by {float((out_c - out_p).abs().max()):.3e} | kernel "
+              f"{ms['fwd'][0]:.4f} ms (bound {bounds['fwd']['bound_ms']:.4f} "
+              f"ms by {bounds['fwd']['bound_by']}), plain {ms['fwd'][1]:.3f} "
+              f"ms; {touched} table entries touched")
+        print(f"brick table gradient vs plain summed in f64, {tag} (g "
+              f"contiguous {g.is_contiguous()}): {describe_brick_bwd(a)} | "
+              f"kernel {ms['bwd'][0]:.4f} ms (bound "
+              f"{bounds['bwd']['bound_ms']:.4f} ms by "
+              f"{bounds['bwd']['bound_by']}), plain {ms['bwd'][1]:.3f} ms; "
+              f"one index_add_ over the same {16 * len(rows) * n} pairs "
+              f"{scatter_ms:.3f} ms")
+        if not equal or not bool(torch.isfinite(out_k).all()):
+            fail(f"the brick training forward differs from plain, {tag}")
+        if torch.equal(out_c, out_p):
+            fail("the forward check cannot see a table read in f32")
+        if not a["ok"]:
+            fail(f"the brick table gradient disagrees with plain, {tag}")
+        for label, control in BRICK_BWD_CONTROLS.items():
+            c = brick_bwd_agreement(layout, control(layout, x, g), d_64, live)
+            print(f"control, plain backward with {label}, {tag}: "
+                  f"{describe_brick_bwd(c)}")
+            if c["ok"]:
+                fail(f"the table-gradient check accepts the plain backward "
+                     f"with {label}, so it cannot see such a fault")
+        for kind, err in (("fwd", fwd_err), ("bwd", a["max_abs_err"])):
+            res[kind].append(dict(n=n, err=err, ms=ms[kind][0],
+                                  plain_ms=ms[kind][1], **bounds[kind]))
+    del net
+    torch.cuda.empty_cache()
+    return res
+
+
+def ngp_checkpoint_round_trip(arm: dict, view) -> bool:
+    """The checkpoint that ``train()`` wrote for ``arm``: every parameter
+    (the table too) and every optimizer moment read back bit for bit, and
+    the loaded network renders ``view`` as the arm's did."""
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.run import build_renderer
+    from nerf_replication_tpu_torch.train import make_trainer
+    from nerf_replication_tpu_torch.utils.ckpt_utils import (
+        load_model,
+        params_from_jax,
+    )
+
+    cfg, trainer = arm["cfg"], arm["trainer"]
+    payload = load_model(cfg.trained_model_dir)
+    net = make_network(cfg)
+    net.load_state_dict(params_from_jax(payload["net"]))
+    net = net.cuda()
+    loaded = make_trainer(cfg, net)
+    loaded.optimizer.load_state_dict(payload["optim"])
+    ref = trainer.network.state_dict()
+    params = all(torch.equal(v, ref[k]) for k, v in net.state_dict().items())
+    table = tuple(payload["net"]["params"]["xyz_encoder"]["table"].shape)
+
+    def moments(t):
+        state = t.optimizer.state_dict()["optimizer"]["state"]
+        return [v.cpu() for _, s in sorted(state.items())
+                for _, v in sorted(s.items()) if torch.is_tensor(v)]
+
+    ours, theirs = moments(loaded), moments(trainer)
+    optim = (len(ours) == len(theirs) and loaded.step == trainer.step
+             and all(torch.equal(a, b) for a, b in zip(ours, theirs)))
+    again = build_renderer(cfg, net).render(view)[0].cpu().numpy()
+    same = bool(np.array_equal(again, arm["images"][0]))
+    print(f"NGP checkpoint round trip: {cfg.trained_model_dir} (epoch "
+          f"{payload['epoch']}, table {table}): parameters bit-equal "
+          f"{params}, {len(ours)} optimizer tensors bit-equal {optim} at "
+          f"step {loaded.step}, view 0 renders "
+          f"{'identically' if same else 'DIFFERENTLY'}")
+    return params and optim and same and table == tuple(
+        trainer.network.xyz_encoder.table.shape)
+
+
+def ngp_train_arm(plain: bool, arrays, views, steps: int,
+                  stops=(1, 2, 3, 4)) -> dict:
+    """One arm of phase 7 through the train CLI's ``train()``: epochs of
+    ``steps // 4`` steps from the fresh seed-0 init up to the first of
+    ``stops``, then a run resumed from the checkpoint up to each later
+    stop, with an eval at every stop. ``plain`` forces the encoder's
+    autograd.Function to its plain forward and backward on the card."""
+    from nerf_replication_tpu_torch.evaluators import psnr_uint8
+    from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
+    from nerf_replication_tpu_torch.run import build_renderer
+    from nerf_replication_tpu_torch.train.cli import train
+
+    label = "plain" if plain else "kernels"
+    opts = ["ep_iter", str(steps // 4), "trained_model_dir",
+            f"build/smoke_ngp_train_{label}"]
+
+    def evaluate(net):
+        renderer = build_renderer(cfg, net)   # packs the current table
+        images = [renderer.render(view)[0].cpu().numpy() for view in views]
+        return images, float(np.mean([psnr_uint8(img, view["colors"])
+                                      for img, view in zip(images, views)]))
+
+    forced = {"brick_hash_encode": hk.brick_encode_reference,
+              "brick_hash_encode_bwd": hk.brick_encode_bwd_reference}
+    counts, summaries, evals = dict.fromkeys(_counters(), 0), [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for name, fn in (forced.items() if plain else ()):
+            stack.enter_context(mock.patch.object(hk, name, fn))
+        for epochs in stops:
+            cfg = _ngp_train_cfg(*opts, "train.epoch", str(epochs), "resume",
+                                 str(epochs != stops[0]))
+            reset_counts()
+            trainer = train(cfg, train_arrays=arrays, val_loader=views)
+            counts = {k: counts[k] + n for k, n in read_counts().items()}
+            summaries += trainer.summaries
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            images, evals[trainer.step] = evaluate(trainer.network)
+    losses = np.concatenate([s["loss"] for s in summaries])
+    psnrs = np.concatenate([s["psnr"] for s in summaries])
+    arm = dict(cfg=cfg, trainer=trainer, counts=counts, steps=trainer.step,
+               losses=losses, images=images, evals=evals, peak_gb=peak_gb,
+               eval_psnr=evals[trainer.step],
+               rays_per_s=[s["rays_per_s"] for s in summaries])
+    print(f"NGP train ({label}): {arm['steps']} steps in epochs "
+          f"{[s['epoch'] for s in summaries]} (each after the first resumed "
+          f"from the checkpoint), rays/s per epoch "
+          f"{[round(r) for r in arm['rays_per_s']]}, final smoothed loss "
+          f"{float(np.median(losses[-20:])):.5f}, train PSNR "
+          f"{float(np.median(psnrs[-20:])):.2f} dB, peak memory in training "
+          f"{peak_gb:.2f} GB, eval PSNR (hard test views 0, 4, 800x800, fused "
+          f"NGP eval) by step "
+          f"{ {step: round(db, 4) for step, db in evals.items()} }, counts in "
+          f"training {counts}")
+    return arm
+
+
+def phase_ngp_train(arrays, views, steps: int, profile: int) -> dict:
+    """Phase 7: the brick training kernels against plain at both layouts,
+    the kernel arm, the plain arm and the checkpoint round trip. Returns
+    the kernels' readings at the config's layout with their launches in
+    the kernel arm's training."""
+    res = None
+    for log2_bricks in NGP_LAYOUTS:
+        readings = brick_kernels_against_plain(log2_bricks, arrays)
+        res = res or readings        # the config's layout comes first
+
+    from nerf_replication_tpu_torch.train.cli import make_pipeline
+
+    k = ngp_train_arm(False, arrays, views, steps)
+    expect = dict.fromkeys(k["counts"], 0) | {
+        "brick_fwd": 2 * steps, "brick_bwd": 2 * steps, "module": 2 * steps,
+        "mlp": 2 * steps}
+    if k["counts"] != expect or k["steps"] != steps:
+        fail(f"the NGP kernel arm did not train through the brick kernels "
+             f"alone: {k['counts']}")
+    round_trip = ngp_checkpoint_round_trip(k, views[0])
+    if profile:
+        profile_steps(k["trainer"], make_pipeline(k["cfg"], arrays, "cuda"),
+                      profile, "ngp_train")
+    del k["trainer"]
+    torch.cuda.empty_cache()
+
+    # the plain arm takes ~170 ms a step, so it runs half the steps and the
+    # arms are compared where both were evaluated
+    p = ngp_train_arm(True, arrays, views, steps, stops=NGP_PLAIN_STOPS)
+    done = p["steps"]
+    expect = dict.fromkeys(p["counts"], 0) | {
+        "plain": 4 * done, "module": 2 * done, "mlp": 2 * done}
+    if p["counts"] != expect or 2 * done != steps:
+        fail(f"the NGP plain arm did not train through the plain versions "
+             f"alone: {p['counts']}")
+    del p["trainer"]
+    torch.cuda.empty_cache()
+    for arm in (k, p):
+        if not np.isfinite(arm["losses"]).all():
+            fail("an NGP training loss is not finite")
+        if arm["eval_psnr"] < NGP_TRAIN_PSNR_FLOOR_DB:
+            fail(f"NGP eval PSNR {arm['eval_psnr']:.4f} dB below the floor "
+                 f"{NGP_TRAIN_PSNR_FLOOR_DB} dB")
+    means = [float(np.mean([arm["evals"][step] for step in p["evals"]]))
+             for arm in (k, p)]
+    diff = abs(means[0] - means[1])
+    print(f"NGP arms: eval PSNR after {done} steps kernels "
+          f"{k['evals'][done]:.4f} dB, plain {p['evals'][done]:.4f} dB; mean "
+          f"of the evals at steps {list(p['evals'])} kernels {means[0]:.4f} "
+          f"dB, plain {means[1]:.4f} dB, difference {diff:.4f} dB (<= "
+          f"{NGP_ARMS_MAX_DIFF_DB}); train rays/s (epochs after the first) "
+          f"kernels {np.mean(k['rays_per_s'][1:]):,.0f}, plain "
+          f"{np.mean(p['rays_per_s'][1:]):,.0f}")
+    if diff > NGP_ARMS_MAX_DIFF_DB:
+        fail(f"the NGP arms' eval PSNRs differ by {diff:.4f} dB")
+    if not round_trip:
+        fail("the NGP checkpoint does not give back the trained state")
+    res["launches"] = {"fwd": k["counts"]["brick_fwd"],
+                       "bwd": k["counts"]["brick_bwd"]}
+    return res
+
+
+def phase_probes() -> list[dict]:
+    """Phase 8: scripts/probe_cuda_gather.py's probes; returns its
+    readings, each with the launches its run made."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "probe_cuda_gather", os.path.join(ROOT, "scripts",
+                                          "probe_cuda_gather.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    for wrapper in probe.PROBES:
+        wrapper.launches = 0
+    readings = probe.run()
+    torch.cuda.synchronize()
+    launches = {f"probe_{w.__name__}": w.launches for w in probe.PROBES}
+    for r in readings:
+        r["launches"] = launches[r["name"]]
+        if not r["ok"] or not r["launches"]:
+            fail(f"{r['name']} disagrees with PyTorch indexing or did not "
+                 f"launch")
+    return readings
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=TRAIN_STEPS,
                         help="training steps per arm (a multiple of 4)")
     parser.add_argument("--profile", type=int, default=0,
                         help="profile this many more steps of each arm "
-                             "(and 5 fused NGP frames)")
+                             "and of the NGP kernel arm (and 5 fused NGP "
+                             "frames)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -951,7 +1370,7 @@ def main(argv=None):
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     libs = ["fused_nerf_mlp", "fused_nerf_mlp_bwd", "brick_encode_eval",
-            "fused_ngp"]
+            "fused_ngp", "brick_hash_encode", "probe_gather"]
     _build.build_all(libs)   # one nvcc each, all started together
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for lib in libs:
@@ -1067,16 +1486,23 @@ def main(argv=None):
 
     # -- 5. training ------------------------------------------------------
     counts = phase_train(arrays, views, opts.steps, opts.profile)
-    del arrays
     torch.cuda.empty_cache()
 
     # -- 6. NGP eval ------------------------------------------------------
     ngp = phase_ngp(views, opts.profile > 0)
 
+    # -- 7. NGP training --------------------------------------------------
+    brick = phase_ngp_train(arrays, views, opts.steps, opts.profile)
+    del arrays
+    torch.cuda.empty_cache()
+
+    # -- 8. the gather probes ---------------------------------------------
+    probes = phase_probes()
+
     def entry(name, source, replaces, launches, readings):
         """One kernel of the summary: its last reading (its largest size
-        on its path); no PyTorch call computes any of these functions, so
-        library_ms is null."""
+        on its path); no single PyTorch call computes any of these
+        functions, so library_ms is null."""
         big = readings[-1]
         return {"name": name, "route": "cuda",
                 "source": f"nerf_replication_tpu_torch/csrc/{source}",
@@ -1086,6 +1512,20 @@ def main(argv=None):
                 "ms": big["ms"], "plain_ms": big["plain_ms"],
                 "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
                 "library_ms": None}
+
+    def probe_entry(name):
+        """One probe: its last reading (the contended one for the atomic
+        probe); its plain version is the one PyTorch call it is held
+        against, so plain_ms and library_ms are that call's time."""
+        mine = [r for r in probes if r["name"] == name]
+        big = mine[-1]
+        return {"name": name, "route": "cuda",
+                "source": "nerf_replication_tpu_torch/csrc/probe_gather.cu",
+                "replaces": big["replaces"], "launches": big["launches"],
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": big["ms"], "plain_ms": big["library_ms"],
+                "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+                "library_ms": big["library_ms"]}
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -1099,7 +1539,15 @@ def main(argv=None):
               "eval_encode.py:202 and :245", ngp["launches"]["encode"],
               ngp["encode"]),
         entry("fused_ngp_eval", "fused_ngp.cu", "fused_ngp.py:258",
-              ngp["launches"]["fused"], ngp["fused"])]}))
+              ngp["launches"]["fused"], ngp["fused"]),
+        entry("brick_hash_encode", "brick_hash_encode.cu",
+              "hashgrid_kernel.py:311", brick["launches"]["fwd"],
+              brick["fwd"]),
+        entry("brick_hash_encode_bwd", "brick_hash_encode.cu",
+              "hashgrid_kernel.py:339", brick["launches"]["bwd"],
+              brick["bwd"]),
+        *[probe_entry(name) for name in dict.fromkeys(
+            r["name"] for r in probes)]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

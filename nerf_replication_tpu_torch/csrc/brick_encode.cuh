@@ -1,9 +1,10 @@
 // The bricked multi-level hash-grid encode of one point, shared by
-// brick_encode_eval.cu and fused_ngp.cu.
+// brick_encode_eval.cu, fused_ngp.cu and brick_hash_encode.cu.
 //
 // The arithmetic of nerf_replication_tpu/ops/pallas/hashgrid_kernel.py
-// (_level_geometry, compute_brick_ids) on the packed eval table of
-// ops/pallas/eval_encode.py: one 32-bit word per brick vertex holds feature
+// (_level_geometry, compute_brick_ids): locate() and the corner helpers
+// serve every kernel; encode_level() applies them to the packed eval table
+// of ops/pallas/eval_encode.py: one 32-bit word per brick vertex holds feature
 // 0's bf16 bits in its high half and feature 1's in its low half, so each
 // trilinear corner is one 4-byte load (8 a level). The TPU kernels fetch
 // whole brick rows, by one-hot matmuls on the MXU or by scalar row copies;
@@ -29,7 +30,7 @@ constexpr int kBrick = 4;        // cells per brick side
 constexpr uint32_t kPrime1 = 2654435761u;
 constexpr uint32_t kPrime2 = 805459861u;
 
-// The table layout per level (ops/eval_encode.py kernel_levels).
+// The table layout per level (ops/hashgrid_kernel.py kernel_levels).
 struct Levels {
   float res[kMaxLevels];            // cells per side
   int offset[kMaxLevels];           // first table row
@@ -37,22 +38,30 @@ struct Levels {
   uint32_t hash_mask[kMaxLevels];   // hash range - 1; 0 for a dense level
 };
 
-// Features (f0, f1) of one level at point p in [0,1]^3.
-__device__ __forceinline__ float2 encode_level(const float (&p)[3], float res,
-                                               int offset, int bside,
-                                               uint32_t hash_mask,
-                                               const uint32_t* __restrict__ table) {
-  float frac[3];
-  int cell[3];
+// Where point p in [0,1]^3 falls in one level: its brick's table row, the
+// lane of its cell's lowest corner in that row, and the trilinear weights
+// of the lower and upper corner along each axis.
+struct Cell {
+  uint32_t row;          // table row: the level's offset + the brick id
+  int lane;              // lx * 25 + ly * 5 + lz of the in-brick cell
+  float w0[3], w1[3];    // 1 - fraction, fraction
+};
+
+__device__ __forceinline__ Cell locate(const float (&p)[3], float res,
+                                       int offset, int bside,
+                                       uint32_t hash_mask) {
+  Cell cell;
+  int c[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float pos = __fmul_rn(p[a], res);
     // clip(floor(pos), 0, res - 1); a NaN lands on cell 0
-    const float c = fminf(fmaxf(floorf(pos), 0.0f), res - 1.0f);
-    frac[a] = __fsub_rn(pos, c);
-    cell[a] = static_cast<int>(c);
+    const float f = fminf(fmaxf(floorf(pos), 0.0f), res - 1.0f);
+    cell.w1[a] = __fsub_rn(pos, f);
+    cell.w0[a] = __fsub_rn(1.0f, cell.w1[a]);
+    c[a] = static_cast<int>(f);
   }
-  const int b0 = cell[0] / kBrick, b1 = cell[1] / kBrick, b2 = cell[2] / kBrick;
+  const int b0 = c[0] / kBrick, b1 = c[1] / kBrick, b2 = c[2] / kBrick;
   uint32_t bid;
   if (hash_mask) {
     bid = (static_cast<uint32_t>(b0) ^ (static_cast<uint32_t>(b1) * kPrime1) ^
@@ -60,27 +69,39 @@ __device__ __forceinline__ float2 encode_level(const float (&p)[3], float res,
   } else {
     bid = static_cast<uint32_t>((b0 * bside + b1) * bside + b2);
   }
+  cell.row = static_cast<uint32_t>(offset) + bid;
+  cell.lane = (c[0] % kBrick) * 25 + (c[1] % kBrick) * 5 + (c[2] % kBrick);
+  return cell;
+}
+
+// Corner c = 4 dx + 2 dy + dz: its lane offset from the cell's lowest
+// corner, and its weight, multiplied in the order x, y, z.
+__device__ __forceinline__ int corner_lane(int c) {
+  return ((c >> 2) & 1) * 25 + ((c >> 1) & 1) * 5 + (c & 1);
+}
+
+__device__ __forceinline__ float corner_weight(const Cell& cell, int c) {
+  return __fmul_rn(__fmul_rn((c & 4) ? cell.w1[0] : cell.w0[0],
+                             (c & 2) ? cell.w1[1] : cell.w0[1]),
+                   (c & 1) ? cell.w1[2] : cell.w0[2]);
+}
+
+// Features (f0, f1) of one level at point p in [0,1]^3, from the packed
+// eval table.
+__device__ __forceinline__ float2 encode_level(const float (&p)[3], float res,
+                                               int offset, int bside,
+                                               uint32_t hash_mask,
+                                               const uint32_t* __restrict__ table) {
+  const Cell cell = locate(p, res, offset, bside, hash_mask);
   const uint32_t* __restrict__ row =
-      table + (static_cast<size_t>(offset) + bid) * kRowWords;
-  const int lx = cell[0] % kBrick, ly = cell[1] % kBrick, lz = cell[2] % kBrick;
+      table + static_cast<size_t>(cell.row) * kRowWords + cell.lane;
   uint32_t bits[8];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int dx = (c >> 2) & 1, dy = (c >> 1) & 1, dz = c & 1;
-    bits[c] = __ldg(row + (lx + dx) * 25 + (ly + dy) * 5 + (lz + dz));
-  }
-  float w0[3], w1[3];   // weight of the lower / upper corner along each axis
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    w0[a] = __fsub_rn(1.0f, frac[a]);
-    w1[a] = frac[a];
-  }
+  for (int c = 0; c < 8; ++c) bits[c] = __ldg(row + corner_lane(c));
   float f0 = 0.0f, f1 = 0.0f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    const float w = __fmul_rn(__fmul_rn((c & 4) ? w1[0] : w0[0],
-                                        (c & 2) ? w1[1] : w0[1]),
-                              (c & 1) ? w1[2] : w0[2]);
+    const float w = corner_weight(cell, c);
     f0 = __fadd_rn(f0, __fmul_rn(w, __uint_as_float(bits[c] & 0xFFFF0000u)));
     f1 = __fadd_rn(f1, __fmul_rn(w, __uint_as_float(bits[c] << 16)));
   }

@@ -9,7 +9,9 @@ package cannot be imported without JAX. Same behaviour: loads
 pixels, test/val every pixel. ``__getitem__`` returns the same batch dict
 (colors, rays_o, rays_d, H, W, id, pose, focal, and depth/normal on the
 test split when present). ``as_arrays`` stacks the split for the
-device-resident training sampler (datasets/pipeline.py).
+device-resident training sampler (datasets/pipeline.py) and
+``alpha_arrays`` the alpha channels of RGBA sources, which
+random-background training needs.
 """
 
 from __future__ import annotations
@@ -68,12 +70,14 @@ class Dataset:
 
         size = (self.W, self.H)
         self.images, self.poses, self.depths, self.normals = [], [], [], []
+        self.alphas = []       # (H, W) float32 coverage of RGBA sources
         for frame in frames:
             base = os.path.join(self.scene_root, frame["file_path"])
             img = _load_png(base + ".png", size, Image.BILINEAR) / 255.0
             if img.ndim == 2:
                 img = np.stack([img] * 3, axis=-1)
             if img.shape[-1] == 4:
+                self.alphas.append(img[..., 3].astype(np.float32))
                 bg = 1.0 if self.white_bkgd else 0.0
                 img = img[..., :3] * img[..., 3:] + bg * (1.0 - img[..., 3:])
             self.images.append(img.astype(np.float32))
@@ -99,6 +103,13 @@ class Dataset:
         K = np.array([[f, 0, self.W / 2.0], [0, f, self.H / 2.0],
                       [0, 0, 1.0]], dtype=np.float32)
         return np.stack(self.images), np.stack(self.poses), K
+
+    def alpha_arrays(self):
+        """(N, H, W) float32 coverage, or None when the source images
+        carried no alpha channel."""
+        if len(self.alphas) != len(self.images):
+            return None
+        return np.stack(self.alphas)
 
     def _rays_for_pixels(self, pose, u, v):
         f = self.focal

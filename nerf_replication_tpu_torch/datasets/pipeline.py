@@ -6,7 +6,9 @@ so /255 round-trips exactly), and each step draws one random image and
 ``n_rays`` random pixels of it from a ``torch.Generator`` on the device,
 with no host-to-device copy per step. The first ``precrop_iters`` global
 steps draw from the centre crop (``precrop_frac`` of each side).
-``sample_across_images`` draws each ray's image independently.
+``sample_across_images`` draws each ray's image independently. With
+``alphas`` (the coverage of RGBA sources, uint8 on the device too) a batch
+also holds ``alpha``, which random-background training needs.
 
 Ray geometry stays in float32 and never runs as a TF32 matmul: the camera
 rotation is applied as an elementwise product and sum.
@@ -28,11 +30,14 @@ def _to_uint8(a) -> np.ndarray:
 class DeviceRayPipeline:
     def __init__(self, images, poses, K, n_rays: int = 1024,
                  precrop_iters: int = 0, precrop_frac: float = 0.5,
-                 sample_across_images: bool = False, device="cpu"):
-        """images (N, H, W, 3) in [0, 1] or uint8, poses (N, 4, 4) c2w,
-        K (3, 3) intrinsics."""
+                 sample_across_images: bool = False, alphas=None,
+                 device="cpu"):
+        """images (N, H, W, 3) and alphas (N, H, W) or None, in [0, 1] or
+        uint8; poses (N, 4, 4) c2w; K (3, 3) intrinsics."""
         self.device = torch.device(device)
         self.images = torch.as_tensor(_to_uint8(images), device=self.device)
+        self.alphas = None if alphas is None else torch.as_tensor(
+            _to_uint8(alphas), device=self.device)
         self.poses = torch.as_tensor(np.asarray(poses, np.float32),
                                      device=self.device)
         self.n_images, self.H, self.W = self.images.shape[:3]
@@ -68,7 +73,8 @@ class DeviceRayPipeline:
 
     def sample(self, generator: torch.Generator, step: int = 1 << 30) -> dict:
         """One training batch {rays_o, rays_d, colors}, each (n_rays, 3)
-        float32 on the device."""
+        float32 on the device, and {alpha} (n_rays,) when the pipeline
+        holds alphas."""
         u_lo, u_hi, v_lo, v_hi = self.bounds(step)
         kw = dict(generator=generator, device=self.device)
         shape = () if not self.sample_across_images else (self.n_rays,)
@@ -78,5 +84,8 @@ class DeviceRayPipeline:
         colors = self.images[img, v, u].float() / 255.0
         rays_o, rays_d = self._pixel_rays(self.poses[img], u.float(),
                                           v.float())
-        return {"rays_o": rays_o.contiguous(), "rays_d": rays_d,
-                "colors": colors}
+        batch = {"rays_o": rays_o.contiguous(), "rays_d": rays_d,
+                 "colors": colors}
+        if self.alphas is not None:
+            batch["alpha"] = self.alphas[img, v, u].float() / 255.0
+        return batch

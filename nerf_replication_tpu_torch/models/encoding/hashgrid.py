@@ -4,10 +4,12 @@ The counterpart of ``HashGridEncoder(backend="brick")`` in
 nerf_replication_tpu/models/encoding/hashgrid.py: the table is one
 ``nn.Parameter`` of shape (n_rows, 256) in the layout of
 ops/hashgrid_kernel.py, so a JAX checkpoint's ``params/xyz_encoder/table``
-loads into it as it is. The forward is the plain version of the training
-forward (``brick_encode_reference``: bf16 table reads on levels of at most
-4096 rows, f32 above), differentiable in the table. The eval path reaches
-the CUDA kernels through models/nerf/renderer/ngp_renderer.py instead.
+loads into it as it is. The forward is the training encode with its table
+gradient (``ops.hashgrid_kernel.BrickHashEncodeFn``: the CUDA kernels on a
+CUDA tensor, their plain versions on a CPU tensor; bf16 table reads and
+bf16 gradient contributions on levels of at most 4096 rows, f32 above; no
+gradient to the points). The eval path reaches the packed-table kernels
+through models/nerf/renderer/ngp_renderer.py instead.
 
 Not ported yet: ``backend="xla"`` (the vertex-exact formulation) and the
 composite encoders, ROADMAP.md items A.10 and A.12.
@@ -93,6 +95,6 @@ class HashGridEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(..., 3) -> (..., 2L)."""
         shape = x.shape[:-1]
-        x = self.to_unit(x.reshape(-1, 3).float())
-        out = hk.brick_encode_reference(self.layout, self.table, x)
+        x = self.to_unit(x.reshape(-1, 3).float()).contiguous()
+        out = hk.BrickHashEncodeFn.apply(self.layout, self.table, x)
         return out.reshape(*shape, self.output_dim)

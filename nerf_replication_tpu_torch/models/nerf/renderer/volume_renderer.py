@@ -13,6 +13,10 @@ noise to the densities, all from one ``torch.Generator``. Its MLP is
 :attr:`Renderer.train_apply`: the differentiable fused kernels
 (ops/mlp_train.py) with ``network.use_pallas_mlp_train`` True, the port's
 default, else the ``nn.Module`` with autograd (the JAX package's XLA arm).
+A brick hash-grid NGP network trains through the ``nn.Module`` itself,
+whose encoder runs the brick-encode CUDA kernels, whatever that flag says:
+the JAX package has no fused train MLP for that family either
+(``make_fused_train_apply`` returns None there, ops/pallas/mlp_train.py).
 
 Not ported yet (ROADMAP.md A.5): ``render_image_fast``,
 ``make_frame_renderer``, ``fine_stage_ert`` and the ESS/ERT masks;
@@ -26,7 +30,7 @@ import dataclasses
 import torch
 
 from ....config import as_bool
-from ....ops import mlp_kernel, mlp_train
+from ....ops import hashgrid_kernel, mlp_kernel, mlp_train
 from ....ops.ray_ops import (
     composite,
     compute_weights,
@@ -34,6 +38,7 @@ from ....ops.ray_ops import (
     sample_pdf,
     stratified_sample,
 )
+from . import ngp_renderer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,12 +180,19 @@ class Renderer:
 
     @property
     def train_apply(self):
-        """The training MLP, made at first use: the differentiable fused
-        kernels with ``network.use_pallas_mlp_train`` True (built now on a
-        CUDA network, so a failed build raises; a network they do not
-        cover raises), else the ``nn.Module`` with autograd."""
+        """The training apply, made at first use. A brick hash-grid NGP
+        network: the ``nn.Module``, whose encoder runs the brick-encode
+        kernels (built now on a CUDA network, so a failed build raises).
+        Else the differentiable fused MLP kernels with
+        ``network.use_pallas_mlp_train`` True (built now likewise; a
+        network they do not cover raises), or the ``nn.Module`` with
+        autograd."""
         if self._train_apply is None:
-            if not self.fused_train:
+            if ngp_renderer.is_brick_ngp(self.net):
+                if self.device.type == "cuda":
+                    hashgrid_kernel.build()
+                self._train_apply = self.net
+            elif not self.fused_train:
                 self._train_apply = self.net
             else:
                 fused = mlp_train.make_fused_train_apply(self.net)

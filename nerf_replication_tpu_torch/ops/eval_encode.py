@@ -28,14 +28,14 @@ import torch
 from . import _build
 from .hashgrid_kernel import (
     BrickLayout,
+    check_points,
     compute_brick_ids,
     corner_lane_weight,
     corners,
-    hash_range,
+    kernel_levels,
     level_geometry,
 )
 
-MAX_LEVELS = 16      # brick::kMaxLevels in csrc/brick_encode.cuh
 WORDS = 128          # 32-bit words per packed row
 
 
@@ -88,30 +88,6 @@ def brick_encode_eval_reference(layout: BrickLayout, packed_table: torch.Tensor,
 brick_encode_eval_reference.calls = 0
 
 
-class Levels(ctypes.Structure):
-    """``brick::Levels`` of csrc/brick_encode.cuh, passed by pointer."""
-    _fields_ = [("res", ctypes.c_float * MAX_LEVELS),
-                ("offset", ctypes.c_int * MAX_LEVELS),
-                ("bside", ctypes.c_int * MAX_LEVELS),
-                ("hash_mask", ctypes.c_uint32 * MAX_LEVELS)]
-
-
-@functools.cache
-def kernel_levels(layout: BrickLayout) -> Levels:
-    """The layout as the kernels read it: per level its resolution, first
-    row, bricks per side, and ``hash_range - 1`` (0 for a dense level)."""
-    if len(layout.scales) > MAX_LEVELS:
-        raise ValueError(f"brick kernels: at most {MAX_LEVELS} levels")
-    lv = Levels()
-    for level, res in enumerate(layout.scales):
-        lv.res[level] = float(res)
-        lv.offset[level] = layout.offsets[level]
-        lv.bside[level] = layout.bsides[level]
-        lv.hash_mask[level] = (hash_range(layout, level) - 1
-                               if layout.use_hash[level] else 0)
-    return lv
-
-
 def check_table(layout: BrickLayout, packed: torch.Tensor,
                 device: torch.device) -> None:
     if packed.dtype != torch.int32 or tuple(packed.shape) != (
@@ -120,17 +96,6 @@ def check_table(layout: BrickLayout, packed: torch.Tensor,
         raise ValueError(f"brick kernels: the packed table must be a "
                          f"contiguous int32 ({layout.n_rows}, {WORDS}) tensor "
                          f"on {device}")
-
-
-def check_points(x: torch.Tensor) -> int:
-    n = x.shape[0]
-    if x.dtype != torch.float32 or tuple(x.shape) != (n, 3) \
-            or not x.is_contiguous():
-        raise ValueError(f"brick kernels: x must be a contiguous float32 "
-                         f"({n}, 3) tensor")
-    if n >= 2 ** 31 // (2 * MAX_LEVELS):
-        raise ValueError(f"brick kernels: {n} points exceed the int32 index")
-    return n
 
 
 @functools.cache
@@ -179,13 +144,5 @@ def brick_encode_eval(layout: BrickLayout, packed_table: torch.Tensor,
 brick_encode_eval.launches = 0
 
 
-def encode_flops_per_point(layout: BrickLayout) -> int:
-    """f32 multiplies and adds of the encode per point: per level and axis
-    the position, the fraction and 1 - fraction; per corner two weight
-    products and a multiply-add for each feature."""
-    return len(layout.scales) * (3 * 3 + 8 * 6)
-
-
 __all__ = ["pack_eval_table", "unpack_f0_f1", "brick_encode_eval",
-           "brick_encode_eval_reference", "kernel_levels", "build",
-           "encode_flops_per_point"]
+           "brick_encode_eval_reference", "build"]

@@ -35,14 +35,13 @@ import functools
 import torch
 
 from . import _build
-from .eval_encode import (
-    _encode_plain,
+from .eval_encode import _encode_plain, check_table
+from .hashgrid_kernel import (
+    BrickLayout,
     check_points,
-    check_table,
     encode_flops_per_point,
     kernel_levels,
 )
-from .hashgrid_kernel import BrickLayout
 
 # what the CUDA kernel covers (csrc/fused_ngp.cu)
 KERNEL_WIDTH = 64

@@ -14,8 +14,11 @@ and the test split is evaluated every ``eval_ep``. ``--test`` evaluates
 the checkpoint (or ``pretrain_path``) through ``Trainer.val``.
 
 The device is the config's ``device`` (``cuda`` unless ``device cpu``).
-``network.use_pallas_mlp_train`` (default True) trains the MLP through the
-fused CUDA kernels, ``False`` through the ``nn.Module`` with autograd.
+``network.use_pallas_mlp_train`` (default True) trains the 8x256 MLP
+through the fused CUDA kernels, ``False`` through the ``nn.Module`` with
+autograd. A brick hash-grid NGP network (``configs/nerf/hard_ngp.yaml``)
+trains through its encoder's CUDA kernels and the f32 ``nn.Module`` MLP
+whatever that flag says; ``task_arg.random_bkgd`` needs RGBA sources.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import os
 
 import torch
 
-from ..config import make_cfg, parse_args
+from ..config import as_bool, make_cfg, parse_args
 from ..datasets import DeviceRayPipeline, make_test_dataset, make_train_dataset
 from ..evaluators import make_evaluator
 from ..models import make_network
@@ -40,15 +43,18 @@ from . import make_recorder, make_trainer
 
 
 def make_pipeline(cfg, arrays, device) -> DeviceRayPipeline:
-    """The device-resident sampler over ``arrays`` (images, poses, K)."""
+    """The device-resident sampler over ``arrays``: (images, poses, K) or
+    (images, poses, K, alphas). The alphas go to the device only with
+    ``task_arg.random_bkgd``, the one thing that reads them."""
     ta = cfg.task_arg
-    images, poses, K = arrays
+    images, poses, K, *rest = arrays
+    random_bkgd = as_bool(ta.get("random_bkgd", False), "task_arg.random_bkgd")
     return DeviceRayPipeline(
         images, poses, K, n_rays=int(ta.get("N_rays", 1024)),
         precrop_iters=int(ta.get("precrop_iters", 0)),
         precrop_frac=float(ta.get("precrop_frac", 0.5)),
         sample_across_images=bool(ta.get("sample_across_images", False)),
-        device=device)
+        alphas=rest[0] if rest and random_bkgd else None, device=device)
 
 
 def _pretrain_dir(name: str) -> str:
@@ -58,7 +64,8 @@ def _pretrain_dir(name: str) -> str:
 
 def train(cfg, train_arrays=None, val_loader=None):
     """Train per the config; returns the Trainer. ``train_arrays``
-    (images, poses, K) and ``val_loader`` replace the config's splits."""
+    (images, poses, K and, for ``random_bkgd``, alphas) and ``val_loader``
+    replace the config's splits."""
     device = resolve_device(cfg)
     network = make_network(cfg).to(device)
     trainer = make_trainer(cfg, network)
@@ -77,7 +84,8 @@ def train(cfg, train_arrays=None, val_loader=None):
             load_pretrain(_pretrain_dir(cfg.pretrain))))
 
     if train_arrays is None:
-        train_arrays = make_train_dataset(cfg).as_arrays()
+        dataset = make_train_dataset(cfg)
+        train_arrays = (*dataset.as_arrays(), dataset.alpha_arrays())
     pipeline = make_pipeline(cfg, train_arrays, device)
     for epoch in range(begin_epoch, int(cfg.train.epoch)):
         trainer.train_device(epoch, pipeline, recorder)

@@ -178,29 +178,33 @@ def render_gt(pose, H, W, focal, spheres=DEFAULT_SPHERES, n_samples=384,
             torch.cat(depth_out).cpu().numpy().reshape(H, W))
 
 
-def _stored_and_loaded(pose, H, W, focal, scene, device) -> np.ndarray:
+def _stored_and_loaded(pose, H, W, focal, scene, device):
     """Ground truth as ``generate_scene`` stores it (RGBA uint8) and the
-    Blender loader reads it (composited onto white, float32 (H, W, 3))."""
+    Blender loader reads it: the image composited onto white, float32
+    (H, W, 3), and the stored alpha, float32 (H, W)."""
     rgb, alpha, _ = render_gt(pose, H, W, focal, SCENES[scene], device=device)
     rgba = np.concatenate([rgb, alpha[..., None]], -1)
     img = (np.clip(rgba, 0, 1) * 255).astype(np.uint8)
     img = np.asarray(img, dtype=np.float32) / 255.0
-    return img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+    return (img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:]),
+            np.ascontiguousarray(img[..., 3]))
 
 
 def train_views(scene: str, H: int, W: int, idx, device="cpu"):
     """Train views ``idx`` of a 100-view ``generate_scene(scene)`` as the
-    Blender loader's ``as_arrays`` gives them: (images (n, H, W, 3)
-    float32, poses (n, 4, 4) float32, K (3, 3) float32), ground truth from
-    :func:`render_gt` on ``device``."""
+    Blender loader's ``as_arrays`` and ``alpha_arrays`` give them: (images
+    (n, H, W, 3) float32, poses (n, 4, 4) float32, K (3, 3) float32,
+    alphas (n, H, W) float32), ground truth from :func:`render_gt` on
+    ``device``."""
     focal = W / (2.0 * np.tan(CAMERA_ANGLE_X / 2.0))
     poses = train_poses()
-    images = [_stored_and_loaded(poses[i], H, W, focal, scene, device)
-              for i in idx]
+    views = [_stored_and_loaded(poses[i], H, W, focal, scene, device)
+             for i in idx]
     K = np.array([[focal, 0, W / 2.0], [0, focal, H / 2.0], [0, 0, 1.0]],
                  dtype=np.float32)
-    return (np.stack(images).astype(np.float32),
-            np.stack([poses[i] for i in idx]).astype(np.float32), K)
+    return (np.stack([v[0] for v in views]).astype(np.float32),
+            np.stack([poses[i] for i in idx]).astype(np.float32), K,
+            np.stack([v[1] for v in views]).astype(np.float32))
 
 
 def test_views(scene: str, H: int, W: int, idx, device="cpu") -> list[dict]:
@@ -214,7 +218,7 @@ def test_views(scene: str, H: int, W: int, idx, device="cpu") -> list[dict]:
     batches = []
     for i in idx:
         pose = poses[i]
-        img = _stored_and_loaded(pose, H, W, focal, scene, device)
+        img, _ = _stored_and_loaded(pose, H, W, focal, scene, device)
         rays_o, rays_d = camera_rays(pose, H, W, focal)
         batches.append({
             "colors": img.reshape(-1, 3).astype(np.float32),

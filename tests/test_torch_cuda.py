@@ -5,6 +5,7 @@ imports nothing of JAX, so on a GPU machine without JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import importlib.util
 import os
 
 import numpy as np
@@ -17,6 +18,7 @@ from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
 from nerf_replication_tpu_torch.ops import (
     eval_encode,
     fused_ngp,
+    hashgrid_kernel,
     mlp_kernel,
     mlp_train,
 )
@@ -269,3 +271,120 @@ def test_ngp_render_on_gpu_matches_cpu_plain_render(cuda, monkeypatch):
         cfg, net = _ngp(monkeypatch, device)
         outs[device.type] = build_renderer(cfg, net).render(views[0])[0].cpu()
     torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2_bricks", [9, 13])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 3000])
+def test_brick_training_kernels_match_plain_versions(cuda, monkeypatch, n,
+                                                     log2_bricks):
+    """The training forward (TPU kernel #6) and the table gradient (#7) at
+    ragged point counts around the 256-thread block, on the trained
+    hard_ngp_b9 table (every level on the bf16 branch) and on a random
+    table of the ``log2_bricks`` 13 layout (seven f32 levels). The forward
+    rounds as its plain version does: bit for bit. The gradient's atomic
+    f32 sums against the plain backward summed in f64: every level within
+    chip_smoke.py's 1e-5 of its max |gradient|, the padding exactly zero,
+    and the same from a gradient that is not contiguous."""
+    _, net = _ngp(monkeypatch, cuda)
+    if log2_bricks == 9:
+        layout, table = net.xyz_encoder.layout, net.xyz_encoder.table.detach()
+    else:
+        layout = hashgrid_kernel.make_brick_layout(12, 16, 512, log2_bricks)
+        table = torch.empty(layout.n_rows, 256, device=cuda).uniform_(
+            -1, 1, generator=torch.Generator(device=cuda).manual_seed(n))
+    x, _ = _ngp_inputs(net, n, seed=n, device=cuda)
+    g = torch.randn(n, 24, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(n))
+    counts = (hashgrid_kernel.brick_hash_encode.launches,
+              hashgrid_kernel.brick_hash_encode_bwd.launches)
+    out = hashgrid_kernel.brick_hash_encode(layout, table, x)
+    dtable = hashgrid_kernel.brick_hash_encode_bwd(layout, x, g)
+    strided = hashgrid_kernel.brick_hash_encode_bwd(
+        layout, x, g.t().contiguous().t())
+    torch.cuda.synchronize()
+    assert (hashgrid_kernel.brick_hash_encode.launches,
+            hashgrid_kernel.brick_hash_encode_bwd.launches) == (
+        counts[0] + 1, counts[1] + 2)
+    assert out.shape == (n, 24)
+    assert torch.equal(out, hashgrid_kernel.brick_encode_reference(
+        layout, table, x))
+    ref = hashgrid_kernel.brick_encode_bwd_reference(layout, x, g,
+                                                     torch.float64)
+    live = hashgrid_kernel.live_entries(layout).to(cuda)
+    for d in (dtable, strided):
+        a = chip_smoke.brick_bwd_agreement(layout, d, ref, live)
+        assert a["ok"], a
+
+
+@pytest.mark.cuda
+def test_brick_training_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda, monkeypatch):
+    _, net = _ngp(monkeypatch, cuda)
+    layout, table = net.xyz_encoder.layout, net.xyz_encoder.table.detach()
+    x, _ = _ngp_inputs(net, 8, seed=0, device=cuda)
+    g = torch.zeros(8, 24, device=cuda)
+    strided = torch.empty(8, 6, device=cuda)[:, :3].copy_(x)
+    for bad_x in (x.double(), strided):
+        with pytest.raises(ValueError):
+            hashgrid_kernel.brick_hash_encode(layout, table, bad_x)
+        with pytest.raises(ValueError):
+            hashgrid_kernel.brick_hash_encode_bwd(layout, bad_x, g)
+    for bad_table in (table.double(), table[:-1], table.cpu()):
+        with pytest.raises(ValueError):
+            hashgrid_kernel.brick_hash_encode(layout, bad_table, x)
+    for bad_g in (g.double(), g[:, :22], g.cpu()):
+        with pytest.raises(ValueError):
+            hashgrid_kernel.brick_hash_encode_bwd(layout, x, bad_g)
+
+
+@pytest.mark.cuda
+def test_ngp_train_step_on_gpu_matches_cpu(cuda, monkeypatch):
+    """One deterministic loss_fn of the NGP train path on 64 rays of hard
+    view 0 with the trained hard_ngp_b9 weights: the brick kernels on the
+    GPU against the plain versions on the CPU. All f32: the loss to 1e-5,
+    every parameter gradient (the table's too) to 1e-3 in relative norm
+    (cuBLAS against the CPU's matmul, atomic sums against index_add_)."""
+    from nerf_replication_tpu_torch.train.trainers.nerf import NetworkWrapper
+
+    views = synthetic_scene.test_views("hard", 16, 16, [0])
+    batch = {k: torch.as_tensor(views[0][k][::4].copy())
+             for k in ("rays_o", "rays_d", "colors")}
+    res = {}
+    for device in (torch.device("cpu"), cuda):
+        cfg, net = _ngp(monkeypatch, device)
+        counts = (hashgrid_kernel.brick_hash_encode.launches,
+                  hashgrid_kernel.brick_hash_encode_bwd.launches)
+        wrap = NetworkWrapper(net.train(), cfg)
+        loss, _ = wrap.loss_fn({k: t.to(device) for k, t in batch.items()},
+                               None, train=True)
+        loss.backward()
+        made = (hashgrid_kernel.brick_hash_encode.launches - counts[0],
+                hashgrid_kernel.brick_hash_encode_bwd.launches - counts[1])
+        assert made == ((2, 2) if device.type == "cuda" else (0, 0))
+        res[device.type] = (float(loss.detach()),
+                            {k: p.grad.cpu() for k, p in
+                             net.named_parameters()})
+    assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-5)
+    assert "xyz_encoder.table" in res["cpu"][1]
+    for name, g_cpu in res["cpu"][1].items():
+        g_gpu = res["cuda"][1][name]
+        assert float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30)) \
+            < 1e-3, name
+
+
+@pytest.mark.cuda
+def test_gather_probes_on_gpu(cuda):
+    """scripts/probe_cuda_gather.py at the TPU probe's sizes: every probe
+    agrees with PyTorch indexing and launched its kernel."""
+    spec = importlib.util.spec_from_file_location(
+        "probe_cuda_gather", os.path.join(ROOT, "scripts",
+                                          "probe_cuda_gather.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    readings = probe.run(cuda, reps=3)
+    assert len(readings) == 5 and all(r["ok"] for r in readings)
+    assert all(w.launches > 0 for w in probe.PROBES)
+    with pytest.raises(ValueError):
+        probe.row_gather(torch.zeros(4, 256, device=cuda),
+                         torch.zeros(2, dtype=torch.int64, device=cuda))

@@ -23,7 +23,11 @@ from nerf_replication_tpu.models.nerf.renderer.ngp_renderer import (
 from nerf_replication_tpu.ops.pallas import fused_ngp as jax_fused
 from nerf_replication_tpu_torch.config import CN
 from nerf_replication_tpu_torch.models.nerf.network import make_network
-from nerf_replication_tpu_torch.ops import eval_encode, fused_ngp
+from nerf_replication_tpu_torch.ops import (
+    eval_encode,
+    fused_ngp,
+    hashgrid_kernel,
+)
 from nerf_replication_tpu_torch.utils.ckpt_utils import params_from_jax
 
 SKIPS = [(3, [1]), (2, [1]), (2, []), (3, [0, 1])]
@@ -126,7 +130,8 @@ def test_pack_layout_of_hard_ngp_branch():
     assert ops.flat.numel() == 18_408
     assert all(t.numel() % 4 == 0 or t.shape[0] == 1 for t in ops.ops)
     assert fused_ngp.flops_per_point(port.xyz_encoder.layout, ops) == \
-        36_160 + eval_encode.encode_flops_per_point(port.xyz_encoder.layout)
+        36_160 + hashgrid_kernel.encode_flops_per_point(
+            port.xyz_encoder.layout)
 
 
 @pytest.mark.parametrize("change,match", [

@@ -20,6 +20,9 @@ from nerf_replication_tpu.datasets.pipeline import (
 )
 from nerf_replication_tpu.models import make_network as jax_make_network
 from nerf_replication_tpu.models.nerf.network import init_params
+from nerf_replication_tpu.models.nerf.renderer import (
+    volume_renderer as jax_vr,
+)
 from nerf_replication_tpu.train.optimizer import make_optimizer as jax_optim
 from nerf_replication_tpu.train.scheduler import make_lr_schedule as jax_sched
 from nerf_replication_tpu.train.trainers.nerf import (
@@ -30,7 +33,9 @@ from nerf_replication_tpu.utils import synthetic_scene as jax_scene
 from nerf_replication_tpu_torch import config
 from nerf_replication_tpu_torch.datasets import DeviceRayPipeline
 from nerf_replication_tpu_torch.datasets.nerf.blender import Dataset
+from nerf_replication_tpu_torch.evaluators import make_evaluator
 from nerf_replication_tpu_torch.models import make_network
+from nerf_replication_tpu_torch.models.nerf.renderer import volume_renderer
 from nerf_replication_tpu_torch.train import make_optimizer, make_trainer
 from nerf_replication_tpu_torch.train.cli import main as train_main
 from nerf_replication_tpu_torch.train.scheduler import make_lr_schedule
@@ -118,7 +123,8 @@ def test_loss_and_grads_match_jax(monkeypatch, fused):
 def test_train_path_needs_no_inference_mode(monkeypatch):
     """The eval render runs under inference_mode; the train render keeps
     autograd, and a network the fused kernels do not cover raises when
-    the kernels are asked for."""
+    the kernels are asked for; ``random_bkgd`` is a flag of the loss
+    module."""
     cfg, _ = _cfgs(monkeypatch, *TINY, "device", "cpu")
     wrap = NetworkWrapper(make_network(cfg), cfg)
     batch = {k: torch.from_numpy(v) for k, v in _rays(16, seed=2).items()}
@@ -129,8 +135,75 @@ def test_train_path_needs_no_inference_mode(monkeypatch):
     with pytest.raises(ValueError, match="width 128"):
         NetworkWrapper(make_network(cfg_w), cfg_w).loss_fn(batch, gen)
     cfg_b, _ = _cfgs(monkeypatch, *TINY, "task_arg.random_bkgd", "True")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NetworkWrapper(make_network(cfg_b), cfg_b)
+    assert NetworkWrapper(make_network(cfg_b), cfg_b).random_bkgd
+    assert not wrap.random_bkgd
+
+
+def test_random_bkgd_loss_matches_jax(monkeypatch):
+    """loss_fn with ``task_arg.random_bkgd`` on a tiny hard config through
+    the nn.Module arm against the JAX XLA arm, both given the background
+    colours that the JAX package draws from its key and the same ``alpha``;
+    ``perturb`` and ``raw_noise_std`` off and both packages' importance
+    sampling at its deterministic ``u`` (the JAX package samples the CDF
+    at random ``u`` whenever it has a key). Loss and PSNR within 2e-3
+    relative, the bound of the nn.Module arm in
+    test_loss_and_grads_match_jax (Flax's bf16 Dense rounds twice). The
+    recomposed targets differ from the white-background ones, which a run
+    without a generator or without ``alpha`` still uses."""
+    opts = [*TINY, "network.use_pallas_mlp_train", "False",
+            "task_arg.random_bkgd", "True", "task_arg.perturb", "0",
+            "task_arg.raw_noise_std", "0"]
+    cfg, jcfg = _cfgs(monkeypatch, *opts)
+    jnet = jax_make_network(jcfg)
+    params = init_params(jnet, jax.random.key(3))
+    batch = _rays(16, seed=4)
+    batch["alpha"] = (np.random.default_rng(5).integers(0, 256, 16)
+                      / 255.0).astype(np.float32)
+    key = jax.random.key(11)
+    bg = np.asarray(jax.random.uniform(jax.random.split(key)[1], (16, 3)))
+
+    jax_pdf, port_pdf = jax_vr.sample_pdf, volume_renderer.sample_pdf
+    monkeypatch.setattr(jax_vr, "sample_pdf",
+                        lambda bins, w, n, key=None: jax_pdf(bins, w, n))
+    monkeypatch.setattr(volume_renderer, "sample_pdf",
+                        lambda bins, w, n, generator=None: port_pdf(bins, w,
+                                                                    n))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    ref_loss, (_, ref_stats, _) = JaxWrapper(jnet, jcfg).loss_fn(
+        params, jbatch, key, train=True)
+
+    net = make_network(cfg)
+    net.load_state_dict(ckpt_utils.params_from_jax(
+        jax.tree.map(np.asarray, params)))
+    wrap = NetworkWrapper(net, cfg)
+    drawn = []
+
+    def given_background(colors, generator):
+        drawn.append(colors.shape)
+        return torch.from_numpy(bg.copy())
+
+    monkeypatch.setattr(NetworkWrapper, "draw_background",
+                        staticmethod(given_background))
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(0)
+    loss, (_, stats, _) = wrap.loss_fn(tbatch, gen, train=True)
+    assert drawn == [(16, 3)]
+    assert float(loss.detach()) == pytest.approx(float(ref_loss), rel=2e-3)
+    assert float(stats["psnr"]) == pytest.approx(float(ref_stats["psnr"]),
+                                                 rel=2e-3)
+    # the JAX conditions: no generator, eval, or no alpha -> white targets
+    white, _ = wrap.loss_fn(tbatch, None, train=True)
+    no_alpha, _ = wrap.loss_fn({k: v for k, v in tbatch.items()
+                                if k != "alpha"}, gen, train=True)
+    assert drawn == [(16, 3)]
+    assert float(white.detach()) == pytest.approx(float(no_alpha.detach()),
+                                                  rel=1e-6)
+    assert abs(float(white.detach()) - float(loss.detach())) \
+        > 0.05 * float(loss.detach())
+    monkeypatch.undo()
+    real = NetworkWrapper.draw_background(tbatch["colors"], gen)
+    assert real.shape == (16, 3) and 0 <= float(real.min()) \
+        and float(real.max()) < 1
 
 
 @pytest.mark.parametrize("optim", ["adam", "adamw", "sgd", "radam"])
@@ -234,7 +307,7 @@ def test_train_views_match_generate_scene(tmp_path, monkeypatch):
     with open(tmp_path / "probe" / "transforms_train.json") as f:
         frames = json.load(f)["frames"]
     idx = [0, 7, 99]
-    images, poses, K = scene.train_views("probe", 4, 4, idx)
+    images, poses, K, alphas = scene.train_views("probe", 4, 4, idx)
     for i, pose in zip(idx, poses):
         np.testing.assert_allclose(
             pose, np.array(frames[i]["transform_matrix"]), atol=1e-6)
@@ -242,6 +315,7 @@ def test_train_views_match_generate_scene(tmp_path, monkeypatch):
     ds = Dataset(cfg, data_root=str(tmp_path), split="train", H=4, W=4)
     ref_images, _, ref_K = ds.as_arrays()
     np.testing.assert_array_equal(images, ref_images[idx])
+    np.testing.assert_array_equal(alphas, ds.alpha_arrays()[idx])
     np.testing.assert_allclose(K, ref_K, rtol=1e-6)
 
 
@@ -313,3 +387,93 @@ def test_cli_trains_resumes_and_tests(tmp_path, monkeypatch):
     assert [s["epoch"] for s in resumed.summaries] == [2]
     result = train_main(["--test"] + argv)
     assert set(result) == {"mse", "psnr", "ssim"}
+
+
+NGP_TINY = ["network.xyz_encoder.num_levels", "4",
+            "network.xyz_encoder.desired_resolution", "64",
+            "network.xyz_encoder.log2_bricks", "5",
+            "task_arg.N_samples", "8", "task_arg.N_importance", "8",
+            "task_arg.N_rays", "64", "task_arg.precrop_iters", "3"]
+
+
+def test_ngp_cli_trains_resumes_and_checkpoints(tmp_path, monkeypatch):
+    """python -m nerf_replication_tpu_torch.train on configs/nerf/
+    hard_ngp.yaml cut to 4 levels, on a 32x32 probe scene (RGBA files, so
+    ``random_bkgd`` applies) on the CPU: the loss falls, the table moves
+    and the optimizer holds its moments, a resumed run continues, the
+    checkpoint's JAX-format tree loads back bit for bit and is what the
+    JAX package's load_network reads, and ``val`` packs the eval table
+    from the current parameters each time."""
+    monkeypatch.setattr(jax_scene, "render_gt", scene.render_gt)
+    jax_scene.generate_scene(str(tmp_path), "probe", H=32, W=32, n_train=4,
+                             n_val=0, n_test=1)
+    monkeypatch.chdir(ROOT)
+    data = ["scene", "probe"]
+    for split in ("train_dataset", "test_dataset"):
+        data += [f"{split}.data_root", str(tmp_path), f"{split}.H", "32",
+                 f"{split}.W", "32", f"{split}.input_ratio", "1.0"]
+    argv = ["--cfg_file", "configs/nerf/hard_ngp.yaml", "device", "cpu",
+            *NGP_TINY, *data, "trained_model_dir", str(tmp_path / "model"),
+            "record_dir", str(tmp_path / "record"),
+            "result_dir", str(tmp_path / "result"), "save_result", "False",
+            "ep_iter", "10", "save_ep", "1", "save_latest_ep", "1",
+            "eval_ep", "2"]
+    drawn = []
+    draw = NetworkWrapper.draw_background
+
+    def counting(colors, generator):
+        drawn.append(colors.shape)
+        return draw(colors, generator)
+
+    monkeypatch.setattr(NetworkWrapper, "draw_background",
+                        staticmethod(counting))
+    trainer = train_main(argv + ["train.epoch", "2", "resume", "False"])
+    assert trainer.step == 20 and drawn == [(64, 3)] * 20
+    first, last = trainer.summaries
+    assert np.isfinite(np.concatenate([first["loss"], last["loss"]])).all()
+    assert last["loss"].mean() < first["loss"].mean()
+    net = trainer.network
+    cfg = trainer.cfg
+    fresh = make_network(cfg)
+    table = net.xyz_encoder.table.detach()
+    assert tuple(table.shape) == (512, 256)
+    assert float((table - fresh.xyz_encoder.table.detach()).abs().max()) \
+        > 1e-3
+    names = [n for n, _ in net.named_parameters()]
+    state = trainer.optimizer.state_dict()["optimizer"]["state"]
+    moments = state[names.index("xyz_encoder.table")]
+    assert tuple(moments["exp_avg"].shape) == (512, 256)
+    assert float(moments["exp_avg_sq"].abs().max()) > 0
+
+    # the checkpoint: bit for bit through the port, readable by JAX
+    payload = ckpt_utils.load_model(cfg.trained_model_dir)
+    assert payload["epoch"] == 1 and payload["scheduler"] == {"step": 20}
+    loaded = ckpt_utils.params_from_jax(payload["net"])
+    assert set(loaded) == set(net.state_dict())
+    for name, value in net.state_dict().items():
+        assert torch.equal(loaded[name], value), name
+    saved = payload["optim"]["optimizer"]["state"]
+    for index, entry in state.items():
+        for k, v in entry.items():
+            assert torch.equal(torch.as_tensor(saved[index][k]),
+                               torch.as_tensor(v).cpu()), (index, k)
+    jax_tree = jax_ckpt.load_network(cfg.trained_model_dir)
+    np.testing.assert_array_equal(
+        np.asarray(jax_tree["params"]["xyz_encoder"]["table"]), table.numpy())
+    jcfg = jax_config.make_cfg(jax_config.parse_args(argv))
+    jax_ckpt.check_params_compat(
+        jax_tree, init_params(jax_make_network(jcfg), jax.random.key(0)))
+
+    resumed = train_main(argv + ["train.epoch", "3"])
+    assert resumed.step == 30
+    assert [s["epoch"] for s in resumed.summaries] == [2]
+
+    # val packs the eval table anew: a changed table changes the metrics
+    loader = list(Dataset(cfg, data_root=str(tmp_path), split="test", H=32,
+                          W=32))
+    before = resumed.val(2, loader, make_evaluator(cfg))
+    with torch.no_grad():
+        resumed.network.xyz_encoder.table.zero_()
+    after = resumed.val(2, loader, make_evaluator(cfg))
+    assert set(before) == {"mse", "psnr", "ssim"}
+    assert before["psnr"] != after["psnr"]
