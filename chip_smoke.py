@@ -198,6 +198,7 @@ NGP_JAX_PSNR_DB = 30.28   # dense test PSNR of hard_ngp_b9, JAX record
 NGP_ROUTES_MIN_DB = 60.0  # unfused and plain render against the fused one
 NGP_CHUNK = 40            # the ray chunk of view 0 phase 6 (a) checks
 NGP_PROFILE_FRAMES = 5    # fused frames of view 0 under --profile
+FREQ_PROFILE_FRAMES = 3   # dense frequency frames of view 0 under --profile
 
 # NGP training (phase 7), in float32. The training forward sums the
 # plain version's products in its order, one rounding each: bit-equal.
@@ -231,6 +232,26 @@ def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
     ms_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
     return {"bound_ms": max(ms_bytes, ms_ops),
             "bound_by": "bytes" if ms_bytes >= ms_ops else "operations"}
+
+
+# Times of the first version of the 8x256 MLP kernels (wmma, 64-point
+# tiles, weights read from L2 by every block) at the same point counts, on
+# an NVIDIA H100 80GB HBM3 at 700 W: printed beside the present kernels'.
+FIRST_VERSION_MS = {
+    ("enc", 2_560_000): 24.77, ("enc", 7_680_000): 73.23,
+    ("fwd", 65_536): 0.657, ("fwd", 196_608): 1.946,
+    ("bwd", 65_536): 3.470, ("bwd", 196_608): 9.887}
+SMEM_LIMIT = 232_448   # dynamic shared memory a block may use on the card
+
+
+def against_first(kind: str, n: int, reading: dict) -> str:
+    """A reading (ms, bound_ms) beside its bound and the first version's
+    time at this size."""
+    first = FIRST_VERSION_MS.get((kind, n))
+    was = f"first version {first} ms, " if first else ""
+    return (f"{was}bound {reading['bound_ms']:.3f} ms by "
+            f"{reading['bound_by']} ({reading['bound_ms'] / reading['ms']:.1%}"
+            f" of it reached)")
 
 
 def mlp_flops(mlp) -> int:
@@ -559,15 +580,25 @@ def phase_train_kernels(cfg, arrays) -> dict:
                                flops, "bf16"),
                   "bwd": bound(nbytes(x, v, g, packed.w, packed.b, *grad_k),
                                bwd_flops, "bf16")}
+        # the same 20 calls when the first must cudaMalloc its workspace
+        # (about 10 KB a point), as the first step of a run does
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        cold_ms = cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(
+            packed, x, v, g), 20)
         for kind, check in (("fwd", a), ("bwd", b)):
             ms_k, ms_p = times[kind]
             res[kind].append(dict(n=n, err=check["max_abs_err"], ms=ms_k,
                                   plain_ms=ms_p, **bounds[kind]))
         print(f"features-in forward vs plain, {branch} N={n}: {describe(a)} "
               f"| kernel {times['fwd'][0]:.3f} ms, plain "
-              f"{times['fwd'][1]:.3f} ms")
+              f"{times['fwd'][1]:.3f} ms | "
+              f"{against_first('fwd', n, res['fwd'][-1])}")
         print(f"backward vs plain, {branch} N={n}: {describe_grad(b)} | "
-              f"kernel {times['bwd'][0]:.3f} ms, plain {times['bwd'][1]:.3f} ms")
+              f"kernel {times['bwd'][0]:.3f} ms ({cold_ms:.3f} ms with the "
+              f"allocator's cache emptied first), plain "
+              f"{times['bwd'][1]:.3f} ms"
+              f" | {against_first('bwd', n, res['bwd'][-1])}")
         if not a["ok"]:
             fail(f"features-in forward disagrees with plain at N={n}")
         if not b["ok"]:
@@ -589,6 +620,7 @@ def phase_train_kernels(cfg, arrays) -> dict:
 
 # device-kernel name fragments -> the part of a step or frame they are
 PROFILE_PARTS = (
+    ("encode+MLP kernel", ("fused_nerf_mlp_enc_kernel",)),
     ("MLP forward kernel", ("fused_nerf_mlp_kernel",)),
     ("backward recompute + deltas", ("nerf_mlp_bwd_delta",)),
     ("weight-gradient products", ("nerf_mlp_bwd_wgrad",)),
@@ -1350,7 +1382,12 @@ def main(argv=None):
     from nerf_replication_tpu_torch.evaluators import psnr_uint8
     from nerf_replication_tpu_torch.models.nerf.network import Network
     from nerf_replication_tpu_torch.models.nerf.renderer import RenderSettings
-    from nerf_replication_tpu_torch.ops import _build, fused_ngp, mlp_kernel
+    from nerf_replication_tpu_torch.ops import (
+        _build,
+        fused_ngp,
+        mlp_kernel,
+        mlp_train,
+    )
     from nerf_replication_tpu_torch.run import load_model, run_evaluate
     from nerf_replication_tpu_torch.utils import synthetic_scene
 
@@ -1377,7 +1414,15 @@ def main(argv=None):
         log = _build.library_path(lib).with_suffix(".log")
         print(f"ptxas {lib}:",
               " | ".join(line.strip() for line in log.read_text().splitlines()
-                         if "registers" in line or "spill" in line))
+                         if "Used" in line or "spill" in line
+                         or "Potential Performance Loss" in line))
+    shape, smem = mlp_kernel.launch_shape(POINTS[1]), \
+        mlp_train.shared_memory_bytes(8)
+    print(f"8x256 MLP kernels: {shape['blocks']} persistent blocks of 128 "
+          f"points a tile; dynamic shared "
+          f"memory a block: forward {shape['shared_memory_bytes']} B, "
+          f"backward delta kernel {smem['delta']} B (depth 8), "
+          f"weight-gradient kernel {smem['wgrad']} B (of {SMEM_LIMIT} B)")
 
     # -- 2. kernel against plain at the render path's point counts --------
     argv = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard.yaml",
@@ -1408,7 +1453,8 @@ def main(argv=None):
                 **bound(nbytes(pts, dirs, packed.w, packed.b, out_k),
                         n * mlp_flops(mlp), "bf16"))
             print(f"kernel vs plain, {branch} N={n}: {describe(a)} | kernel "
-                  f"{ms_k:.2f} ms ({tflops:.0f} TFLOP/s), plain {ms_p:.2f} ms")
+                  f"{ms_k:.2f} ms ({tflops:.0f} TFLOP/s), plain {ms_p:.2f} ms"
+                  f" | {against_first('enc', n, checks[(n, branch)])}")
             if not a["ok"]:
                 fail(f"kernel disagrees with its plain version at N={n}")
             if n == POINTS[0] and branch == "coarse":
@@ -1473,6 +1519,15 @@ def main(argv=None):
     if vs_plain < KERNEL_VS_PLAIN_MIN_DB:
         fail(f"kernel render vs plain render {vs_plain:.2f} dB < "
              f"{KERNEL_VS_PLAIN_MIN_DB} dB")
+
+    if opts.profile > 0:
+        from nerf_replication_tpu_torch.run import build_renderer
+
+        renderer = build_renderer(cfg, load_model(cfg, torch.device("cuda")))
+        profile_runs(lambda: renderer.render(views[0]), FREQ_PROFILE_FRAMES,
+                     "frame", "freq_eval")
+        del renderer
+        torch.cuda.empty_cache()
 
     # -- 4. the training kernels against plain on a real batch ----------
     t0 = time.perf_counter()

@@ -9,32 +9,47 @@
 // ("arbitrary" semantics). Hopper's blocks run in parallel and in no order,
 // so the work is split into three kernels:
 //
-// 1. delta (one block per 64-point tile): recomputes the forward with the
-//    forward kernel's code and rounding points (nerf_mlp_tile.cuh), then
-//    backpropagates g through the heads and the trunk. Each product with a
-//    transposed weight takes bf16 deltas and f32 accumulation; the ReLU
-//    masks come from the recomputed activations. It writes every bf16
-//    activation and bf16 delta that a weight gradient needs into a
-//    workspace in device memory (about 10 KB per point), and per-tile f32
-//    column sums of the f32 deltas: the bias gradients, which the TPU
-//    kernel also sums from f32 deltas.
-// 2. weight gradient: dW_l = A_l^T . D_l as bf16 tensor-core products with
-//    f32 accumulation, one 64 x 64 output tile per block and one chunk of
-//    kChunk points per grid row, into per-chunk f32 partials.
+// 1. delta (persistent blocks, 128 points a tile, built on the tile core of
+//    nerf_mlp_tile.cuh): each consumer warpgroup recomputes the forward of
+//    its 64 rows with the forward kernel's code and rounding points, then
+//    backpropagates g through the heads and the trunk, all in one in-place
+//    shared-memory tile. Each product with a transposed weight is a wgmma
+//    of bf16 deltas against a slab of the transposed weight image, streamed
+//    through the same ring as the forward's weights. The epilogues run on
+//    registers: the ReLU masks are bits the recompute's epilogue left in
+//    shared memory (one bit an activation, read back by the thread that
+//    wrote them, because both accumulators have one layout), so no
+//    activation is re-read from device memory; the density head's path is
+//    added as exact bf16 x bf16 products; the bias gradients are column
+//    sums of the f32 deltas, summed in a fixed order (row pairs, a shuffle
+//    tree, the four warps in order). Every bf16 activation and delta that a
+//    weight gradient needs is written once to a workspace in device memory
+//    (about 10 KB a point), while the next product's last wgmmas run.
+//    The ring here has three stages (the mask bits take the fourth's room),
+//    less than a whole product, so the warpgroups do not take turns.
+// 2. weight gradient: dW_l = A_l^T . D_l with the points as the product's K.
+//    A block owns 128 rows x up to 256 columns of one gradient for one
+//    chunk of points; both planes are row-major (points, features), so both
+//    are MN-major wgmma operands, staged 64 points at a time through a
+//    four-stage cp.async ring of 16-byte pieces into core-matrix order. A
+//    256 x 256 gradient reads its A plane once and its D plane twice. f32
+//    partials a chunk.
 // 3. reduce: the partials summed in a fixed order (two passes), so the
 //    result does not depend on how the blocks were scheduled.
 //
 // What bounds it: the recompute plus the delta chain is twice the forward's
-// tensor-core work; the weight-gradient products another forward's worth,
-// reading the ~10 KB per point workspace from device memory a few times.
-// Keeping activations on chip and wgmma are work for a later version.
+// tensor-core work; the weight-gradient products another forward's worth.
+// The two-stage split costs one write and about 1.5 reads of the ~10 KB a
+// point workspace: at 196,608 points about 5 GB, 1.5 ms of the card's
+// memory rate, above the 0.7 ms the operations would take at peak.
 //
 // The two paths from the heads into the trunk: d_h7 = d_feat . W_feat^T +
 // d_sigma . w_alpha^T. The feature part runs on the tensor cores, the
 // density part is added in the epilogue as exact bf16 x bf16 products.
 // Padding (row 63 of W0/W_ix, rows 27..31 of Wv_d, columns 3..15 of W_rgb,
 // b_alpha[1:], b_rgb[3:]) gets exactly zero gradient because the padded
-// features and cotangent columns are zero.
+// features and cotangent columns are zero; rows past n carry a zero
+// cotangent, so all their deltas are zero.
 
 #include "nerf_mlp_tile.cuh"
 
@@ -42,239 +57,417 @@ namespace {
 
 using namespace nerf;
 
-constexpr int kChunkAlign = 64;
+constexpr int kStages = 3;   // 96 KB of weight ring
 constexpr int kMaxProducts = 24;
-constexpr int kWgThreads = 128;   // 4 warps, each 16 rows of a 64 x 64 tile
 constexpr int kReduceThreads = 256;
 
 struct BwdSmem {
-  Smem f;                           // forward tile: h, x, v, stage, sigma
-  bf16 d[kTileM * kLdH];            // bf16 deltas, the next product's A
-  float g[kTileM * 4];              // cotangent tile
+  Ring<kStages> ring;
+  alignas(128) unsigned char t[2][kHBytes];  // activations, then deltas
+  // encoded points; after the recompute, each warp's f32 column sums
+  alignas(128) unsigned char x[2][kXBytes];
+  alignas(128) unsigned char v[2][kVBytes];
+  float g[kTileM * 4];                       // cotangent tile
+  float bias[2][2 * kWidth];                  // the running layer's biases
+  bf16 wa[kWidth];                           // w_alpha
+  // and (4 depth + 2) * kConsumers mask words
 };
+static_assert(4 * kWidth * sizeof(float) <= kXBytes, "column sums fit in x");
 
-// f32 deltas of one warp's columns (NT 16-wide fragments, 64 rows) from its
-// accumulators: plus, with sig, bf16(sig[row]) * wa[col] (the density head's
-// path), times the ReLU mask of `mask` (shared memory, pitch kLdH; none if
-// null). Writes bf16 into dst (pitch kLdH) and each column's f32 sum over
-// the 64 rows, in a fixed order, to bsum.
-template <int NT>
+__host__ __device__ inline size_t bwd_smem_bytes(int depth) {
+  return sizeof(BwdSmem) + static_cast<size_t>(4 * depth + 2) * kConsumers * 4;
+}
+
+// bf16 deltas of a layer from its accumulators, on registers: plus, with
+// kSig, sig[half] * wa[col] (the density head's path; sig is the bf16-rounded
+// d_sigma of this thread's two rows), times the ReLU mask bits (words of
+// stride kConsumers, see act_epilogue) with kMask. Writes bf16 into the
+// warpgroup's tile and the f32 sum of this warp's 16 rows of every column to
+// colsum[col].
+template <int N, bool kMask, bool kSig>
 __device__ __forceinline__ void delta_epilogue(
-    FragC (&acc)[4][NT], float* stage, int lane, const bf16* mask,
-    const float* sig, const bf16* __restrict__ wa, bf16* dst,
-    float* __restrict__ bsum) {
-  const int c = lane & 15, half = lane >> 4;
+    float (&acc)[N / 2], const uint32_t* masks, const float (&sig)[2],
+    const bf16* wa, unsigned char* tile, float* colsum, int warp, int lane) {
+  unsigned char* base = tile + acc_tile_offset(warp, lane);
+  const int cq = 2 * (lane & 3);
+  uint32_t word = 0;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = j * 16 + c;
-    const float wcol = sig ? __bfloat162float(wa[col]) : 0.0f;
-    float sum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int rr = 0; rr < 8; ++rr) {
-        const int r = half * 8 + rr, row = i * 16 + r;
-        float val = stage[r * 16 + c];
-        if (sig)
-          val += __bfloat162float(__float2bfloat16_rn(sig[row * 4])) * wcol;
-        if (mask && !(__bfloat162float(mask[row * kLdH + col]) > 0.0f))
-          val = 0.0f;
-        sum += val;
-        dst[row * kLdH + col] = __float2bfloat16_rn(val);
-      }
-      __syncwarp();
+  for (int j = 0; j < N / 8; ++j) {
+    if (kMask && (j & 7) == 0) word = masks[(j >> 3) * kConsumers];
+    float w0 = 0.0f, w1 = 0.0f;
+    if (kSig) {
+      w0 = __bfloat162float(wa[8 * j + cq]);
+      w1 = __bfloat162float(wa[8 * j + cq + 1]);
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 16);
-    if (lane < 16) bsum[col] = sum;
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = 4 * j + 2 * half;
+      float v0 = acc[i], v1 = acc[i + 1];
+      if (kSig) {
+        v0 += sig[half] * w0;
+        v1 += sig[half] * w1;
+      }
+      if (kMask) {
+        if (!((word >> (i & 31)) & 1u)) v0 = 0.0f;
+        if (!((word >> ((i + 1) & 31)) & 1u)) v1 = 0.0f;
+      }
+      s0 += v0;
+      s1 += v1;
+      *reinterpret_cast<__nv_bfloat162*>(base + j * kALbo + half * kCore) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+#pragma unroll
+    for (int step = 4; step < 32; step <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, step);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, step);
+    }
+    if (lane < 4)
+      *reinterpret_cast<float2*>(colsum + 8 * j + cq) = make_float2(s0, s1);
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+// The four warps' column sums, in order, to the bias partial of this
+// warpgroup. Between two tile_sync()s.
+__device__ __forceinline__ void bias_out(const float* colsum, int cols,
+                                         float* __restrict__ dst, int t) {
+  for (int c = t; c < cols; c += kWgThreads)
+    dst[c] = ((colsum[c] + colsum[kWidth + c]) + colsum[2 * kWidth + c]) +
+             colsum[3 * kWidth + c];
+}
+
+// The backward's slabs of one tile after the recompute's, in the order the
+// delta chain consumes them, from the transposed image.
+__device__ __forceinline__ void produce_backward(Ring<kStages>& ring,
+                                                 Pipe<kStages>& p,
+                                                 const bf16* __restrict__ wt,
+                                                 int depth, int skip) {
+  produce(ring, p, wt + w_rgb_offset(depth, skip), kRgbCols, kHalf, kRgbCols);
+  produce(ring, p, wt + w_view_offset(depth, skip), kHalf, kWidth, kSlabK);
+  produce(ring, p, wt + w_feat_offset(depth, skip), kWidth, kWidth, kSlabK);
+  for (int i = depth - 1; i >= 1; --i)
+    produce(ring, p, wt + w_trunk_offset(i, skip), kWidth, kWidth, kSlabK);
+}
+
+// A consumer warpgroup's share of the delta kernel: its 64 rows of every
+// tile the block takes.
+__device__ __forceinline__ void delta_tiles(
+    BwdSmem& s, uint32_t* mask_words, Pipe<kStages>& pipe, int rounds,
+    const bf16* __restrict__ x, const bf16* __restrict__ v,
+    const float* __restrict__ g, int n, int n_pad, const float* __restrict__ b,
+    int depth, int skip, bf16* __restrict__ act, bf16* __restrict__ dlt,
+    float* __restrict__ bias_part) {
+  const int tid = threadIdx.x;
+  const int wg = tid / kWgThreads, t = tid % kWgThreads;
+  const int warp = t >> 5, lane = t & 31, bar_id = 1 + wg;
+  const size_t plane = static_cast<size_t>(n_pad) * kWidth;
+  bf16* d_af = dlt + depth * plane;                          // (n_pad, 272)
+  bf16* d_gpre = d_af + static_cast<size_t>(n_pad) * (kWidth + kAlphaPad);
+  bf16* d_rgb = d_gpre + static_cast<size_t>(n_pad) * kHalf; // (n_pad, 16)
+  const bf16* wa = s.wa;
+  unsigned char* tile_h = s.t[wg];
+  const uint32_t tile_addr = smem_addr(tile_h);
+  uint32_t* masks = mask_words + tid;
+  float* colsum_all = reinterpret_cast<float*>(s.x[wg]);
+  float* colsum = colsum_all + warp * kWidth;
+  float* gs = s.g + wg * kWgRows * 4;
+  const int r_lo = warp * 16 + (lane >> 2);   // this thread's rows: r_lo, + 8
+  turn_start(pipe, wg);
+
+  for (int k = 0; k < rounds; ++k) {
+    const int tile = static_cast<int>(blockIdx.x + k * gridDim.x);
+    const int row0 = tile * kTileM + wg * kWgRows;
+    float* bp = bias_part +
+                static_cast<size_t>(tile * 2 + wg) * b_pack_size(depth);
+    load_rows(x, n_pad, row0, kXDim, s.x[wg], t);
+    load_rows(v, n_pad, row0, kVDim, s.v[wg], t);
+    for (int e = t; e < kWgRows * 4; e += kWgThreads)
+      gs[e] = row0 + (e >> 2) < n ? g[static_cast<size_t>(row0) * 4 + e] : 0.0f;
+    tile_sync(bar_id);
+
+    // recompute, keeping every activation in the workspace and its ReLU
+    // mask on chip
+    float unused[2] = {0.0f, 0.0f};
+    forward_tile<kStages, false, true>(
+        s.ring, pipe, tile_h, s.x[wg], s.v[wg], b, s.bias[wg], wa, depth,
+        skip, masks, unused, warp, lane, bar_id, [&](int l) {
+          if (l <= depth)
+            store_rows(tile_h, kWidth, act + l * plane, kWidth, row0, t);
+          else
+            store_rows(tile_h, kHalf, act + (depth + 1) * plane, kHalf, row0,
+                       t);
+        });
+    // every warp has written the view activations out: the tile is free
+    named_barrier(bar_id, kWgThreads);
+
+    // d_rgb: the first 3 cotangent columns, bf16, padded to 16
+    {
+      const int p = t >> 1, c8 = t & 1;
+      __align__(16) bf16 vals[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        vals[c] = __float2bfloat16_rn(c8 == 0 && c < 3 ? gs[p * 4 + c] : 0.0f);
+      *reinterpret_cast<uint4*>(tile_h + c8 * kALbo + (p >> 3) * kCore +
+                                (p & 7) * 16) =
+          *reinterpret_cast<const uint4*>(vals);
+    }
+    if (t < kRgbCols + kAlphaPad) {  // b_rgb and b_alpha: f32 column sums
+      const int c = t < kRgbCols ? t : 3;
+      float sum = 0.0f;
+      if (t < 3 || t == kRgbCols)
+        for (int p = 0; p < kWgRows; ++p) sum += gs[p * 4 + c];
+      bp[t < kRgbCols ? b_rgb_offset(depth) + t
+                      : b_alpha_offset(depth) + t - kRgbCols] = sum;
+    }
+    tile_sync(bar_id);
+
+    // Each plane of deltas goes out to the workspace while the next
+    // product's last wgmmas read the same tile.
+    // view layer: d_gpre = relu'(g_act) * (d_rgb . W_rgb^T)
+    bool fresh = true;
+    {
+      float accv[kHalf / 2] = {};
+      consume<kHalf>(accv, s.ring, pipe, tile_addr, kRgbCols, kRgbCols, fresh,
+                     lane);
+      store_rows(tile_h, kRgbCols, d_rgb, kRgbCols, row0, t);
+      drain(accv, s.ring, pipe, lane);
+      named_barrier(bar_id, kWgThreads);
+      delta_epilogue<kHalf, true, false>(accv, masks + 4 * depth * kConsumers,
+                                         unused, nullptr, tile_h, colsum, warp,
+                                         lane);
+    }
+    tile_sync(bar_id);
+    bias_out(colsum_all, kHalf, bp + b_view_offset(depth), t);
+
+    float acc[kWidth / 2] = {};
+    // feature head: d_feat = d_gpre . Wv_f^T (no ReLU)
+    fresh = true;
+    consume<kWidth>(acc, s.ring, pipe, tile_addr, kHalf, kSlabK, fresh, lane);
+    store_rows(tile_h, kHalf, d_gpre, kHalf, row0, t);
+    drain(acc, s.ring, pipe, lane);
+    named_barrier(bar_id, kWgThreads);
+    delta_epilogue<kWidth, false, false>(acc, nullptr, unused, nullptr, tile_h,
+                                         colsum, warp, lane);
+    tile_sync(bar_id);
+    bias_out(colsum_all, kWidth, bp + b_feat_offset(depth), t);
+
+    // trunk, from the last layer down: d_pre_{i-1} = relu'(h_{i-1}) *
+    // (d_pre_i . W_i^T), where the last layer's input delta is d_feat .
+    // W_feat^T + d_sigma . w_alpha^T. The skip layer's input part W_ix takes
+    // no delta onward (inputs get none).
+    const float sig[2] = {
+        __bfloat162float(__float2bfloat16_rn(gs[r_lo * 4 + 3])),
+        __bfloat162float(__float2bfloat16_rn(gs[(r_lo + 8) * 4 + 3]))};
+    for (int i = depth; i >= 1; --i) {
+      fresh = true;
+      consume<kWidth>(acc, s.ring, pipe, tile_addr, kWidth, kSlabK, fresh,
+                      lane);
+      if (i == depth) {
+        // d_af = [d_feat | d_sigma | 0], all bf16
+        store_rows(tile_h, kWidth, d_af, kWidth + kAlphaPad, row0, t);
+        const int p = t >> 1, c8 = t & 1;
+        __align__(16) bf16 vals[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          vals[c] =
+              __float2bfloat16_rn(c8 == 0 && c == 0 ? gs[p * 4 + 3] : 0.0f);
+        *reinterpret_cast<uint4*>(d_af + static_cast<size_t>(row0 + p) *
+                                             (kWidth + kAlphaPad) +
+                                  kWidth + c8 * 8) =
+            *reinterpret_cast<const uint4*>(vals);
+      } else {
+        store_rows(tile_h, kWidth, dlt + i * plane, kWidth, row0, t);
+      }
+      drain(acc, s.ring, pipe, lane);
+      named_barrier(bar_id, kWgThreads);
+      const uint32_t* m = masks + 4 * (i - 1) * kConsumers;
+      if (i == depth)
+        delta_epilogue<kWidth, true, true>(acc, m, sig, wa, tile_h, colsum,
+                                           warp, lane);
+      else
+        delta_epilogue<kWidth, true, false>(acc, m, sig, nullptr, tile_h,
+                                            colsum, warp, lane);
+      tile_sync(bar_id);
+      bias_out(colsum_all, kWidth, bp + (i - 1) * kWidth, t);
+    }
+    store_rows(tile_h, kWidth, dlt, kWidth, row0, t);
+    // the next tile's loads overwrite x (the column sums) and the tile
+    named_barrier(bar_id, kWgThreads);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 nerf_mlp_bwd_delta_kernel(const bf16* __restrict__ x,
                           const bf16* __restrict__ v,
                           const float* __restrict__ g, int n, int n_pad,
-                          const bf16* __restrict__ w,
+                          const bf16* __restrict__ img,
+                          const bf16* __restrict__ img_t,
                           const float* __restrict__ b, int depth, int skip,
                           bf16* __restrict__ act, bf16* __restrict__ dlt,
                           float* __restrict__ bias_part) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdSmem& s = *reinterpret_cast<BwdSmem*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * kTileM;
-  const size_t plane = static_cast<size_t>(n_pad) * kWidth;
-  float* stage = s.f.stage + warp * 256;
-  float* bp = bias_part + static_cast<size_t>(blockIdx.x) * b_pack_size(depth);
-  bf16* d_af = dlt + depth * plane;                          // (n_pad, 272)
-  bf16* d_gpre = d_af + static_cast<size_t>(n_pad) * (kWidth + kAlphaPad);
-  bf16* d_rgb = d_gpre + static_cast<size_t>(n_pad) * kHalf; // (n_pad, 16)
-
-  load_rows(x, n_pad, row0, kXDim, s.f.x, kLdX, tid);
-  load_rows(v, n_pad, row0, kVDim, s.f.v, kLdV, tid);
-  for (int e = tid; e < kTileM * 4; e += kThreads)
-    s.g[e] = row0 + (e >> 2) < n ? g[static_cast<size_t>(row0) * 4 + e] : 0.0f;
+  uint32_t* mask_words =
+      reinterpret_cast<uint32_t*>(smem_raw + sizeof(BwdSmem));
+  const int tid = threadIdx.x;
+  if (tid == 0) ring_init(s.ring);
+  if (tid < kWidth) s.wa[tid] = img[w_alpha_offset(depth, skip) + tid];
   __syncthreads();
+  const int rounds = tile_rounds(n_pad / kTileM);
+  Pipe<kStages> pipe;
 
-  // recompute, keeping every activation in the workspace
-  forward_tile<false>(s.f, w, b, depth, skip, [&](int l) {
-    if (l <= depth)
-      store_rows(s.f.h, kLdH, kWidth, act + l * plane, kWidth, row0, tid);
-    else
-      store_rows(s.f.h, kLdH, kHalf, act + (depth + 1) * plane, kHalf, row0,
-                 tid);
-  });
-  // s.f.h now holds the view activations g_act (columns 0..127)
-
-  // d_rgb: the first 3 cotangent columns, bf16, padded to 16
-  for (int e = tid; e < kTileM * kRgbCols; e += kThreads) {
-    const int p = e >> 4, c = e & 15;
-    s.d[p * kLdH + c] = __float2bfloat16_rn(c < 3 ? s.g[p * 4 + c] : 0.0f);
-  }
-  if (tid < kRgbCols + kAlphaPad) {  // b_rgb and b_alpha: f32 column sums
-    const int c = tid < kRgbCols ? tid : 3;
-    float sum = 0.0f;
-    if (tid < 3 || tid == kRgbCols)
-      for (int p = 0; p < kTileM; ++p) sum += s.g[p * 4 + c];
-    bp[tid < kRgbCols ? b_rgb_offset(depth) + tid
-                      : b_alpha_offset(depth) + tid - kRgbCols] = sum;
-  }
-  __syncthreads();
-  store_rows(s.d, kLdH, kRgbCols, d_rgb, kRgbCols, row0, tid);
-
-  // view layer: d_gpre = relu'(g_act) * (d_rgb . W_rgb^T), 16 columns a warp
-  {
-    const int nv = warp * 16;
-    FragC accv[4][1];
-    zero(accv);
-    mma_tiles<4, 1, wmma::col_major>(accv, s.d, kLdH,
-                                     w + w_rgb_offset(depth, skip) + nv * kRgbCols,
-                                     kRgbCols, kRgbCols);
-    __syncthreads();
-    delta_epilogue<1>(accv, stage, lane, s.f.h + nv, nullptr, nullptr,
-                      s.d + nv, bp + b_view_offset(depth) + nv);
-    __syncthreads();
-    store_rows(s.d, kLdH, kHalf, d_gpre, kHalf, row0, tid);
-  }
-
-  const int n0 = warp * 32;
-  FragC acc[4][2];
-  // feature head: d_feat = d_gpre . Wv_f^T (no ReLU)
-  zero(acc);
-  mma_tiles<4, 2, wmma::col_major>(acc, s.d, kLdH,
-                                   w + w_view_offset(depth, skip) + n0 * kHalf,
-                                   kHalf, kHalf);
-  __syncthreads();
-  delta_epilogue<2>(acc, stage, lane, nullptr, nullptr, nullptr, s.d + n0,
-                    bp + b_feat_offset(depth) + n0);
-  // s.f.h is free: the last trunk activations, for their ReLU mask
-  load_rows(act + (depth - 1) * plane, n_pad, row0, kWidth, s.f.h, kLdH, tid);
-  __syncthreads();
-  // d_af = [d_feat | d_sigma | 0], all bf16
-  store_rows(s.d, kLdH, kWidth, d_af, kWidth + kAlphaPad, row0, tid);
-  for (int e = tid; e < kTileM * kAlphaPad; e += kThreads) {
-    const int p = e >> 4, c = e & 15;
-    d_af[static_cast<size_t>(row0 + p) * (kWidth + kAlphaPad) + kWidth + c] =
-        __float2bfloat16_rn(c == 0 ? s.g[p * 4 + 3] : 0.0f);
-  }
-
-  // last trunk layer: d_feat . W_feat^T + d_sigma . w_alpha^T, masked
-  zero(acc);
-  mma_tiles<4, 2, wmma::col_major>(acc, s.d, kLdH,
-                                   w + w_feat_offset(depth, skip) + n0 * kWidth,
-                                   kWidth, kWidth);
-  __syncthreads();
-  delta_epilogue<2>(acc, stage, lane, s.f.h + n0, s.g + 3,
-                    w + w_alpha_offset(depth, skip) + n0, s.d + n0,
-                    bp + (depth - 1) * kWidth + n0);
-  __syncthreads();
-  store_rows(s.d, kLdH, kWidth, dlt + (depth - 1) * plane, kWidth, row0, tid);
-
-  // trunk: d_pre_{i-1} = relu'(h_{i-1}) * (d_pre_i . W_i^T); the skip
-  // layer's input part W_ix takes no delta onward (inputs get none)
-  for (int i = depth - 1; i >= 1; --i) {
-    load_rows(act + (i - 1) * plane, n_pad, row0, kWidth, s.f.h, kLdH, tid);
-    zero(acc);
-    mma_tiles<4, 2, wmma::col_major>(acc, s.d, kLdH,
-                                     w + w_trunk_offset(i, skip) + n0 * kWidth,
-                                     kWidth, kWidth);
-    __syncthreads();
-    delta_epilogue<2>(acc, stage, lane, s.f.h + n0, nullptr, nullptr,
-                      s.d + n0, bp + (i - 1) * kWidth + n0);
-    __syncthreads();
-    store_rows(s.d, kLdH, kWidth, dlt + (i - 1) * plane, kWidth, row0, tid);
+  if (tid >= kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      for (int k = 0; k < rounds; ++k) {
+        produce_forward(s.ring, pipe, img, depth, skip, false);
+        produce_backward(s.ring, pipe, img_t, depth, skip);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    delta_tiles(s, mask_words, pipe, rounds, x, v, g, n, n_pad, b, depth, skip,
+                act, dlt, bias_part);
   }
 }
 
-// One weight gradient: out[k][m] = sum_n a[n][k] * d[n][m] for k < K, m < M
-// (both multiples of 16). Columns m < m_main go to out_off + k * out_ld + m,
-// column m_main to out2_off + k when out2_off >= 0; the rest are dropped.
+// One weight gradient: out[k][m] = sum_n a[n][k] * d[n][m] for k < K (a
+// multiple of 16) and m < M (256, 128 or 16), to out_off + k * out_ld + m;
+// or, with alpha_off >= 0, column 0 alone to alpha_off + k.
 struct Product {
   const bf16* a;
   const bf16* d;
-  long long out_off, out2_off;
-  int lda, ldd, k, m, out_ld, m_main;
+  long long out_off, alpha_off;
+  int lda, ldd, k, m, out_ld;
 };
 
 struct Products {
   Product p[kMaxProducts];
-  int tiles_begin[kMaxProducts + 1];   // prefix sums of 64 x 64 output tiles
+  int blocks_begin[kMaxProducts + 1];   // prefix sums of 128-row blocks
   int count;
 };
 
-__global__ void __launch_bounds__(kWgThreads)
-nerf_mlp_bwd_wgrad_kernel(Products ps, int n_pad, int chunk,
-                          long long e_w, float* __restrict__ part) {
-  __shared__ __align__(32) float stage_all[kWgThreads / 32][256];
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-      FragAT;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-      FragB;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+constexpr int kWgPoints = 64;                      // points per stage
+constexpr int kWgStages = 4;                       // 192 KB of stages
+constexpr int kWgRowsA = 128;                      // gradient rows per block
+constexpr int kWgABytes = kWgPoints * kWgRowsA * 2;
+constexpr int kWgDBytes = kWgPoints * kWidth * 2;
+constexpr int kWgStageBytes = kWgABytes + kWgDBytes;
+// both operands MN-major: core matrices of 8 points x 8 features, ordered
+// [feature / 8][point / 8]
+constexpr int kWgGroups = kWgPoints / 8;
+constexpr int kWgLbo = kCore;                      // next 8 points
+constexpr int kWgSbo = (kWgPoints / 8) * kCore;    // next 8 features
+
+// The main loop of one block for a product with M = N columns.
+template <int N>
+__device__ __forceinline__ void wgrad_block(const Product& pr, int ka0, int nb,
+                                            int ne, unsigned char* smem,
+                                            float* __restrict__ out) {
+  const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
+  const int warp = t >> 5, lane = t & 31;
+  const int a_blocks = min(kWgRowsA, pr.k - ka0) >> 3, d_blocks = N >> 3;
+  const int iters = (ne - nb) / kWgPoints;
+
+  // Stage `it` into its slot: 16-byte pieces, 8 consecutive features of one
+  // point. Piece e: point e % 8 of point group (e / 32) % kWgGroups, feature
+  // block 4 (e / (32 kWgGroups)) + (e / 8) % 4, so a quarter warp writes 128
+  // contiguous bytes of shared memory and four lanes read 64 contiguous
+  // bytes.
+  auto load = [&](int it) {
+    unsigned char* sa = smem + (it % kWgStages) * kWgStageBytes;
+    const uint32_t sa_addr = smem_addr(sa), sd_addr = sa_addr + kWgABytes;
+    const size_t p0 = static_cast<size_t>(nb) + it * kWgPoints;
+    const bf16* ap = pr.a + p0 * pr.lda + ka0;
+    const bf16* dp = pr.d + p0 * pr.ldd;
+    for (int e = tid; e < kWgPoints * ((a_blocks + 3) & ~3); e += kConsumers) {
+      const int p = ((e >> 5) % kWgGroups) * 8 + (e & 7);
+      const int f8 = (e / (32 * kWgGroups)) * 4 + ((e >> 3) & 3);
+      if (f8 < a_blocks)
+        cp_async16(sa_addr + f8 * kWgSbo + (p >> 3) * kWgLbo + (p & 7) * 16,
+                   ap + static_cast<size_t>(p) * pr.lda + f8 * 8);
+    }
+    for (int e = tid; e < kWgPoints * ((d_blocks + 3) & ~3); e += kConsumers) {
+      const int p = ((e >> 5) % kWgGroups) * 8 + (e & 7);
+      const int f8 = (e / (32 * kWgGroups)) * 4 + ((e >> 3) & 3);
+      if (f8 < d_blocks)
+        cp_async16(sd_addr + f8 * kWgSbo + (p >> 3) * kWgLbo + (p & 7) * 16,
+                   dp + static_cast<size_t>(p) * pr.ldd + f8 * 8);
+    }
+  };
+
+  float acc[N / 2] = {};
+  for (int it = 0; it < kWgStages - 2; ++it) {
+    if (it < iters) load(it);
+    cp_async_commit();
+  }
+  for (int it = 0; it < iters; ++it) {
+    // stage `it` has landed (this thread's pieces, then everyone's), and
+    // every warpgroup has finished the wgmmas of stage it - 2, whose slot
+    // the next load overwrites
+    cp_async_wait<kWgStages - 3>();
+    fence_async_proxy();
+    __syncthreads();
+    if (it + kWgStages - 2 < iters) load(it + kWgStages - 2);
+    cp_async_commit();
+    // A warpgroup whose rows lie past the product's K multiplies whatever
+    // the stage holds and stores nothing: the wgmmas stay in uniform code.
+    const uint32_t sa_addr = smem_addr(smem + (it % kWgStages) * kWgStageBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgPoints / 16; ++kk) {
+      const uint64_t da =
+          make_desc(sa_addr + wg * (kWgRows / 8) * kWgSbo + kk * 2 * kWgLbo,
+                    kWgLbo, kWgSbo);
+      const uint64_t db = make_desc(sa_addr + kWgABytes + kk * 2 * kWgLbo,
+                                    kWgLbo, kWgSbo);
+      wgmma<N, 1, 1>(acc, da, db, it > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (ka0 + wg * kWgRows >= pr.k) return;
+
+  const int q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k = ka0 + wg * kWgRows + warp * 16 + (lane >> 2) + 8 * half;
+      const int i = 4 * j + 2 * half;
+      if (k >= pr.k) continue;
+      if (pr.alpha_off >= 0) {
+        if (j == 0 && q == 0) out[pr.alpha_off + k] = acc[i];
+      } else {
+        *reinterpret_cast<float2*>(out + pr.out_off +
+                                   static_cast<long long>(k) * pr.out_ld +
+                                   8 * j + 2 * q) =
+            make_float2(acc[i], acc[i + 1]);
+      }
+    }
+}
+
+__global__ void __launch_bounds__(kConsumers, 1)
+nerf_mlp_bwd_wgrad_kernel(const __grid_constant__ Products ps, int n_pad,
+                          int chunk, long long e_w, float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   int q = 0;
-  while (q + 1 < ps.count && ps.tiles_begin[q + 1] <= static_cast<int>(blockIdx.x))
+  while (q + 1 < ps.count &&
+         ps.blocks_begin[q + 1] <= static_cast<int>(blockIdx.x))
     ++q;
   const Product& pr = ps.p[q];
-  const int local = blockIdx.x - ps.tiles_begin[q];
-  const int m_tiles = (pr.m + 63) / 64;
-  const int k0 = (local / m_tiles) * 64 + warp * 16;
-  const int m_base = (local % m_tiles) * 64;
-  if (k0 >= pr.k) return;
+  const int ka0 = (blockIdx.x - ps.blocks_begin[q]) * kWgRowsA;
   const int nb = blockIdx.y * chunk;
   const int ne = min(n_pad, nb + chunk);
-
-  FragC acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int n = nb; n < ne; n += 16) {
-    FragAT a;  // A^T: element (k, n) at a[n * lda + k]
-    wmma::load_matrix_sync(a, pr.a + static_cast<size_t>(n) * pr.lda + k0,
-                           pr.lda);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (m_base + j * 16 >= pr.m) break;
-      FragB bfr;
-      wmma::load_matrix_sync(
-          bfr, pr.d + static_cast<size_t>(n) * pr.ldd + m_base + j * 16,
-          pr.ldd);
-      wmma::mma_sync(acc[j], a, bfr, acc[j]);
-    }
-  }
-  float* stage = stage_all[warp];
   float* out = part + static_cast<size_t>(blockIdx.y) * e_w;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (m_base + j * 16 >= pr.m) break;
-    wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int k = k0 + (e >> 4), m = m_base + j * 16 + (e & 15);
-      if (m < pr.m_main)
-        out[pr.out_off + static_cast<long long>(k) * pr.out_ld + m] = stage[e];
-      else if (m == pr.m_main && pr.out2_off >= 0)
-        out[pr.out2_off + k] = stage[e];
-    }
-    __syncwarp();
-  }
+  if (pr.m == kWidth)
+    wgrad_block<kWidth>(pr, ka0, nb, ne, smem_raw, out);
+  else if (pr.m == kHalf)
+    wgrad_block<kHalf>(pr, ka0, nb, ne, smem_raw, out);
+  else
+    wgrad_block<kRgbCols>(pr, ka0, nb, ne, smem_raw, out);
 }
 
 // out[r][e] = sum of in[c][e] over c in [r * group, min(C, (r + 1) * group)),
@@ -309,9 +502,17 @@ int reduce_two_pass(const float* in, float* tmp, float* out, int rows,
 
 extern "C" {
 
+// Dynamic shared memory of a block of the delta kernel (at this depth) and
+// of the weight-gradient kernel.
+int fused_nerf_mlp_bwd_delta_smem_bytes(int depth) {
+  return static_cast<int>(bwd_smem_bytes(depth));
+}
+int fused_nerf_mlp_bwd_wgrad_smem_bytes() { return kWgStages * kWgStageBytes; }
+
 // Gradients of the packed f32 weights (grad_w, e_w elements) and biases
 // (grad_b, e_b) on `stream`. x (n_pad, 64) and v (n_pad, 32) are the bf16
-// encoded features with zero rows past n, g (n, 4) f32 the cotangent.
+// encoded features with zero rows past n, g (n, 4) f32 the cotangent; img
+// and img_t the forward and transposed images of the bf16 weight pack.
 // Workspaces (the caller sizes them, see ops/mlp_train.py):
 //   act bf16 (depth + 1) * n_pad * 256 + n_pad * 128
 //   dlt bf16 depth * n_pad * 256 + n_pad * (272 + 128 + 16)
@@ -320,32 +521,35 @@ extern "C" {
 // Returns cudaGetLastError() of the last launch, or cudaErrorInvalidValue
 // for arguments the kernels do not take.
 int fused_nerf_mlp_bwd(const void* x, const void* v, const float* g, int n,
-                       int n_pad, const void* w, const float* b, int depth,
-                       int skip, void* act, void* dlt, float* part_w,
-                       float* tmp_w, float* part_b, float* tmp_b,
-                       float* grad_w, float* grad_b, long long e_w,
-                       long long e_b, int chunk, int group_w, int group_b,
-                       void* stream) {
-  if (n <= 0 || n_pad % kTileM != 0 || n_pad < n || chunk % kChunkAlign != 0 ||
-      depth + 5 > kMaxProducts || skip < 0 || skip >= depth - 1 ||
+                       int n_pad, const void* img, const void* img_t,
+                       const float* b, int depth, int skip, void* act,
+                       void* dlt, float* part_w, float* tmp_w, float* part_b,
+                       float* tmp_b, float* grad_w, float* grad_b,
+                       long long e_w, long long e_b, int chunk, int group_w,
+                       int group_b, void* stream) {
+  if (n <= 0 || n_pad % kTileM != 0 || n_pad < n ||
+      chunk % kWgPoints != 0 ||
+      depth + 6 > kMaxProducts || skip < 0 || skip >= depth - 1 ||
       static_cast<long long>(w_pack_size(depth, skip)) != e_w ||
       b_pack_size(depth) != e_b || group_w < 1 || group_b < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* wb = static_cast<const bf16*>(w);
   bf16* actb = static_cast<bf16*>(act);
   bf16* dltb = static_cast<bf16*>(dlt);
 
-  const int smem = static_cast<int>(sizeof(BwdSmem));
-  cudaError_t err = cudaFuncSetAttribute(
-      nerf_mlp_bwd_delta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  // persistent blocks, one an SM, or fewer when there are fewer tiles
+  static LaunchCache delta_cache, wgrad_cache;
+  const size_t smem = bwd_smem_bytes(depth);
+  int sms = 0;
+  cudaError_t err =
+      prepare_launch(delta_cache, nerf_mlp_bwd_delta_kernel, smem, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = n_pad / kTileM;
-  nerf_mlp_bwd_delta_kernel<<<tiles, kThreads, smem, st>>>(
-      xb, vb, g, n, n_pad, wb, b, depth, skip, actb, dltb, part_b);
+  nerf_mlp_bwd_delta_kernel<<<tiles < sms ? tiles : sms, kThreads, smem, st>>>(
+      xb, vb, g, n, n_pad, static_cast<const bf16*>(img),
+      static_cast<const bf16*>(img_t), b, depth, skip, actb, dltb, part_b);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
 
   const size_t plane = static_cast<size_t>(n_pad) * kWidth;
@@ -356,41 +560,49 @@ int fused_nerf_mlp_bwd(const void* x, const void* v, const float* g, int n,
   ps.count = 0;
   int total = 0;
   auto add = [&](const bf16* a, int lda, const bf16* d, int ldd, int k, int m,
-                 size_t out_off, int out_ld, int m_main, long long out2_off) {
+                 size_t out_off, int out_ld, long long alpha_off) {
     Product& p = ps.p[ps.count];
     p.a = a; p.d = d; p.lda = lda; p.ldd = ldd; p.k = k; p.m = m;
     p.out_off = static_cast<long long>(out_off); p.out_ld = out_ld;
-    p.m_main = m_main; p.out2_off = out2_off;
-    ps.tiles_begin[ps.count++] = total;
-    total += ((k + 63) / 64) * ((m + 63) / 64);
+    p.alpha_off = alpha_off;
+    ps.blocks_begin[ps.count++] = total;
+    total += (k + kWgRowsA - 1) / kWgRowsA;
   };
-  add(xb, kXDim, dltb, kWidth, kXDim, kWidth, 0, kWidth, kWidth, -1);
+  add(xb, kXDim, dltb, kWidth, kXDim, kWidth, 0, kWidth, -1);
   for (int i = 1; i < depth; ++i) {
     const size_t off = w_trunk_offset(i, skip);
     if (i == skip + 1)
       add(xb, kXDim, dltb + i * plane, kWidth, kXDim, kWidth,
-          off - static_cast<size_t>(kXDim) * kWidth, kWidth, kWidth, -1);
+          off - static_cast<size_t>(kXDim) * kWidth, kWidth, -1);
     add(actb + (i - 1) * plane, kWidth, dltb + i * plane, kWidth, kWidth,
-        kWidth, off, kWidth, kWidth, -1);
+        kWidth, off, kWidth, -1);
   }
+  // d_af = [d_feat | d_sigma | 0]: W_feat's gradient, and w_alpha's from
+  // the 16 columns that start with d_sigma
   add(actb + (depth - 1) * plane, kWidth, d_af, kWidth + kAlphaPad, kWidth,
-      kWidth + kAlphaPad, w_feat_offset(depth, skip), kWidth, kWidth,
+      kWidth, w_feat_offset(depth, skip), kWidth, -1);
+  add(actb + (depth - 1) * plane, kWidth, d_af + kWidth, kWidth + kAlphaPad,
+      kWidth, kAlphaPad, 0, 0,
       static_cast<long long>(w_alpha_offset(depth, skip)));
   add(actb + depth * plane, kWidth, d_gpre, kHalf, kWidth, kHalf,
-      w_view_offset(depth, skip), kHalf, kHalf, -1);
+      w_view_offset(depth, skip), kHalf, -1);
   add(vb, kVDim, d_gpre, kHalf, kVDim, kHalf, w_view_dir_offset(depth, skip),
-      kHalf, kHalf, -1);
+      kHalf, -1);
   add(actb + (depth + 1) * plane, kHalf, d_rgb, kRgbCols, kHalf, kRgbCols,
-      w_rgb_offset(depth, skip), kRgbCols, kRgbCols, -1);
-  ps.tiles_begin[ps.count] = total;
+      w_rgb_offset(depth, skip), kRgbCols, -1);
+  ps.blocks_begin[ps.count] = total;
 
+  const int wg_smem = kWgStages * kWgStageBytes;
+  err = prepare_launch(wgrad_cache, nerf_mlp_bwd_wgrad_kernel, wg_smem, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int chunks = (n_pad + chunk - 1) / chunk;
-  nerf_mlp_bwd_wgrad_kernel<<<dim3(total, chunks), kWgThreads, 0, st>>>(
+  nerf_mlp_bwd_wgrad_kernel<<<dim3(total, chunks), kConsumers, wg_smem, st>>>(
       ps, n_pad, chunk, e_w, part_w);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
   if (int e2 = reduce_two_pass(part_w, tmp_w, grad_w, chunks, e_w, group_w, st))
     return e2;
-  return reduce_two_pass(part_b, tmp_b, grad_b, tiles, e_b, group_b, st);
+  return reduce_two_pass(part_b, tmp_b, grad_b, n_pad / kWgRows, e_b, group_b,
+                         st);
 }
 
 }  // extern "C"

@@ -7,9 +7,13 @@ Replaces the TPU Pallas kernels ``fused_nerf_mlp_enc_t``
 ``make_fused_apply`` for frequency encoders, and ``fused_nerf_mlp``
 (:94), whose body the training forward runs
 (nerf_replication_tpu/ops/pallas/mlp_train.py:168). The kernels live in
-``csrc/fused_nerf_mlp.cu``; they are compute-bound (about 1.19 MFLOP per
-point) and keep every activation of a 64-point tile in shared memory, so
-device memory sees only the inputs and the (N, 4) output.
+``csrc/fused_nerf_mlp.cu`` on the tile core of ``csrc/nerf_mlp_tile.cuh``;
+they are compute-bound (about 1.19 MFLOP per point) and keep every
+activation of a 128-point tile in shared memory, so device memory sees only
+the inputs and the (N, 4) output. The weights reach them as an "image" of
+the canonical pack, permuted once on the host into the order the tensor
+cores read from shared memory (:func:`weight_image`), so that each slab of
+a matrix is one contiguous run for a bulk copy.
 
 * :func:`fused_nerf_mlp_enc` encodes raw points and directions in the
   kernel (the eval path);
@@ -44,18 +48,89 @@ X_DIM = 64       # encoded point features, padded to a multiple of 16
 V_DIM = 32       # encoded direction features, padded
 RGB_COLS = 16    # RGB head outputs, padded
 ALPHA_PAD = 16   # density-head bias, padded
+SLAB_K = 64      # weight rows per shared-memory stage of the kernels
+
+
+def pack_matrices(depth: int, skip: int):
+    """The canonical weight pack's members in order: (name, rows, cols)."""
+    shapes = [("0", X_DIM, WIDTH)]
+    for i in range(1, depth):
+        if i == skip + 1:
+            shapes.append((f"{i}x", X_DIM, WIDTH))
+        shapes.append((str(i), WIDTH, WIDTH))
+    return shapes + [("feat", WIDTH, WIDTH), ("alpha", WIDTH, 1),
+                     ("vf", WIDTH, HALF), ("vd", V_DIM, HALF),
+                     ("rgb", HALF, RGB_COLS)]
+
+
+def _slab_order(at: torch.Tensor, slab_k: int) -> torch.Tensor:
+    """``at`` (K, N) holds the pack index of each element of a matrix. The
+    indices in the order the kernels stage that matrix: K-slabs of
+    ``slab_k`` rows, each as 8 x 8 core matrices ``[k / 8][n / 8][n % 8]
+    [k % 8]`` (the unswizzled K-major operand layout of wgmma)."""
+    k, n = at.shape
+    return at.reshape(k // slab_k, slab_k // 8, 8, n // 8, 8) \
+        .permute(0, 1, 3, 4, 2).reshape(-1)
+
+
+@functools.cache
+def image_index(depth: int, skip: int, transposed: bool) -> torch.Tensor:
+    """The permutation ``perm`` (int64, on the CPU) with ``image =
+    pack[perm]``: the forward image of the canonical weight pack, or the
+    transposed one the backward's delta products read (see
+    ``csrc/nerf_mlp_tile.cuh``). Every matrix keeps its offset. The
+    transposed image permutes only the matrices the backward multiplies
+    by (trunk layers 1.., feat, vf, rgb); the rest stay as in the pack."""
+    parts, at = [], 0
+    for name, rows, cols in pack_matrices(depth, skip):
+        idx = torch.arange(at, at + rows * cols).view(rows, cols)
+        at += rows * cols
+        if name == "alpha":
+            parts.append(idx.reshape(-1))
+        elif not transposed:
+            parts.append(_slab_order(idx, min(rows, SLAB_K)
+                                     if name != "rgb" else rows))
+        elif name in ("0", "vd") or name.endswith("x"):
+            parts.append(idx.reshape(-1))
+        else:
+            parts.append(_slab_order(idx.t(), min(cols, SLAB_K)))
+    return torch.cat(parts)
+
+
+def weight_image(w: torch.Tensor, depth: int, skip: int,
+                 transposed: bool = False) -> torch.Tensor:
+    """The kernels' image of the canonical pack ``w`` (one indexing op)."""
+    perm = _image_index_on(depth, skip, transposed, w.device)
+    if perm.numel() != w.numel():
+        raise ValueError(f"fused kernel: a pack of {w.numel()} weights does "
+                         f"not fit depth {depth}, skip {skip}")
+    return w[perm]
+
+
+@functools.cache
+def _image_index_on(depth, skip, transposed, device):
+    return image_index(depth, skip, transposed).to(device)
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedMLP:
-    """One branch's weights in the kernel's layout (see the .cu header):
-    ``w`` a flat bf16 pack of (in, out) row-major matrices, ``b`` a flat
-    f32 pack of biases."""
+    """One branch's weights in the canonical layout (see
+    ``csrc/nerf_mlp_tile.cuh``): ``w`` a flat bf16 pack of (in, out)
+    row-major matrices, ``b`` a flat f32 pack of biases. ``img`` and
+    ``img_t`` are the images of ``w`` the kernels read, made at first use."""
 
     w: torch.Tensor
     b: torch.Tensor
     depth: int
     skip: int
+
+    @functools.cached_property
+    def img(self) -> torch.Tensor:
+        return weight_image(self.w, self.depth, self.skip)
+
+    @functools.cached_property
+    def img_t(self) -> torch.Tensor:
+        return weight_image(self.w, self.depth, self.skip, transposed=True)
 
 
 def pack_tensors(weight, bias, in_dim: int, view_dim: int, depth: int,
@@ -208,12 +283,25 @@ def _kernel():
     fn.restype = i32
     lib.fused_nerf_mlp.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32, i32, ptr]
     lib.fused_nerf_mlp.restype = i32
+    lib.fused_nerf_mlp_grid.argtypes = [i32]
     return lib
 
 
 def build() -> None:
     """Build and load the kernels now, so that a failed build raises here."""
     _kernel()
+
+
+def launch_shape(n: int) -> dict:
+    """What a forward launch on ``n`` points looks like on the current
+    card: persistent ``blocks`` (one an SM, or fewer when there are fewer
+    128-point tiles) and the dynamic shared memory of a block."""
+    lib = _kernel()
+    blocks = lib.fused_nerf_mlp_grid(n)
+    if blocks < 0:
+        check_launch(-blocks, "fused_nerf_mlp launch configuration")
+    return {"blocks": blocks,
+            "shared_memory_bytes": lib.fused_nerf_mlp_smem_bytes()}
 
 
 def check_launch(err: int, name: str) -> None:
@@ -263,7 +351,7 @@ def fused_nerf_mlp_enc(packed: PackedMLP, pts: torch.Tensor,
     with torch.cuda.device(pts.device):
         err = lib.fused_nerf_mlp_enc(
             pts.data_ptr(), dirs.data_ptr(), out.data_ptr(), n,
-            packed.w.data_ptr(), packed.b.data_ptr(), packed.depth,
+            packed.img.data_ptr(), packed.b.data_ptr(), packed.depth,
             packed.skip, xyz_freqs, view_freqs,
             torch.cuda.current_stream(pts.device).cuda_stream)
     check_launch(err, "fused_nerf_mlp_enc")
@@ -308,7 +396,7 @@ def fused_nerf_mlp(packed: PackedMLP, x: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.fused_nerf_mlp(
             x.data_ptr(), v.data_ptr(), out.data_ptr(), n,
-            packed.w.data_ptr(), packed.b.data_ptr(), packed.depth,
+            packed.img.data_ptr(), packed.b.data_ptr(), packed.depth,
             packed.skip, torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "fused_nerf_mlp")
     fused_nerf_mlp.launches += 1

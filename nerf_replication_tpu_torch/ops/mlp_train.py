@@ -37,15 +37,14 @@ from .mlp_kernel import (
     ALPHA_PAD,
     HALF,
     RGB_COLS,
-    V_DIM,
     WIDTH,
-    X_DIM,
     PackedMLP,
     _bf16,
     _take,
 )
 
-TILE = 64          # points per block of the delta kernel
+PAD = 128          # the delta kernel takes whole 128-point tiles
+BIAS_ROWS = 64     # points per bias partial (one of a tile's two warpgroups)
 CHUNK = 4096       # points per partial of the weight-gradient kernel
 
 
@@ -70,14 +69,8 @@ def _sigma_into_trunk(d_sigma: torch.Tensor, w_alpha: torch.Tensor):
 
 def _unpack(packed: PackedMLP):
     """The pack's matrices (f32, (in, out)) and biases by name."""
-    d, sk = packed.depth, packed.skip
-    shapes = [("0", X_DIM, WIDTH)]
-    for i in range(1, d):
-        if i == sk + 1:
-            shapes.append((f"{i}x", X_DIM, WIDTH))
-        shapes.append((str(i), WIDTH, WIDTH))
-    shapes += [("feat", WIDTH, WIDTH), ("alpha", WIDTH, 1), ("vf", WIDTH, HALF),
-               ("vd", V_DIM, HALF), ("rgb", HALF, RGB_COLS)]
+    d = packed.depth
+    shapes = mlp_kernel.pack_matrices(d, packed.skip)
     w, at = {}, 0
     for name, rows, cols in shapes:
         w[name], at = _take(packed.w, at, rows, cols)
@@ -186,10 +179,11 @@ def _kernel():
     lib = _build.load("fused_nerf_mlp_bwd")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_nerf_mlp_bwd.argtypes = (
-        [ptr, ptr, ptr, i32, i32, ptr, ptr, i32, i32]   # x .. skip
-        + [ptr] * 8                                     # act .. grad_b
-        + [i64, i64, i32, i32, i32, ptr])               # e_w .. stream
+        [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, i32, i32]   # x .. skip
+        + [ptr] * 8                                          # act .. grad_b
+        + [i64, i64, i32, i32, i32, ptr])                    # e_w .. stream
     lib.fused_nerf_mlp_bwd.restype = i32
+    lib.fused_nerf_mlp_bwd_delta_smem_bytes.argtypes = [i32]
     return lib
 
 
@@ -199,6 +193,14 @@ def build() -> None:
     _build.build_all(["fused_nerf_mlp", "fused_nerf_mlp_bwd"])
     mlp_kernel.build()
     _kernel()
+
+
+def shared_memory_bytes(depth: int) -> dict:
+    """Dynamic shared memory of one block of the backward's delta kernel
+    (for a ``depth``-layer trunk) and of its weight-gradient kernel."""
+    lib = _kernel()
+    return {"delta": lib.fused_nerf_mlp_bwd_delta_smem_bytes(depth),
+            "wgrad": lib.fused_nerf_mlp_bwd_wgrad_smem_bytes()}
 
 
 def _two_pass_group(rows: int) -> int:
@@ -246,27 +248,28 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     if n == 0:
         return torch.zeros(e_w, **kw), torch.zeros(e_b, **kw)
     d = packed.depth
-    n_pad = -(-n // TILE) * TILE
+    n_pad = -(-n // PAD) * PAD
     x_pad = F.pad(x, (0, 0, 0, n_pad - n)).contiguous()
     v_pad = F.pad(v, (0, 0, 0, n_pad - n)).contiguous()
     bf = dict(dtype=torch.bfloat16, device=x.device)
     act = torch.empty((d + 1) * n_pad * WIDTH + n_pad * HALF, **bf)
     dlt = torch.empty(d * n_pad * WIDTH
                       + n_pad * (WIDTH + ALPHA_PAD + HALF + RGB_COLS), **bf)
-    chunks, tiles = -(-n_pad // CHUNK), n_pad // TILE
-    group_w, group_b = _two_pass_group(chunks), _two_pass_group(tiles)
+    chunks, bias_rows = -(-n_pad // CHUNK), n_pad // BIAS_ROWS
+    group_w, group_b = _two_pass_group(chunks), _two_pass_group(bias_rows)
     part_w = torch.empty(chunks * e_w, **kw)
     tmp_w = torch.empty(-(-chunks // group_w) * e_w, **kw)
-    part_b = torch.empty(tiles * e_b, **kw)
-    tmp_b = torch.empty(-(-tiles // group_b) * e_b, **kw)
+    part_b = torch.empty(bias_rows * e_b, **kw)
+    tmp_b = torch.empty(-(-bias_rows // group_b) * e_b, **kw)
     grad_w, grad_b = torch.empty(e_w, **kw), torch.empty(e_b, **kw)
     lib = _kernel()
     with torch.cuda.device(x.device):
         err = lib.fused_nerf_mlp_bwd(
             x_pad.data_ptr(), v_pad.data_ptr(), g.data_ptr(), n, n_pad,
-            packed.w.data_ptr(), packed.b.data_ptr(), d, packed.skip,
-            act.data_ptr(), dlt.data_ptr(), part_w.data_ptr(),
-            tmp_w.data_ptr(), part_b.data_ptr(), tmp_b.data_ptr(),
+            packed.img.data_ptr(), packed.img_t.data_ptr(),
+            packed.b.data_ptr(), d, packed.skip, act.data_ptr(),
+            dlt.data_ptr(), part_w.data_ptr(), tmp_w.data_ptr(),
+            part_b.data_ptr(), tmp_b.data_ptr(),
             grad_w.data_ptr(), grad_b.data_ptr(), e_w, e_b, CHUNK, group_w,
             group_b, torch.cuda.current_stream(x.device).cuda_stream)
     mlp_kernel.check_launch(err, "fused_nerf_mlp_bwd")

@@ -58,9 +58,11 @@ def _ray_points(n, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 257, 1000])
 def test_kernel_matches_plain_version(cuda, monkeypatch, n):
-    """Ragged point counts around the 64-point tile, trained weights. The
+    """Ragged point counts around a warpgroup's 64 rows and the 128-point
+    tile (one below, at, one above, and one above two tiles), trained
+    weights. The
     bound is chip_smoke.py's: where f32 summation order flips a bf16
     rounding, outputs move by up to ~1e-2 of their column's range."""
     net = load_model(_cfg(monkeypatch), cuda)
@@ -104,17 +106,62 @@ def test_render_on_gpu_matches_cpu_plain_render(cuda, monkeypatch):
     torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=2e-3, rtol=0)
 
 
+def _flipped_points(planes_k, planes_p) -> torch.Tensor:
+    """The points (a bool mask) at which the two arms' recomputed
+    activations disagree on a ReLU: one is zero where the other is
+    positive, because the f32 summation order moved a value across zero."""
+    flipped = ((planes_k["g_act"] > 0) != (planes_p["g_act"] > 0)).any(dim=1)
+    for h_k, h_p in zip(planes_k["h"], planes_p["h"]):
+        flipped |= ((h_k > 0) != (h_p > 0)).any(dim=1)
+    return flipped
+
+
+def _less_points(grads, planes, rows, x, v, packed):
+    """``grads`` (weight-pack gradient, bias-pack gradient) less what the
+    points ``rows`` (a bool mask) add to them, summed in float64 from the
+    workspace ``planes``: the products A^T . D for the weights, the deltas'
+    column sums for the biases (the bf16 deltas for the f32 ones: off by at
+    most 2^-9 of these points' share)."""
+    part = {k: [t[rows].double() for t in p] if isinstance(p, list)
+            else p[rows].double() for k, p in planes.items()}
+    w = mlp_train.weight_grads(part, x[rows].double(), v[rows].double(),
+                               packed)
+    b = torch.cat([d.sum(0) for d in part["d"]]
+                  + [part[k].sum(0) for k in ("d_af", "d_gpre", "d_rgb")])
+    return grads[0].double() - w, grads[1].double() - b
+
+
+# Share of the points whose ReLUs may disagree between the arms (or two
+# points): read 1 of 127, 129 and 257, 2 of 260, 3 of 1000 and of 4096.
+FLIPPED_POINTS = 5e-3
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 257, 260, 385,
+                               1000, 4096])
 def test_training_kernels_match_plain_versions(cuda, monkeypatch, n):
     """The features-in forward (TPU kernels #3/#4) and the backward (#5) at
-    ragged point counts, trained weights, a cotangent shaped like
-    dloss/draw: the forward to 1e-2 of each column's range, the backward
-    to chip_smoke.py's check (deltas, workspace sums, leaves, padding).
+    ragged point counts around the 128-point tile (one below, at, one above,
+    and one above two and three tiles), trained weights, a cotangent shaped
+    like dloss/draw: the forward to 1e-2 of each column's range, the
+    backward to chip_smoke.py's check (deltas, workspace sums, leaves,
+    padding).
     A summation-order flip that cascades down one point's delta chain
     changes up to about half of that point's deltas, so at a few dozen
     points the share of differing deltas may reach two points' worth
-    (read 8.7e-3 at 63 points) where chip_smoke.py's 196608 read 2e-4."""
+    (read 8.7e-3 at 63 points) where chip_smoke.py's 196608 read 2e-4.
+    Where the flip moves a recomputed activation across zero, the two arms
+    disagree on that ReLU, the point's deltas below it differ by their own
+    size, and at a few hundred points one such point carries several
+    percent of a leaf: at 257 points the fine branch's w6 read 5.1e-2 with
+    its one such point and 3.7e-4 without it (run with ``-s`` for every
+    size's readings). So the leaves are compared without the points whose
+    ReLUs disagree (``_flipped_points``; none at most sizes, and then this
+    is chip_smoke.py's check as it stands; read at most 2.4e-3), those
+    points may be no more than FLIPPED_POINTS of all (or two), and the
+    kernel's whole gradient must be the float64 sums of its own workspace,
+    which the deltas' check holds against the plain version's element by
+    element."""
     net = load_model(_cfg(monkeypatch), cuda)
     g = torch.Generator(device=cuda).manual_seed(n)
     for mlp in (net.coarse, net.fine):
@@ -138,11 +185,24 @@ def test_training_kernels_match_plain_versions(cuda, monkeypatch, n):
         assert float(((out - ref).abs() / scale).max()) <= 1e-2
         ref_grads = mlp_train.fused_nerf_mlp_bwd_reference(packed, x, v, cot,
                                                            keep_p)
-        a = chip_smoke.backward_agreement(grads, ref_grads, keep_k["planes"],
-                                          keep_p["planes"], packed, 63, 27,
-                                          x=x, v=v, delta_diff=max(
-                                              chip_smoke.DELTA_DIFF, 2 / n))
-        assert a["ok"], a
+        planes_k, planes_p = keep_k["planes"], keep_p["planes"]
+        delta_diff = max(chip_smoke.DELTA_DIFF, 2 / n)
+        a = chip_smoke.backward_agreement(grads, ref_grads, planes_k,
+                                          planes_p, packed, 63, 27, x=x, v=v,
+                                          delta_diff=delta_diff)
+        flipped = _flipped_points(planes_k, planes_p)
+        kept = chip_smoke.backward_agreement(
+            _less_points(grads, planes_k, flipped, x, v, packed),
+            _less_points(ref_grads, planes_p, flipped, x, v, packed),
+            planes_k, planes_p, packed, 63, 27, delta_diff=delta_diff)
+        print(f"backward, N={n}: {int(flipped.sum())} points with a flipped "
+              f"ReLU; leaves, worst rel-norm err: all points {a['rel']:.2e} "
+              f"({a['rel_leaf']}), without those {kept['rel']:.2e} "
+              f"({kept['rel_leaf']})")
+        assert int(flipped.sum()) <= max(2, FLIPPED_POINTS * n)
+        assert kept["ok"], chip_smoke.describe_grad(kept)
+        assert a["wgrad"] <= chip_smoke.WGRAD_REL and a["pad_zero"], \
+            chip_smoke.describe_grad(a)
 
 
 @pytest.mark.cuda

@@ -314,3 +314,61 @@ def test_workspace_planes_layout():
     assert p["d_gpre"][0, 0] == depth * plane + n_pad * 272
     assert p["d_rgb"][1, 2] == depth * plane + n_pad * (272 + 128) + 16 + 2
     assert all(t.shape[0] == n for t in (p["feat"], p["d_af"], p["d_rgb"]))
+
+
+def _staged_offset(k, n, cols, slab_k):
+    """Where the kernels expect element (k, n) of a (K, cols) matrix inside
+    its region of an image: K-slabs of ``slab_k`` rows, a slab as 8 x 8
+    core matrices ``[k / 8][n / 8][n % 8][k % 8]`` (csrc/nerf_mlp_tile.cuh,
+    written out independently of ``mlp_kernel._slab_order``)."""
+    slab, kk = divmod(k, slab_k)
+    return (slab * slab_k * cols + ((kk // 8) * (cols // 8) + n // 8) * 64
+            + (n % 8) * 8 + kk % 8)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_weight_image_maps_back_to_the_canonical_pack(setup, transposed):
+    """The kernels' permuted (and transposed) weight image, made from the
+    canonical pack by one indexing op: a permutation that maps back to the
+    pack exactly, with every element where the kernels' slab and
+    core-matrix arithmetic looks for it; and gradients taken through the
+    image still reach every parameter of the module."""
+    _, params, *_ = setup
+    mlp = _port_mlp(params)
+    w, _ = mlp_train.pack_params_torch(mlp, IN, VIEW)
+    perm = mlp_kernel.image_index(DEPTH, SKIP, transposed)
+    img = mlp_kernel.weight_image(w, DEPTH, SKIP, transposed)
+    assert perm.sort().values.equal(torch.arange(w.numel()))
+    back = torch.empty_like(img)
+    back[perm] = img
+    assert torch.equal(back, w)
+    packed = mlp_kernel.PackedMLP(w=w.detach().to(torch.bfloat16),
+                                  b=torch.zeros(1), depth=DEPTH, skip=SKIP)
+    kernel_img = packed.img_t if transposed else packed.img
+    assert torch.equal(kernel_img, img.detach().to(torch.bfloat16))
+
+    g = np.random.default_rng(3)
+    at = 0
+    for name, rows, cols in mlp_kernel.pack_matrices(DEPTH, SKIP):
+        m = w[at:at + rows * cols].view(rows, cols)
+        region = img[at:at + rows * cols]
+        at += rows * cols
+        moved = name != "alpha" and not (
+            transposed and (name in ("0", "vd") or name.endswith("x")))
+        if not moved:   # w_alpha, and what the backward never multiplies by
+            assert torch.equal(region, m.reshape(-1))
+            continue
+        if transposed:
+            m = m.t()
+        k_dim, n_dim = m.shape
+        slab_k = k_dim if name == "rgb" and not transposed else min(k_dim, 64)
+        for k, n in zip(g.integers(0, k_dim, 200), g.integers(0, n_dim, 200)):
+            assert region[_staged_offset(int(k), int(n), n_dim, slab_k)] \
+                == m[k, n], (name, k, n)
+    assert at == w.numel()
+
+    weights = torch.as_tensor(g.normal(size=img.numel()), dtype=img.dtype)
+    (img * weights).sum().backward()
+    for name, p in mlp.named_parameters():
+        if name.endswith("weight"):
+            assert p.grad is not None and bool((p.grad != 0).all()), name
