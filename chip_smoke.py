@@ -49,20 +49,27 @@ Phases (any failure exits non-zero):
    phase 6's fused route and N more steps of phase 7's kernel arm (tables
    under build/).
 6. NGP eval: configs/nerf/hard_ngp.yaml with data/pretrain/hard_ngp_b9
-   (``network.xyz_encoder.log2_bricks 9``). (a) The brick-encode and the
-   fused encode+MLP kernels against their plain versions on the samples
-   of one real 8000-ray chunk of hard view 0 (384,000 coarse and 896,000
-   fine points, each through its branch), with three lower-precision
-   plain versions that must fail the same check (the table read in f32,
-   the MLP in bf16, the MLP in TF32); CUDA-event times beside each
-   kernel's bound. (b) ``run_evaluate`` on hard test views 0 and 4 at
-   800x800 through the fused route: mean uint8 PSNR against the JAX
-   record 30.28 dB, SSIM, frame times, 2 fused launches a chunk and no
-   other kernel or plain call. (c) View 0 through the unfused route (the
-   encode kernel and the nn.Module MLP, 2 of each a chunk) and the plain
-   route (``network.use_pallas_mlp False``: the nn.Module network, whose
-   encoder launches the training forward kernel, 2 a chunk): each one's
-   PSNR against the fused render and its frame time.
+   (``network.xyz_encoder.log2_bricks 9``). (a) The brick-encode kernel and
+   both arms of the fused encode+MLP kernel (f32 in 3xTF32, bf16) against
+   their plain versions on the samples of one real 8000-ray chunk of hard
+   view 0 (384,000 coarse and 896,000 fine points, each through its
+   branch), with four lower-precision plain versions that must fail the
+   same check (the table read in f32, the f32 MLP in bf16 and in TF32, and
+   the f32 arm against the bf16 check) and the 3xTF32 emulation of the f32
+   arm's products beside them; then the f32 arm on a 16-level network
+   (configs/nerf/lego_ngp.yaml, seeded random weights and table) at the
+   fine chunk's points; CUDA-event times beside each kernel's bound (the
+   f32 arm's at the TF32 and at the CUDA-core f32 rate). (b)
+   ``run_evaluate`` on hard test views 0 and 4 at 800x800 through the fused
+   route: mean uint8 PSNR against the JAX record 30.28 dB, SSIM, frame
+   times, 2 fused launches a chunk and no other kernel or plain call, the
+   device busy ms of one profiled frame. (c) View 0 through the fused
+   kernel's bf16 arm (2 launches a chunk), the unfused route (the encode
+   kernel and the nn.Module MLP, 2 of each a chunk) and the plain route
+   (``network.use_pallas_mlp False``: the nn.Module network, whose encoder
+   launches the training forward kernel, 2 a chunk): each one's PSNR
+   against the fused render, its frame time and (bf16, unfused) its
+   device busy ms a frame.
 7. NGP training: configs/nerf/hard_ngp.yaml as committed (12 levels,
    ``log2_bricks`` 12, a 34432 x 256 f32 table, 1024 rays, 48 + 64
    samples, ``random_bkgd``) on the 20 train views of phase 5 with their
@@ -76,8 +83,9 @@ Phases (any failure exits non-zero):
    f64, every level within 1e-5 of its max |gradient| (f32 atomic sums in
    any order), the padding exactly zero; the plain backward with f32
    contributions on the bf16 levels, and with bf16 by truncation, must
-   fail that check. CUDA-event times beside the bounds, and the time of
-   one ``index_add_`` over the same (address, value) pairs. (b) 2000 steps
+   fail that check. CUDA-event times beside the bounds, the time of one
+   ``index_add_`` over the same (address, value) pairs, and the share of
+   them that the kernel's warp merge folds away. (b) 2000 steps
    from a fresh init (seed 0) through the train CLI's ``train()``, four
    epochs, each after the first resumed from the checkpoint: rays/s, peak
    memory, 2 forward and 2 backward launches a step and no plain call,
@@ -182,14 +190,25 @@ CKPT_DIR = os.path.join(ROOT, "build", "smoke_ckpt")
 
 # NGP eval (phase 6), in float32. The encode kernel sums the same bf16
 # table values in the same order with the same roundings as its plain
-# version (read: bit-equal); the fused MLP differs from the plain one only
-# in its f32 summation order (fmaf chains against cuBLAS), which moves an
-# output by <= 6.1e-7 of its column's range (read at 384,000 and 896,000
-# points; column medians <= 3.7e-8, no element outside atol + rtol 1e-4).
-# The controls (NGP_CONTROLS) read 2.9e-3 (table in f32), 2.0e-2 (MLP in
-# bf16) and 3.0e-3 (MLP in TF32) of the range.
+# version (read: bit-equal); the fused MLP's f32 arm (3xTF32 products)
+# differs from the plain one (f32 products) by the ~2^-22 a product that
+# 3xTF32 drops and by f32 summation order: the first kernel (fmaf chains)
+# read <= 6.1e-7 of a column's range, the 3xTF32 emulation 1.2e-6 on the
+# CPU (PERF.md section 6). The controls (NGP_CONTROLS) read 2.9e-3 (table
+# in f32), 2.0e-2 (MLP in bf16) and 3.0e-3 (MLP in TF32) of the range.
 NGP_BOUNDS = Bounds(col_rtol=1e-5, atol=1e-4, rtol=1e-4, outlier_frac=1e-5,
                     median_rtol=1e-6)
+# The bf16 arm against its plain version (bf16 operands, exact products,
+# f32 sums): they differ where the f32 summation order flips the bf16
+# rounding of an activation, so MLP_BOUNDS' three bounds, set from the
+# H100 readings at 384,000 / 896,000 points with room: col 5.4e-3 /
+# 4.4e-3, outside atol + rtol 2.0e-6 / 2.8e-7, column medians 0. The f32
+# arm's plain version, the control, read col 1.4e-2, outside 2.1e-2,
+# medians 1.4e-3.
+NGP_BF16_BOUNDS = Bounds(col_rtol=1e-2, atol=2e-2, rtol=5e-2,
+                         outlier_frac=1e-5, median_rtol=1e-6)
+NGP_BF16_MIN_DB = 55.0    # the bf16 arm's render against the f32 one (60.06)
+NGP_16_LEVELS = ("--cfg_file", "configs/nerf/lego_ngp.yaml", "device", "cuda")
 NGP_ARGV = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard_ngp.yaml",
             "pretrain_path", "data/pretrain/hard_ngp_b9",
             "network.xyz_encoder.log2_bricks", "9", "save_result", "False",
@@ -222,14 +241,16 @@ NGP_TRAIN_ARGV = ["--cfg_file", "configs/nerf/hard_ngp.yaml", "device",
 # kernel's bound is the larger of its bytes over the memory rate and its
 # operations over the rate of their type.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 494.7e12, "f32": 67e12}
 
 
-def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
+def bound(n_bytes: float, n_ops, kind: str | None = None) -> dict:
     """``bound_ms`` and ``bound_by`` for moving ``n_bytes`` and doing
-    ``n_ops`` operations of type ``kind``."""
+    ``n_ops`` operations of type ``kind``, or ``n_ops`` a dict of
+    operations by type (their times add up)."""
+    ops = n_ops if kind is None else {kind: n_ops}
     ms_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ms_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    ms_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
     return {"bound_ms": max(ms_bytes, ms_ops),
             "bound_by": "bytes" if ms_bytes >= ms_ops else "operations"}
 
@@ -479,6 +500,7 @@ def _counters():
         "bwd": [(mlp_train.fused_nerf_mlp_bwd, "launches")],
         "ngp_enc": [(eval_encode.brick_encode_eval, "launches")],
         "ngp": [(fused_ngp.fused_ngp_eval, "launches")],
+        "ngp_bf16": [(fused_ngp.fused_ngp_eval, "bf16_launches")],
         "plain": [(f, "calls") for f in (
             mlp_kernel.fused_nerf_mlp_enc_reference,
             mlp_kernel.fused_nerf_mlp_reference,
@@ -637,15 +659,15 @@ PROFILE_PARTS = (
 )
 
 
-def profile_runs(run, count: int, unit: str, tag: str):
-    """``count`` calls of ``run`` (after 3 to warm up) under torch.profiler:
-    the device time a call by part (PROFILE_PARTS, the rest as "other")
-    and the idle share of the wall time; the full table goes to
-    build/profile_<tag>.txt."""
+def profile_runs(run, count: int, unit: str, tag: str, warm: int = 3):
+    """``count`` calls of ``run`` (after ``warm`` to warm up) under
+    torch.profiler: the device time a call by part (PROFILE_PARTS, the rest
+    as "other") and the idle share of the wall time; the full table goes to
+    build/profile_<tag>.txt. Returns the device busy ms a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warm):
         run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -672,6 +694,7 @@ def profile_runs(run, count: int, unit: str, tag: str):
           f"{100 * (1 - busy / wall):.1f}%); device ms a {unit}: " + "; ".join(
               f"{name} {t / 1e3 / count:.3f}" for name, t in
               sorted(parts.items(), key=lambda kv: -kv[1])))
+    return busy * 1e3 / count
 
 
 def profile_steps(trainer, pipeline, steps: int, tag: str):
@@ -851,74 +874,162 @@ def _mlp_in_tf32(enc, x, plain):
         torch.backends.cuda.matmul.allow_tf32 = keep
 
 
+def _bf16_arm_in_f32(enc, x, plain):
+    """``plain`` (the bf16 arm's plain version) with no bf16 rounding of
+    operands or biases: the f32 arm's plain version."""
+    from nerf_replication_tpu_torch.ops import fused_ngp
+
+    with mock.patch.object(fused_ngp, "_round_bf16", lambda t: t):
+        return plain()
+
+
 # phase 6's controls: label -> (the kernel whose check must reject it, the
 # control's output from (encoder, points, that kernel's plain version))
 NGP_CONTROLS = {
     "table read in f32 (no bf16 rounding)": ("encode", _table_in_f32),
     "MLP in bf16": ("fused", _mlp_in_bf16),
     "MLP in TF32": ("fused", _mlp_in_tf32),
+    "the f32 arm (no bf16 operands)": ("fused_bf16", _bf16_arm_in_f32),
 }
 
 
-def ngp_kernels_against_plain(cfg, net, view) -> dict:
-    """Phase 6 (a): each NGP kernel against its plain version on the
-    samples of one real chunk, each branch on its own pass's points; the
-    controls on the coarse points. Returns, per kernel, its readings at
-    each size."""
-    from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
+def ngp_runs(layout, packed, ops, meta, x, sh):
+    """Phase 6's kernels on one set of points: name -> (kernel, plain,
+    bytes each input read once and the output written once, operations by
+    type, the check's bounds), and the f32 operations of the whole field.
+    The fused f32 arm's operations are its 3xTF32 products (three TF32
+    products a multiply-add) beside the encode's f32 ones; the f32
+    operations give its CUDA-core bound too."""
     from nerf_replication_tpu_torch.ops import (
         eval_encode,
         fused_ngp,
         hashgrid_kernel,
     )
 
+    n = x.shape[0]
+    enc_ops = n * hashgrid_kernel.encode_flops_per_point(layout)
+    mlp_ops = n * fused_ngp.mlp_flops_per_point(ops)
+    io = nbytes(x, packed) + 16 * n       # the (N, 4) f32 output
+    fused_io = io + nbytes(sh, ops.flat)
+    return {
+        "encode": (lambda: eval_encode.brick_encode_eval(layout, packed, x),
+                   lambda: eval_encode.brick_encode_eval_reference(
+                       layout, packed, x),
+                   nbytes(x, packed) + 4 * n * 2 * len(layout.scales),
+                   {"f32": enc_ops}, NGP_BOUNDS),
+        "fused": (lambda: fused_ngp.fused_ngp_eval(layout, meta, packed, ops,
+                                                   x, sh),
+                  lambda: fused_ngp.fused_ngp_eval_reference(
+                      layout, meta, packed, ops, x, sh),
+                  fused_io, {"tf32": 3 * mlp_ops, "f32": enc_ops},
+                  NGP_BOUNDS),
+        "fused_bf16": (lambda: fused_ngp.fused_ngp_eval(
+            layout, meta, packed, ops, x, sh, mlp_bf16=True),
+            lambda: fused_ngp.fused_ngp_eval_reference(
+                layout, meta, packed, ops, x, sh, mlp_bf16=True),
+            fused_io, {"bf16": mlp_ops, "f32": enc_ops}, NGP_BF16_BOUNDS),
+    }, enc_ops + mlp_ops
+
+
+def check_ngp_kernel(name, runs, f32_ops, tag, reps=20) -> dict:
+    """One of :func:`ngp_runs`' kernels against its plain version: the
+    check, CUDA-event times and bounds (the fused f32 arm's both), printed;
+    fails the run where they disagree. Returns the reading and the plain
+    output."""
+    kernel, plain, n_bytes, ops, bounds = runs[name]
+    out_k, out_p = kernel(), plain()
+    torch.cuda.synchronize()
+    a = agreement(out_k, out_p, bounds)
+    ms_k, ms_p = cuda_ms(kernel, reps), cuda_ms(plain, 3)
+    b = bound(n_bytes, ops)
+    extra = ""
+    if name == "fused":
+        b32 = bound(n_bytes, f32_ops, "f32")
+        extra = (f"; CUDA-core f32 bound {b32['bound_ms']:.4f} ms "
+                 f"({b32['bound_ms'] / ms_k:.1%} of it reached)")
+        b = dict(b, f32_bound_ms=b32["bound_ms"])
+    print(f"NGP {name} kernel vs plain, {tag}: {describe(a)}, bit-equal "
+          f"{torch.equal(out_k, out_p)} | kernel {ms_k:.4f} ms (bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}, "
+          f"{b['bound_ms'] / ms_k:.1%} of it reached{extra}; "
+          f"{f32_ops / ms_k / 1e9:.1f} TFLOP/s of f32-equivalent work), "
+          f"plain {ms_p:.3f} ms")
+    if not a["ok"]:
+        fail(f"NGP {name} kernel disagrees with its plain version, {tag}")
+    return dict(n=out_k.shape[0], err=a["max_abs_err"], ms=ms_k,
+                plain_ms=ms_p, **b), out_p
+
+
+def ngp_kernels_against_plain(cfg, net, view) -> dict:
+    """Phase 6 (a): each NGP kernel (the encode, the fused kernel's two
+    arms) against its plain version on the samples of one real chunk, each
+    branch on its own pass's points; the controls and the 3xTF32 emulation
+    on the coarse points; then the fused f32 arm on a 16-level network.
+    Returns, per kernel, its readings at each size."""
+    from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
+    from nerf_replication_tpu_torch.ops import eval_encode, fused_ngp
+
     enc = net.xyz_encoder
     layout = enc.layout
     packed = eval_encode.pack_eval_table(enc.table.detach())
-    res = {"encode": [], "fused": []}
+    res = {"encode": [], "fused": [], "fused_bf16": []}
     for branch, (pts, viewdirs) in ngp_chunk_samples(cfg, net, view).items():
         mlp = getattr(net, branch)
         ops, meta = fused_ngp.extract_mlp_weights(
             mlp.state_dict(), enc.output_dim, mlp.depth, mlp.skips,
             mlp.view_depth)
         x, sh = ngp_renderer.fused_inputs(net, pts, viewdirs)
-        n = x.shape[0]
-        runs = {"encode": (
-            lambda: eval_encode.brick_encode_eval(layout, packed, x),
-            lambda: eval_encode.brick_encode_eval_reference(layout, packed, x),
-            hashgrid_kernel.encode_flops_per_point(layout)), "fused": (
-            lambda: fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh),
-            lambda: fused_ngp.fused_ngp_eval_reference(layout, meta, packed,
-                                                       ops, x, sh),
-            fused_ngp.flops_per_point(layout, ops))}
-        for name, (kernel, plain, flops) in runs.items():
-            out_k, out_p = kernel(), plain()
-            torch.cuda.synchronize()
-            a = agreement(out_k, out_p, NGP_BOUNDS)
-            ms_k, ms_p = cuda_ms(kernel, 20), cuda_ms(plain, 3)
-            inputs = (x, packed) + ((sh, ops.flat) if name == "fused" else ())
-            b = bound(nbytes(*inputs, out_k), n * flops, "f32")
-            res[name].append(dict(n=n, err=a["max_abs_err"], ms=ms_k,
-                                  plain_ms=ms_p, **b))
-            print(f"NGP {name} kernel vs plain, {branch} N={n}: "
-                  f"{describe(a)}, bit-equal {torch.equal(out_k, out_p)} | "
-                  f"kernel {ms_k:.4f} ms (bound {b['bound_ms']:.4f} ms by "
-                  f"{b['bound_by']}, {flops * n / ms_k / 1e9:.1f} TFLOP/s), "
-                  f"plain {ms_p:.3f} ms")
-            if not a["ok"]:
-                fail(f"NGP {name} kernel disagrees with its plain version "
-                     f"at N={n}")
-            controls = NGP_CONTROLS.items() if branch == "coarse" else ()
-            for label, (target, control) in controls:
+        runs, f32_ops = ngp_runs(layout, packed, ops, meta, x, sh)
+        tag = f"{branch} N={x.shape[0]}"
+        for name in res:
+            reading, out_p = check_ngp_kernel(name, runs, f32_ops, tag)
+            res[name].append(reading)
+            if branch != "coarse":
+                continue
+            for label, (target, control) in NGP_CONTROLS.items():
                 if target == name:
-                    c = agreement(control(enc, x, plain), out_p, NGP_BOUNDS)
-                    print(f"control, NGP {name} plain with {label}, "
-                          f"{branch} N={n}: {describe(c)}")
+                    c = agreement(control(enc, x, runs[name][1]), out_p,
+                                  runs[name][4])
+                    print(f"control, NGP {name} plain with {label}, {tag}: "
+                          f"{describe(c)}")
                     if c["ok"]:
                         fail(f"the NGP check accepts the plain {name} with "
                              f"{label}, so it cannot see such a fault")
-            del out_k, out_p
+            if name == "fused":
+                with mock.patch.object(fused_ngp, "_matmul",
+                                       fused_ngp.matmul_3xtf32):
+                    emu = runs["fused"][1]()
+                print(f"NGP fused plain with 3xTF32 products (emulated), "
+                      f"{tag}: {describe(agreement(emu, out_p, NGP_BOUNDS))}")
+            del out_p
+        last = (x, sh)
+    ngp_16_levels(*last)
     return res
+
+
+def ngp_16_levels(x, sh) -> None:
+    """The fused f32 arm on a 16-level network (configs/nerf/lego_ngp.yaml:
+    32 encoded features, W=64, degree-4 SH) with seeded random weights and a
+    table drawn from U(-1, 1), on the points ``x`` and SH ``sh`` of a real
+    chunk: against its plain version, with both bounds."""
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.ops import eval_encode, fused_ngp
+
+    torch.manual_seed(0)
+    net = make_network(make_cfg(parse_args(list(NGP_16_LEVELS)))).cuda()
+    enc = net.xyz_encoder
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    packed = eval_encode.pack_eval_table(
+        torch.empty_like(enc.table).uniform_(-1, 1, generator=gen))
+    ops, meta = fused_ngp.extract_mlp_weights(
+        net.fine.state_dict(), enc.output_dim, net.fine.depth,
+        net.fine.skips, 1)
+    runs, f32_ops = ngp_runs(enc.layout, packed, ops, meta, x, sh)
+    check_ngp_kernel("fused", runs, f32_ops,
+                     f"16 levels ({enc.output_dim} features, "
+                     f"{enc.layout.n_rows} table rows, random) N={x.shape[0]}")
+    del net
 
 
 def phase_ngp(views, profile: bool) -> dict:
@@ -969,24 +1080,34 @@ def phase_ngp(views, profile: bool) -> dict:
     if abs(fused["psnr"] - NGP_JAX_PSNR_DB) > PSNR_BUDGET_DB:
         fail(f"NGP PSNR {fused['psnr']:.4f} dB is not within "
              f"{PSNR_BUDGET_DB} dB of {NGP_JAX_PSNR_DB} dB")
+    renderer = build_renderer(cfg, net)
+    device_ms = {"fused": profile_runs(lambda: renderer.render(views[0]), 1,
+                                       "frame", "ngp_fused_frame", warm=1)}
     if profile:
-        renderer = build_renderer(cfg, net)
         profile_runs(lambda: renderer.render(views[0]), NGP_PROFILE_FRAMES,
                      "frame", "ngp_fused")
-        del renderer
+    del renderer
 
-    # (c) view 0 through the unfused route and the plain route
-    unfused = make_renderer(cfg, net).use_apply(
-        ngp_renderer.make_ngp_eval_apply(net, fused=False))
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rgb = unfused.render(views[0])[0]
-    torch.cuda.synchronize()
-    routes = {"unfused": (rgb.cpu().numpy(), time.perf_counter() - t0,
-                          read_counts(), {"ngp_enc": 2 * chunks,
-                                          "mlp": 2 * chunks})}
-    del net, unfused
+    # (c) view 0 through the fused kernel's bf16 arm, the unfused route and
+    # the plain route
+    routes = {}
+    for route, apply, nonzero in (
+            ("bf16", ngp_renderer.make_ngp_eval_apply(net, mlp_bf16=True),
+             {"ngp_bf16": 2 * chunks}),
+            ("unfused", ngp_renderer.make_ngp_eval_apply(net, fused=False),
+             {"ngp_enc": 2 * chunks, "mlp": 2 * chunks})):
+        renderer = make_renderer(cfg, net).use_apply(apply)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb = renderer.render(views[0])[0]
+        torch.cuda.synchronize()
+        routes[route] = (rgb.cpu().numpy(), time.perf_counter() - t0,
+                         read_counts(), nonzero)
+        device_ms[route] = profile_runs(lambda: renderer.render(views[0]), 1,
+                                        "frame", f"ngp_{route}_frame", warm=1)
+        del renderer
+    del net
     cfg_plain = make_cfg(parse_args(NGP_ARGV + ["network.use_pallas_mlp",
                                                 "False"]))
     reset_counts()
@@ -994,20 +1115,24 @@ def phase_ngp(views, profile: bool) -> dict:
     routes["plain"] = (plain["rgb"][0], plain["net_time"][0], read_counts(),
                        {"module": 2 * chunks, "mlp": 2 * chunks,
                         "brick_fwd": 2 * chunks})
+    print(f"NGP device busy ms a frame of view 0 (one profiled frame): "
+          f"{ {k: round(v, 2) for k, v in device_ms.items()} }")
     for route, (image, seconds, counts, nonzero) in routes.items():
         vs_fused = psnr_uint8(image, fused["rgb"][0])
+        floor = NGP_BF16_MIN_DB if route == "bf16" else NGP_ROUTES_MIN_DB
         print(f"NGP {route} route, view 0: PSNR vs the fused render "
-              f"{vs_fused:.2f} dB (>= {NGP_ROUTES_MIN_DB}), vs GT "
+              f"{vs_fused:.2f} dB (>= {floor}), vs GT "
               f"{psnr_uint8(image, views[0]['colors']):.4f} dB, frame "
               f"{seconds:.4f} s against {fused['net_time'][0]:.4f} s fused, "
               f"counts {counts}")
         if counts != dict.fromkeys(counts, 0) | nonzero:
             fail(f"the NGP {route} route did not run its own path: {counts}")
-        if vs_fused < NGP_ROUTES_MIN_DB:
+        if vs_fused < floor:
             fail(f"the NGP {route} render is {vs_fused:.2f} dB from the "
                  f"fused render")
     torch.cuda.empty_cache()
     res["launches"] = {"fused": fused_counts["ngp"],
+                       "fused_bf16": routes["bf16"][2]["ngp_bf16"],
                        "encode": routes["unfused"][2]["ngp_enc"]}
     return res
 
@@ -1099,6 +1224,28 @@ def brick_real_batch(log2_bricks: int, arrays):
     return net, sorted(seen, key=lambda xg: xg[0].shape[0])
 
 
+def merged_share(layout, x) -> tuple:
+    """What the table gradient's warp merge makes of its (address, value)
+    pairs: a warp takes 32 consecutive points at one level and merges, for
+    each pair of corners c, c + 1 (dz = 0, 1), the lanes whose cells
+    coincide. Returns the share of pairs folded into another lane's add,
+    and the atomic operations issued over the pairs (a float2 add for both
+    corners of a feature where corner c's index is even, else two)."""
+    from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
+
+    n = x.shape[0]
+    warp = torch.arange(n, device=x.device) // 32
+    kept = ops = total = 0
+    zeros = torch.zeros(n, 2 * len(layout.scales), device=x.device)
+    for k, (index, _) in enumerate(hk._corner_updates(layout, x, zeros)):
+        total += n
+        if k % 4 == 0:    # feature 0 of corner c, dz = 0 (c + 1, feature 1
+            keys = torch.unique(warp * 2 ** 32 + index)      # merge alike)
+            kept += 4 * keys.numel()
+            ops += int((2 + 2 * (keys % 2)).sum())
+    return 1.0 - kept / total, ops / total
+
+
 def brick_kernels_against_plain(log2_bricks: int, arrays) -> dict:
     """Phase 7 (a) at one brick cap: the training forward and the table
     gradient against their plain versions on a real batch; returns, per
@@ -1148,6 +1295,7 @@ def brick_kernels_against_plain(log2_bricks: int, arrays) -> dict:
         flat = torch.zeros(layout.n_rows * hk.ROW, device="cuda")
         scatter_ms = cuda_ms(lambda: flat.index_add_(0, index, value), 5)
         del index, value, flat
+        merged, ops = merged_share(layout, x)
         print(f"brick training forward vs plain, {tag}: bit-equal {equal}, "
               f"max_abs_err {fwd_err:.3e}; plain with the table read in f32 "
               f"differs by {float((out_c - out_p).abs().max()):.3e} | kernel "
@@ -1160,7 +1308,9 @@ def brick_kernels_against_plain(log2_bricks: int, arrays) -> dict:
               f"{bounds['bwd']['bound_ms']:.4f} ms by "
               f"{bounds['bwd']['bound_by']}), plain {ms['bwd'][1]:.3f} ms; "
               f"one index_add_ over the same {16 * len(rows) * n} pairs "
-              f"{scatter_ms:.3f} ms")
+              f"{scatter_ms:.3f} ms; the warp merge folds {merged:.1%} of "
+              f"them into another lane's add, and the kernel issues "
+              f"{ops:.1%} as many atomic operations (float2 pairs)")
         if not equal or not bool(torch.isfinite(out_k).all()):
             fail(f"the brick training forward differs from plain, {tag}")
         if torch.equal(out_c, out_p):
@@ -1177,6 +1327,7 @@ def brick_kernels_against_plain(log2_bricks: int, arrays) -> dict:
         for kind, err in (("fwd", fwd_err), ("bwd", a["max_abs_err"])):
             res[kind].append(dict(n=n, err=err, ms=ms[kind][0],
                                   plain_ms=ms[kind][1], **bounds[kind]))
+        res["bwd"][-1]["library_ms"] = scatter_ms
     del net
     torch.cuda.empty_cache()
     return res
@@ -1556,8 +1707,9 @@ def main(argv=None):
 
     def entry(name, source, replaces, launches, readings):
         """One kernel of the summary: its last reading (its largest size
-        on its path); no single PyTorch call computes any of these
-        functions, so library_ms is null."""
+        on its path); library_ms is the one PyTorch call that computes the
+        same function, where there is one (index_add_ for the table
+        gradient), else null."""
         big = readings[-1]
         return {"name": name, "route": "cuda",
                 "source": f"nerf_replication_tpu_torch/csrc/{source}",
@@ -1566,7 +1718,7 @@ def main(argv=None):
                 "max_abs_err": max(r["err"] for r in readings),
                 "ms": big["ms"], "plain_ms": big["plain_ms"],
                 "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-                "library_ms": None}
+                "library_ms": big.get("library_ms")}
 
     def probe_entry(name):
         """One probe: its last reading (the contended one for the atomic
@@ -1595,6 +1747,9 @@ def main(argv=None):
               ngp["encode"]),
         entry("fused_ngp_eval", "fused_ngp.cu", "fused_ngp.py:258",
               ngp["launches"]["fused"], ngp["fused"]),
+        entry("fused_ngp_eval_bf16", "fused_ngp.cu",
+              "fused_ngp.py:258 (mlp_bf16)", ngp["launches"]["fused_bf16"],
+              ngp["fused_bf16"]),
         entry("brick_hash_encode", "brick_hash_encode.cu",
               "hashgrid_kernel.py:311", brick["launches"]["fwd"],
               brick["fwd"]),

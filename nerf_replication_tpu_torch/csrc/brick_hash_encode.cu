@@ -11,29 +11,34 @@
 // gather, and _bwd_kernel, which scatters the per-corner updates into a
 // contribution row and adds it by the transposed one-hot matmul or a
 // serial read-modify-write, race-free on its single-threaded grid. None of
-// that carries over: here a thread takes one (point, level), the level
-// running fastest, and reads 16 four-byte entries of the f32 parameter
-// table (8 corners x 2 features) or adds 16 with atomicAdd.
+// that carries over. The forward gives a thread one (point, level), the
+// level running fastest, and reads 16 four-byte entries of the f32
+// parameter table (8 corners x 2 features). The backward gives a warp 32
+// consecutive points at one level and adds with atomicAdd (float2 for a
+// pair of neighbouring corners where it can) after merging, within the
+// warp, the contributions that go to one address.
 //
 // Numerics are the TPU kernels': on the levels flagged in bf16_levels (at
 // most 4096 rows) the forward rounds each table read to bf16 and the
-// backward rounds each contribution w * g to bf16, both to nearest even;
-// the other levels stay f32; weights and sums are f32. Products and sums
-// are rounded one by one in the plain version's order (brick_encode.cuh),
-// so the forward equals ops/hashgrid_kernel.brick_encode_reference bit for
-// bit. The backward's atomic sums come in an order that differs from run
-// to run: it agrees with the plain backward to f32 summation order and is
-// not bit-reproducible.
+// backward rounds each contribution w * g to bf16 (before any merge), both
+// to nearest even; the other levels stay f32; weights and sums are f32.
+// Products and sums are rounded one by one in the plain version's order
+// (brick_encode.cuh), so the forward equals
+// ops/hashgrid_kernel.brick_encode_reference bit for bit. The backward's
+// atomic sums come in an order that differs from run to run: it agrees with
+// the plain backward to f32 summation order and is not bit-reproducible.
 //
 // What bounds them: 12 bytes a point in, 8 bytes a level out (forward) or
 // in (backward), the touched table entries read or written once and, for
 // the backward, the zeroing of the whole dtable, against 57 f32 operations
 // a level: device-memory bytes. The design spends far more than that: each
 // corner is its own 4-byte access that the L2 serves (the hard_ngp table is
-// 35 MB of the 50 MB L2), and on the coarse levels many points add to one
-// address (level 0 of hard_ngp has 8000 live addresses a feature).
-// Interleaving the levels across neighbouring threads spreads those
-// collisions over the run; a shared-memory pre-reduction is not done.
+// 35 MB of the 50 MB L2). The backward's first version issued one atomicAdd
+// a contribution (22.0M on a 114,688-point batch) and ran at the rate of
+// one index_add_ over them: the count of atomics, not their contention, set
+// its time. Points come ray-major, so on the coarse levels neighbouring
+// samples of one ray share a cell: the warp merge removes those atomics,
+// and a float2 atomic adds two corners at once where they are aligned.
 
 #include <cuda_bf16.h>
 
@@ -83,30 +88,89 @@ brick_hash_encode_fwd_kernel(const float* __restrict__ x,
   reinterpret_cast<float2*>(out)[t] = make_float2(f0, f1);
 }
 
+// Sums v over the lanes of `peers` (the lanes that add to this lane's
+// addresses, this one among them) into the group's lowest lane: a pairwise
+// tree over the group's lanes in lane order, log2(group size) rounds of
+// shuffles. Every lane of the warp takes part.
+__device__ __forceinline__ void merge_peers(unsigned peers, int lane,
+                                            float (&v)[4]) {
+  int rank = __popc(peers & ((1u << lane) - 1u));   // peers below this lane
+  peers &= ~((2u << lane) - 1u);                    // peers above it
+  while (__any_sync(0xffffffffu, peers != 0)) {
+    const int next = __ffs(peers) - 1;              // the next peer, or -1
+    float t[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      t[k] = __shfl_sync(0xffffffffu, v[k], next & 31);
+    if (next >= 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] += t[k];
+    }
+    // the odd ranks have handed their sums on: drop them from every mask
+    peers &= __ballot_sync(0xffffffffu, (rank & 1) == 0);
+    rank >>= 1;
+  }
+}
+
+// A warp takes 32 consecutive points at one level (blockIdx.y). Points come
+// ray-major, so on the coarse levels neighbouring samples of a ray fall in
+// one cell. Corners c and c + 1 (dz = 0, 1) sit on neighbouring lanes of a
+// row, so they go together: per pair, the lanes that add to the same
+// addresses are found (__match_any_sync), their contributions summed by
+// shuffles, and one lane a group adds them, as one float2 atomicAdd a
+// feature where the pair is 8-byte aligned, else as two.
 __global__ void __launch_bounds__(kThreads)
 brick_hash_encode_bwd_kernel(const float* __restrict__ x,
                              const float* __restrict__ g, long long g_stride0,
                              long long g_stride1, float* __restrict__ dtable,
-                             int n, const brick::Levels lv, int n_levels,
+                             int n, const brick::Levels lv,
                              uint32_t bf16_levels) {
-  const long long t = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (t >= static_cast<long long>(n) * n_levels) return;
-  const int i = static_cast<int>(t / n_levels);
-  const int l = static_cast<int>(t - static_cast<long long>(i) * n_levels);
-  const float p[3] = {x[3 * i], x[3 * i + 1], x[3 * i + 2]};
-  const brick::Cell cell =
-      brick::locate(p, lv.res[l], lv.offset[l], lv.bside[l], lv.hash_mask[l]);
-  float* __restrict__ row =
-      dtable + static_cast<size_t>(cell.row) * kRow + cell.lane;
-  const float* gi = g + i * g_stride0 + 2 * l * g_stride1;
-  const float g0 = gi[0], g1 = gi[g_stride1];
+  const int l = blockIdx.y;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool live = i < n;   // the others take part in the warp's merges
+  brick::Cell cell{};
+  float g0 = 0.0f, g1 = 0.0f;
+  if (live) {
+    const float p[3] = {x[3 * i], x[3 * i + 1], x[3 * i + 2]};
+    cell = brick::locate(p, lv.res[l], lv.offset[l], lv.bside[l],
+                         lv.hash_mask[l]);
+    const float* gi = g + i * g_stride0 + 2 * l * g_stride1;
+    g0 = gi[0];
+    g1 = gi[g_stride1];
+  }
   const bool bf16 = (bf16_levels >> l) & 1u;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float w = brick::corner_weight(cell, c);
-    const float c0 = __fmul_rn(w, g0), c1 = __fmul_rn(w, g1);
-    atomicAdd(row + brick::corner_lane(c), bf16 ? round_bf16(c0) : c0);
-    atomicAdd(row + 128 + brick::corner_lane(c), bf16 ? round_bf16(c1) : c1);
+  for (int c = 0; c < 8; c += 2) {
+    // feature 0 of corners c, c + 1, then feature 1 of both
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    uint32_t at = 0xffffffffu;   // corner c's feature-0 index in dtable
+    if (live) {
+      const float w0 = brick::corner_weight(cell, c);
+      const float w1 = brick::corner_weight(cell, c + 1);
+      v[0] = __fmul_rn(w0, g0);
+      v[1] = __fmul_rn(w1, g0);
+      v[2] = __fmul_rn(w0, g1);
+      v[3] = __fmul_rn(w1, g1);
+      if (bf16) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = round_bf16(v[k]);
+      }
+      at = cell.row * kRow + cell.lane + brick::corner_lane(c);
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, at);
+    merge_peers(peers, lane, v);
+    const bool leader = live && (peers & ((1u << lane) - 1u)) == 0;
+    if (leader && (at & 1u) == 0) {
+      atomicAdd(reinterpret_cast<float2*>(dtable + at), make_float2(v[0], v[1]));
+      atomicAdd(reinterpret_cast<float2*>(dtable + at + 128),
+                make_float2(v[2], v[3]));
+    } else if (leader) {
+      atomicAdd(dtable + at, v[0]);
+      atomicAdd(dtable + at + 1, v[1]);
+      atomicAdd(dtable + at + 128, v[2]);
+      atomicAdd(dtable + at + 129, v[3]);
+    }
   }
 }
 
@@ -139,15 +203,18 @@ int brick_hash_encode_bwd(const float* x, const float* g, long long g_stride0,
                           long long table_floats, int n,
                           const brick::Levels* levels, int n_levels,
                           uint32_t bf16_levels, void* stream) {
-  if (n_levels < 1 || n_levels > brick::kMaxLevels)
+  // 32-bit table indices: the merge keys
+  if (n_levels < 1 || n_levels > brick::kMaxLevels ||
+      table_floats >= 0xffffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       cudaMemsetAsync(dtable, 0, static_cast<size_t>(table_floats) * 4, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return 0;
-  brick_hash_encode_bwd_kernel<<<blocks_for(n, n_levels), kThreads, 0, s>>>(
-      x, g, g_stride0, g_stride1, dtable, n, *levels, n_levels, bf16_levels);
+  const dim3 grid((n + kThreads - 1) / kThreads, n_levels);
+  brick_hash_encode_bwd_kernel<<<grid, kThreads, 0, s>>>(
+      x, g, g_stride0, g_stride1, dtable, n, *levels, bf16_levels);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,8 @@ nerf_replication_tpu/models/nerf/renderer/ngp_renderer.py:71-172.
 It routes a brick hash-grid network's eval calls through the CUDA kernels:
 with ``fused`` (the default) the whole field goes through
 ``fused_ngp_eval`` (encode + MLP in one kernel, SH computed per ray and
-broadcast per point); without it (the JAX package's ``NGP_FUSED=0``) the
+broadcast per point), in f32 or, with ``mlp_bf16`` (the JAX package's
+``NGP_FUSED_BF16=1``), on bf16 operands; without it (``NGP_FUSED=0``) the
 encode goes through ``brick_encode_eval`` and the branch's ``nn.Module``
 MLP runs on its features. The JAX package falls back to the unfused chain
 where its fused TPU kernel does not fit; here a network the fused kernel
@@ -31,13 +32,13 @@ def unsupported(net) -> str | None:
     if not net.use_viewdirs:
         return "a network without view directions"
     for mlp in (net.coarse, net.fine):
-        reason = fused_ngp.unsupported_mlp(
-            mlp.width, net.xyz_encoder.output_dim, net.dir_encoder.output_dim,
-            mlp.depth, mlp.view_depth)
-        if reason is not None:
-            return reason
         if not all(0 <= s < mlp.depth for s in mlp.skips):
             return f"skips {list(mlp.skips)} outside depth {mlp.depth}"
+        reason = fused_ngp.unsupported_mlp(
+            mlp.width, net.xyz_encoder.output_dim, net.dir_encoder.output_dim,
+            mlp.depth, mlp.view_depth, tuple(mlp.skips))
+        if reason is not None:
+            return reason
     return None
 
 
@@ -52,14 +53,17 @@ def fused_inputs(net, pts, viewdirs):
     return x, sh.reshape(-1, n_sh).contiguous()
 
 
-def make_ngp_eval_apply(net, fused: bool = True):
+def make_ngp_eval_apply(net, fused: bool = True, mlp_bf16: bool = False):
     """Eval ``apply_fn(pts, viewdirs, model)`` for a brick-NGP ``net`` (a
     port Network), with the table packed and the weights baked now; on a
     CUDA network the kernel is built now, so a failed build raises. None
     when ``net`` is not a brick-NGP network; with ``fused`` a network the
-    fused kernel does not cover raises (``unsupported`` says why)."""
+    fused kernel does not cover raises (``unsupported`` says why).
+    ``mlp_bf16`` takes the fused kernel's bf16 arm."""
     if not is_brick_ngp(net):
         return None
+    if mlp_bf16 and not fused:
+        raise ValueError("mlp_bf16 is an arm of the fused kernel")
     enc = net.xyz_encoder
     layout = enc.layout
     packed = eval_encode.pack_eval_table(enc.table.detach())
@@ -95,7 +99,8 @@ def make_ngp_eval_apply(net, fused: bool = True):
     def apply_fused(pts, viewdirs, model=""):
         x, sh = fused_inputs(net, pts, viewdirs)
         ops, meta = weights["fine" if model == "fine" else "coarse"]
-        raw = fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh)
+        raw = fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh,
+                                       mlp_bf16)
         return raw.reshape(*pts.shape[:-1], 4)
 
     return apply_fused

@@ -14,6 +14,7 @@ import torch
 
 import chip_smoke
 from nerf_replication_tpu_torch.config import make_cfg, parse_args
+from nerf_replication_tpu_torch.models import make_network
 from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
 from nerf_replication_tpu_torch.ops import (
     eval_encode,
@@ -264,13 +265,17 @@ def _ngp_inputs(net, n, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 127, 128, 129, 1000])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 65, 127, 128, 129, 1000])
 def test_ngp_kernels_match_plain_versions(cuda, monkeypatch, n):
-    """The brick encode (TPU kernels #8/#9) and the fused encode+MLP (#10)
-    on the trained hard_ngp_b9 network at ragged point counts around the
-    128-thread block. The encode rounds as its plain version does: bit
-    for bit. The fused MLP differs only in f32 summation order: within
-    1e-5 of each column's range (chip_smoke.py read <= 7.2e-7)."""
+    """The brick encode (TPU kernels #8/#9) and both arms of the fused
+    encode+MLP (#10) on the trained hard_ngp_b9 network, and the f32 arm on
+    a random 16-level network, at ragged point counts around the fused
+    kernel's 32-point warp tile and its 256-point block. The encode rounds
+    as its plain version does: bit for bit. The f32 arm (3xTF32) differs
+    from its plain version by f32 rounding: within 1e-5 of each column's
+    range (chip_smoke.py read <= 7.2e-7 with the first kernel); the bf16
+    arm by where the f32 summation order flips a bf16 rounding: within
+    chip_smoke.py's NGP_BF16_BOUNDS.col_rtol."""
     _, net = _ngp(monkeypatch, cuda)
     layout = net.xyz_encoder.layout
     packed = eval_encode.pack_eval_table(net.xyz_encoder.table.detach())
@@ -282,18 +287,31 @@ def test_ngp_kernels_match_plain_versions(cuda, monkeypatch, n):
     assert feats.shape == (n, 24)
     assert torch.equal(
         feats, eval_encode.brick_encode_eval_reference(layout, packed, x))
-    for mlp in (net.coarse, net.fine):
+    torch.manual_seed(n)
+    lego = make_network(make_cfg(parse_args(list(
+        chip_smoke.NGP_16_LEVELS)))).to(cuda)
+    packed16 = eval_encode.pack_eval_table(torch.empty_like(
+        lego.xyz_encoder.table).uniform_(-1, 1, generator=torch.Generator(
+            device=cuda).manual_seed(n)))
+    cases = [(net, layout, packed, mlp, mlp_bf16) for mlp in (net.coarse,
+                                                             net.fine)
+             for mlp_bf16 in (False, True)]
+    cases.append((lego, lego.xyz_encoder.layout, packed16, lego.fine, False))
+    for model, lay, table, mlp, mlp_bf16 in cases:
         ops, meta = fused_ngp.extract_mlp_weights(
-            mlp.state_dict(), 24, mlp.depth, mlp.skips, mlp.view_depth)
-        launches = fused_ngp.fused_ngp_eval.launches
-        out = fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh)
+            mlp.state_dict(), model.xyz_encoder.output_dim, mlp.depth,
+            mlp.skips, mlp.view_depth)
+        count = "bf16_launches" if mlp_bf16 else "launches"
+        launches = getattr(fused_ngp.fused_ngp_eval, count)
+        out = fused_ngp.fused_ngp_eval(lay, meta, table, ops, x, sh, mlp_bf16)
         torch.cuda.synchronize()
-        assert fused_ngp.fused_ngp_eval.launches == launches + 1
-        ref = fused_ngp.fused_ngp_eval_reference(layout, meta, packed, ops,
-                                                 x, sh)
+        assert getattr(fused_ngp.fused_ngp_eval, count) == launches + 1
+        ref = fused_ngp.fused_ngp_eval_reference(lay, meta, table, ops, x,
+                                                 sh, mlp_bf16)
         scale = ref.abs().amax(dim=0).clamp_min(1.0)
         assert out.shape == (n, 4) and bool(torch.isfinite(out).all())
-        assert float(((out - ref).abs() / scale).max()) <= 1e-5
+        tol = chip_smoke.NGP_BF16_BOUNDS.col_rtol if mlp_bf16 else 1e-5
+        assert float(((out - ref).abs() / scale).max()) <= tol
 
 
 @pytest.mark.cuda
@@ -333,27 +351,44 @@ def test_ngp_render_on_gpu_matches_cpu_plain_render(cuda, monkeypatch):
     torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=1e-4, rtol=0)
 
 
+def _merge_points(net, kind, device):
+    """256 points that put the table gradient's warp merge to work: every
+    lane of every warp on one point ("one point": every corner merges
+    across all 32 lanes), or lanes alternating between two points at
+    opposite corners of the scene, in different bricks on every level
+    ("two bricks")."""
+    x, _ = _ngp_inputs(net, 2, seed=0, device=device)
+    rows = [0] * 256 if kind == "one point" else [0, 1] * 128
+    return x[rows].contiguous()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("log2_bricks", [9, 13])
-@pytest.mark.parametrize("n", [1, 255, 256, 257, 3000])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 3000, "one point",
+                               "two bricks"])
 def test_brick_training_kernels_match_plain_versions(cuda, monkeypatch, n,
                                                      log2_bricks):
     """The training forward (TPU kernel #6) and the table gradient (#7) at
-    ragged point counts around the 256-thread block, on the trained
-    hard_ngp_b9 table (every level on the bf16 branch) and on a random
-    table of the ``log2_bricks`` 13 layout (seven f32 levels). The forward
-    rounds as its plain version does: bit for bit. The gradient's atomic
-    f32 sums against the plain backward summed in f64: every level within
-    chip_smoke.py's 1e-5 of its max |gradient|, the padding exactly zero,
-    and the same from a gradient that is not contiguous."""
+    ragged point counts around the 256-thread block, and on point sets
+    that merge contributions across a warp's lanes (``_merge_points``), on
+    the trained hard_ngp_b9 table (every level on the bf16 branch) and on a
+    random table of the ``log2_bricks`` 13 layout (seven f32 levels). The
+    forward rounds as its plain version does: bit for bit. The gradient's
+    merged atomic f32 sums against the plain backward summed in f64: every
+    level within chip_smoke.py's 1e-5 of its max |gradient|, the padding
+    exactly zero, and the same from a gradient that is not contiguous."""
     _, net = _ngp(monkeypatch, cuda)
+    if isinstance(n, str):
+        x = _merge_points(net, n, cuda)
+        n = x.shape[0]
+    else:
+        x, _ = _ngp_inputs(net, n, seed=n, device=cuda)
     if log2_bricks == 9:
         layout, table = net.xyz_encoder.layout, net.xyz_encoder.table.detach()
     else:
         layout = hashgrid_kernel.make_brick_layout(12, 16, 512, log2_bricks)
         table = torch.empty(layout.n_rows, 256, device=cuda).uniform_(
             -1, 1, generator=torch.Generator(device=cuda).manual_seed(n))
-    x, _ = _ngp_inputs(net, n, seed=n, device=cuda)
     g = torch.randn(n, 24, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(n))
     counts = (hashgrid_kernel.brick_hash_encode.launches,

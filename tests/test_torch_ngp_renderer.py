@@ -208,8 +208,9 @@ def test_ngp_smoke_check_sees_precision_faults(b9_net, variant):
     """chip_smoke.py's phase-6 check on the CPU, b9 network, 4096 points of
     the unit cube and SH of random directions: it accepts the fused plain
     version with its MLP products in f64 (another rounding, as the
-    kernel's fmaf chains are) and rejects the controls that read the
-    table in f32 or multiply in bf16 (the TF32 control needs a card)."""
+    kernel's 3xTF32 products are) and rejects the controls that read the
+    table in f32 or multiply in bf16, and the f32 arm held to the bf16
+    arm's check (the TF32 control needs a card)."""
     _, net = b9_net
     g = np.random.default_rng(11)
     x = torch.from_numpy(g.uniform(0, 1, (4096, 3)).astype(np.float32))
@@ -222,7 +223,9 @@ def test_ngp_smoke_check_sees_precision_faults(b9_net, variant):
     plains = {
         "encode": lambda: eval_encode.brick_encode_eval(layout, packed, x),
         "fused": lambda: fused_ngp.fused_ngp_eval(layout, meta, packed, ops,
-                                                  x, sh)}
+                                                  x, sh),
+        "fused_bf16": lambda: fused_ngp.fused_ngp_eval(
+            layout, meta, packed, ops, x, sh, mlp_bf16=True)}
     with torch.no_grad():
         if variant.startswith("f64"):
             f64 = lambda a, b: (a.double() @ b.double()).float()  # noqa: E731
@@ -235,7 +238,9 @@ def test_ngp_smoke_check_sees_precision_faults(b9_net, variant):
             target, control = chip_smoke.NGP_CONTROLS[variant]
             out = control(net.xyz_encoder, x, plains[target])
             a = chip_smoke.agreement(out, plains[target](),
-                                     chip_smoke.NGP_BOUNDS)
+                                     chip_smoke.NGP_BF16_BOUNDS
+                                     if target == "fused_bf16"
+                                     else chip_smoke.NGP_BOUNDS)
             assert not a["ok"], a
 
 
