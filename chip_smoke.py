@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--steps 2000] [--profile 0]
+    python3 chip_smoke.py [--steps 2000] [--profile 0] [--first DIR]
 
 Phases (any failure exits non-zero):
 1. device and build: the card's name and power limit; builds the fused
@@ -47,7 +47,9 @@ Phases (any failure exits non-zero):
    ``--steps`` shortens the run for a quick check; ``--profile N``
    profiles N more steps of each arm with torch.profiler, and 5 frames of
    phase 6's fused route and N more steps of phase 7's kernel arm (tables
-   under build/).
+   under build/). ``--first DIR`` builds the brick gather kernels' first
+   designs from the csrc directory DIR and times them in phases 6 (a) and
+   7 (a) beside the present ones (:func:`build_first_designs`).
 6. NGP eval: configs/nerf/hard_ngp.yaml with data/pretrain/hard_ngp_b9
    (``network.xyz_encoder.log2_bricks 9``). (a) The brick-encode kernel and
    both arms of the fused encode+MLP kernel (f32 in 3xTF32, bf16) against
@@ -59,7 +61,13 @@ Phases (any failure exits non-zero):
    arm's products beside them; then the f32 arm on a 16-level network
    (configs/nerf/lego_ngp.yaml, seeded random weights and table) at the
    fine chunk's points; CUDA-event times beside each kernel's bound (the
-   f32 arm's at the TF32 and at the CUDA-core f32 rate). (b)
+   f32 arm's at the TF32 and at the CUDA-core f32 rate). The encode reads
+   the cell-corner table and must equal, bit for bit, its plain version
+   and the plain version from the packed table; beside its time (the
+   median of five rounds, with their spread) its time with the host's
+   issue time, the first design's, and the L2 sectors a (point, level) of
+   its design and of the first one on these points with the L2 rate they
+   imply. (b)
    ``run_evaluate`` on hard test views 0 and 4 at 800x800 through the fused
    route: mean uint8 PSNR against the JAX record 30.28 dB, SSIM, frame
    times, 2 fused launches a chunk and no other kernel or plain call, the
@@ -85,7 +93,9 @@ Phases (any failure exits non-zero):
    contributions on the bf16 levels, and with bf16 by truncation, must
    fail that check. CUDA-event times beside the bounds, the time of one
    ``index_add_`` over the same (address, value) pairs, and the share of
-   them that the kernel's warp merge folds away. (b) 2000 steps
+   them that the kernel's warp merge folds away; beside the forward's time
+   (median and spread) the same readings as in phase 6 (a), for the first
+   design's thread map and this one. (b) 2000 steps
    from a fresh init (seed 0) through the train CLI's ``train()``, four
    epochs, each after the first resumed from the checkpoint: rays/s, peak
    memory, 2 forward and 2 backward launches a step and no plain call,
@@ -100,15 +110,18 @@ Phases (any failure exits non-zero):
 8. the gather probes (scripts/probe_cuda_gather.py): row, element and
    lane gathers and atomic adds at two contention levels against PyTorch
    indexing, each with its time, the PyTorch call's and its byte bound.
-The last three lines are the card's name and power limit, the kernel
-summary (each kernel's launches on its path, error, times and bound) and
-the device, the last two as JSON.
+Every CUDA-event time is the median of five rounds after one warm-up
+call (``cuda_times``). The last three lines are the card's name and power
+limit, the kernel summary (each kernel's launches on its path, error,
+times and bound) and the device, the last two as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -256,12 +269,23 @@ def bound(n_bytes: float, n_ops, kind: str | None = None) -> dict:
 
 
 # Times of the first version of the 8x256 MLP kernels (wmma, 64-point
-# tiles, weights read from L2 by every block) at the same point counts, on
-# an NVIDIA H100 80GB HBM3 at 700 W: printed beside the present kernels'.
+# tiles, weights read from L2 by every block) and of the brick gather
+# kernels (the eval encode: a thread a point, 4-byte corner loads from the
+# packed table; the training forward: a thread a (point, level), the level
+# running fastest) at the same point counts, on an NVIDIA H100 80GB HBM3
+# at 700 W: printed beside the present kernels'. The brick kernels' are
+# their readings before the redesign (one round, no warm-up);
+# ``--first DIR`` times those designs in this run instead
+# (:func:`first_brick_design`).
 FIRST_VERSION_MS = {
     ("enc", 2_560_000): 24.77, ("enc", 7_680_000): 73.23,
     ("fwd", 65_536): 0.657, ("fwd", 196_608): 1.946,
-    ("bwd", 65_536): 3.470, ("bwd", 196_608): 9.887}
+    ("bwd", 65_536): 3.470, ("bwd", 196_608): 9.887,
+    ("encode", 384_000): 0.1053, ("encode", 896_000): 0.1987,
+    ("brick_fwd", 49_152): 0.0652, ("brick_fwd", 114_688): 0.0465}
+# kind ("encode", "brick_fwd") -> C function of the brick gather kernels'
+# first designs, built from ``--first DIR`` (:func:`build_first_designs`)
+FIRST_DESIGNS: dict = {}
 SMEM_LIMIT = 232_448   # dynamic shared memory a block may use on the card
 
 
@@ -273,6 +297,107 @@ def against_first(kind: str, n: int, reading: dict) -> str:
     return (f"{was}bound {reading['bound_ms']:.3f} ms by "
             f"{reading['bound_by']} ({reading['bound_ms'] / reading['ms']:.1%}"
             f" of it reached)")
+
+
+def build_first_designs(csrc) -> dict:
+    """Build the brick gather kernels' first designs from the csrc
+    directory ``csrc`` (the sources of commit 78b2f3b: ``git archive 78b2f3b
+    nerf_replication_tpu_torch/csrc | tar -x -C build/first``) into
+    build/first/, one nvcc each, all started together; their C interfaces
+    are the present kernels', the eval encode reading the packed table.
+    Returns kind -> C function, for ``FIRST_DESIGNS``."""
+    from nerf_replication_tpu_torch.ops import _build
+
+    out = os.path.join(ROOT, "build", "first")
+    os.makedirs(out, exist_ok=True)
+
+    def one(name):
+        lib = os.path.join(out, f"lib{name}.so")
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+                               os.path.join(csrc, f"{name}.cu")],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            fail(f"the first design's {name}.cu does not build:\n"
+                 f"{proc.stderr}")
+        return ctypes.CDLL(lib)
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        enc, fwd = pool.map(one, ("brick_encode_eval", "brick_hash_encode"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    enc.brick_encode_eval.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr]
+    fwd.brick_hash_encode_fwd.argtypes = [ptr, ptr, ptr, i32, ptr, i32,
+                                          ctypes.c_uint32, ptr]
+    return {"encode": enc.brick_encode_eval,
+            "brick_fwd": fwd.brick_hash_encode_fwd}
+
+
+def first_brick_design(kind: str, layout, table, x, ref) -> tuple:
+    """(ms, text) of the first design of brick kernel ``kind`` ("encode":
+    ``table`` the packed table; "brick_fwd": the f32 table) on the points
+    ``x``: with ``--first``, launched here, held bit for bit to ``ref``
+    and timed as the present kernel is; otherwise its reading in
+    FIRST_VERSION_MS (None where there is none for these points)."""
+    from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
+
+    n = x.shape[0]
+    launch = FIRST_DESIGNS.get(kind)
+    if launch is None:
+        ms = FIRST_VERSION_MS.get((kind, n))
+        return ms, (f"first design {ms} ms (its reading before the "
+                    f"redesign, one round); " if ms else "")
+    out = torch.empty_like(ref)
+    args = [x.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+            ctypes.byref(hk.kernel_levels(layout)), len(layout.scales)]
+    if kind == "brick_fwd":
+        args.append(hk._bf16_mask(layout))
+
+    def run():
+        err = launch(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"the first design's {kind} kernel failed to launch ({err})")
+
+    run()
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        fail(f"the first design's {kind} kernel differs from plain, N={n}")
+    times = cuda_times(run, 20)
+    return (times[TIMING_ROUNDS // 2],
+            f"first design, this run: bit-equal, {spread(times)}; ")
+
+
+def gather_sectors(layout, x, first: str, now: str) -> dict:
+    """The 32-byte L2 sectors a (point, level) of the points ``x`` costs:
+    in the table layout ``now`` with this design's thread map (a warp's
+    lanes are 32 consecutive points at one level), and in the first
+    design's layout ``first`` with its map (the same for the eval encode's
+    packed table; a thread a (point, level), the level running fastest,
+    for the training forward). Sectors are counted per warp-wide request,
+    as ``merged_share`` counts merges."""
+    from nerf_replication_tpu_torch.ops import brick_tile as bt
+
+    n, levels = x.shape[0], len(layout.scales)
+    first_units = (bt.warp_level_units if first == "packed"
+                   else bt.level_fastest_units)
+    res = {"lookups": n * levels}
+    for key, table, units in (("first", first, first_units),
+                              ("now", now, bt.warp_level_units)):
+        res[key] = bt.sectors_per_lookup(bt.corner_bytes(layout, x, table),
+                                         units(n, levels).to(x.device))
+    return res
+
+
+def describe_sectors(gathers: dict, ms: float, first_ms=None) -> str:
+    """Sectors a (point, level), now and in the first design, and the L2
+    rate they imply at this time and at the first design's time
+    ``first_ms``, where there is one for these points."""
+    def rate(sectors, t):
+        return sectors * 32 * gathers["lookups"] / (t * 1e-3) / 1e12
+
+    was = (f" (first design {rate(gathers['first'], first_ms):.2f} TB/s at "
+           f"its {first_ms} ms)" if first_ms else "")
+    return (f"L2 sectors a (point, level) {gathers['now']:.3f} (first design "
+            f"{gathers['first']:.3f} on these points), implied L2 rate "
+            f"{rate(gathers['now'], ms):.2f} TB/s{was}")
 
 
 def mlp_flops(mlp) -> int:
@@ -353,15 +478,60 @@ def control_plain(round_fn, *args) -> torch.Tensor:
         return mlp_kernel.fused_nerf_mlp_enc_reference(*args)
 
 
+TIMING_ROUNDS = 5
+SPIN_CYCLES_PER_S = 2e9   # the H100's clock, rounded up: a spin lasts long
+
+
+def cuda_times(fn, reps: int) -> list[float]:
+    """ms a call of ``fn`` in each of TIMING_ROUNDS rounds of ``reps``
+    calls, timed by CUDA events after one warm-up call; sorted. Before
+    each round the card spins (``torch.cuda._sleep``) for twice as long as
+    the host takes to issue the round, so the events time the launches
+    back to back and not the Python around them (a wrapper costs tens of
+    microseconds, as much as a 0.03 ms kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin_cycles = int(min(2 * reps * issue_s, 0.1) * SPIN_CYCLES_PER_S)
+    times = []
+    for _ in range(TIMING_ROUNDS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)
+
+
 def cuda_ms(fn, reps: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    """The median of :func:`cuda_times`."""
+    return cuda_times(fn, reps)[TIMING_ROUNDS // 2]
+
+
+def host_ms(fn, reps: int) -> float:
+    """ms a call of ``fn`` with the host's time to issue it: ``reps``
+    calls back to back on the host's clock, from a synchronized card to a
+    synchronized card. Where a kernel is shorter than its wrapper's
+    Python, this is what a call costs on the path."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def spread(times: list[float]) -> str:
+    return (f"median {times[TIMING_ROUNDS // 2]:.4f} ms (rounds "
+            f"{times[0]:.4f}-{times[-1]:.4f})")
 
 
 GRAD_CONTROLS = {
@@ -506,6 +676,7 @@ def _counters():
             mlp_kernel.fused_nerf_mlp_reference,
             mlp_train.fused_nerf_mlp_bwd_reference,
             eval_encode.brick_encode_eval_reference,
+            eval_encode.brick_encode_cells_reference,
             fused_ngp.fused_ngp_eval_reference,
             hashgrid_kernel.brick_encode_reference,
             hashgrid_kernel.brick_encode_bwd_reference)],
@@ -588,11 +759,11 @@ def phase_train_kernels(cfg, arrays) -> dict:
         times = {
             "fwd": (cuda_ms(lambda: mlp_kernel.fused_nerf_mlp(packed, x, v), 20),
                     cuda_ms(lambda: mlp_kernel.fused_nerf_mlp_reference(
-                        packed, x, v), 5)),
+                        packed, x, v), 1)),
             "bwd": (cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(
                         packed, x, v, g), 20),
                     cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd_reference(
-                        packed, x, v, g), 5))}
+                        packed, x, v, g), 1))}
         # the backward recomputes the forward, then forms the weight
         # gradients (a forward's products) and the deltas (a forward's
         # products less those of the input rows: no input gradients)
@@ -893,13 +1064,16 @@ NGP_CONTROLS = {
 }
 
 
-def ngp_runs(layout, packed, ops, meta, x, sh):
+def ngp_runs(layout, packed, ops, meta, x, sh, cells=None):
     """Phase 6's kernels on one set of points: name -> (kernel, plain,
     bytes each input read once and the output written once, operations by
     type, the check's bounds), and the f32 operations of the whole field.
     The fused f32 arm's operations are its 3xTF32 products (three TF32
     products a multiply-add) beside the encode's f32 ones; the f32
-    operations give its CUDA-core bound too."""
+    operations give its CUDA-core bound too. The encode is run only where
+    ``cells``, the cell-corner table of ``packed``, is given; its bytes are
+    counted from the packed table, the function's own input, as they were
+    for its first design."""
     from nerf_replication_tpu_torch.ops import (
         eval_encode,
         fused_ngp,
@@ -911,12 +1085,7 @@ def ngp_runs(layout, packed, ops, meta, x, sh):
     mlp_ops = n * fused_ngp.mlp_flops_per_point(ops)
     io = nbytes(x, packed) + 16 * n       # the (N, 4) f32 output
     fused_io = io + nbytes(sh, ops.flat)
-    return {
-        "encode": (lambda: eval_encode.brick_encode_eval(layout, packed, x),
-                   lambda: eval_encode.brick_encode_eval_reference(
-                       layout, packed, x),
-                   nbytes(x, packed) + 4 * n * 2 * len(layout.scales),
-                   {"f32": enc_ops}, NGP_BOUNDS),
+    runs = {
         "fused": (lambda: fused_ngp.fused_ngp_eval(layout, meta, packed, ops,
                                                    x, sh),
                   lambda: fused_ngp.fused_ngp_eval_reference(
@@ -928,33 +1097,53 @@ def ngp_runs(layout, packed, ops, meta, x, sh):
             lambda: fused_ngp.fused_ngp_eval_reference(
                 layout, meta, packed, ops, x, sh, mlp_bf16=True),
             fused_io, {"bf16": mlp_ops, "f32": enc_ops}, NGP_BF16_BOUNDS),
-    }, enc_ops + mlp_ops
+    }
+    if cells is not None:
+        runs["encode"] = (
+            lambda: eval_encode.brick_encode_eval(layout, cells, x),
+            lambda: eval_encode.brick_encode_cells_reference(layout, cells,
+                                                             x),
+            nbytes(x, packed) + 4 * n * 2 * len(layout.scales),
+            {"f32": enc_ops}, NGP_BOUNDS)
+    return runs, enc_ops + mlp_ops
 
 
-def check_ngp_kernel(name, runs, f32_ops, tag, reps=20) -> dict:
+def check_ngp_kernel(name, runs, f32_ops, tag, reps=20, oracle=None,
+                     gathers=None, first=None) -> dict:
     """One of :func:`ngp_runs`' kernels against its plain version: the
     check, CUDA-event times and bounds (the fused f32 arm's both), printed;
-    fails the run where they disagree. Returns the reading and the plain
-    output."""
+    fails the run where they disagree. The encode must equal its plain
+    version and ``oracle`` (the plain version from the packed table) bit
+    for bit; beside its time are printed its time with the host's issue
+    time, the first design's (``first``, from :func:`first_brick_design`)
+    and its sector counts ``gathers`` (:func:`gather_sectors`). Returns the
+    reading and the plain output."""
     kernel, plain, n_bytes, ops, bounds = runs[name]
     out_k, out_p = kernel(), plain()
     torch.cuda.synchronize()
     a = agreement(out_k, out_p, bounds)
-    ms_k, ms_p = cuda_ms(kernel, reps), cuda_ms(plain, 3)
+    times = cuda_times(kernel, reps)
+    ms_k, ms_p = times[TIMING_ROUNDS // 2], cuda_ms(plain, 1)
     b = bound(n_bytes, ops)
+    equal = torch.equal(out_k, out_p)
     extra = ""
     if name == "fused":
         b32 = bound(n_bytes, f32_ops, "f32")
         extra = (f"; CUDA-core f32 bound {b32['bound_ms']:.4f} ms "
                  f"({b32['bound_ms'] / ms_k:.1%} of it reached)")
         b = dict(b, f32_bound_ms=b32["bound_ms"])
+    if oracle is not None:
+        equal = equal and torch.equal(out_k, oracle)
+        extra += (f"; {spread(times)}, with the host's issue time "
+                  f"{host_ms(kernel, reps):.4f} ms a call; {first[1]}"
+                  f"{describe_sectors(gathers, ms_k, first[0])}")
     print(f"NGP {name} kernel vs plain, {tag}: {describe(a)}, bit-equal "
-          f"{torch.equal(out_k, out_p)} | kernel {ms_k:.4f} ms (bound "
+          f"{equal} | kernel {ms_k:.4f} ms (bound "
           f"{b['bound_ms']:.4f} ms by {b['bound_by']}, "
           f"{b['bound_ms'] / ms_k:.1%} of it reached{extra}; "
           f"{f32_ops / ms_k / 1e9:.1f} TFLOP/s of f32-equivalent work), "
           f"plain {ms_p:.3f} ms")
-    if not a["ok"]:
+    if not a["ok"] or (oracle is not None and not equal):
         fail(f"NGP {name} kernel disagrees with its plain version, {tag}")
     return dict(n=out_k.shape[0], err=a["max_abs_err"], ms=ms_k,
                 plain_ms=ms_p, **b), out_p
@@ -972,6 +1161,7 @@ def ngp_kernels_against_plain(cfg, net, view) -> dict:
     enc = net.xyz_encoder
     layout = enc.layout
     packed = eval_encode.pack_eval_table(enc.table.detach())
+    cells = eval_encode.pack_cell_table(packed)
     res = {"encode": [], "fused": [], "fused_bf16": []}
     for branch, (pts, viewdirs) in ngp_chunk_samples(cfg, net, view).items():
         mlp = getattr(net, branch)
@@ -979,10 +1169,18 @@ def ngp_kernels_against_plain(cfg, net, view) -> dict:
             mlp.state_dict(), enc.output_dim, mlp.depth, mlp.skips,
             mlp.view_depth)
         x, sh = ngp_renderer.fused_inputs(net, pts, viewdirs)
-        runs, f32_ops = ngp_runs(layout, packed, ops, meta, x, sh)
+        runs, f32_ops = ngp_runs(layout, packed, ops, meta, x, sh, cells)
         tag = f"{branch} N={x.shape[0]}"
+        oracle = eval_encode.brick_encode_eval_reference(layout, packed, x)
         for name in res:
-            reading, out_p = check_ngp_kernel(name, runs, f32_ops, tag)
+            if name == "encode":
+                reading, out_p = check_ngp_kernel(
+                    name, runs, f32_ops, tag, oracle=oracle,
+                    gathers=gather_sectors(layout, x, "packed", "cells"),
+                    first=first_brick_design("encode", layout, packed, x,
+                                             oracle))
+            else:
+                reading, out_p = check_ngp_kernel(name, runs, f32_ops, tag)
             res[name].append(reading)
             if branch != "coarse":
                 continue
@@ -1277,14 +1475,15 @@ def brick_kernels_against_plain(log2_bricks: int, arrays) -> dict:
         a = brick_bwd_agreement(layout, d_k, d_64, live)
         touched = hk.touched_entries(layout, x)
         flops = n * hk.encode_flops_per_point(layout)
-        ms = {"fwd": (cuda_ms(lambda: hk.brick_hash_encode(layout, table, x),
-                              20),
+        fwd_times = cuda_times(lambda: hk.brick_hash_encode(layout, table, x),
+                               20)
+        ms = {"fwd": (fwd_times[TIMING_ROUNDS // 2],
                       cuda_ms(lambda: hk.brick_encode_reference(layout, table,
-                                                                x), 3)),
+                                                                x), 1)),
               "bwd": (cuda_ms(lambda: hk.brick_hash_encode_bwd(layout, x, g),
                               20),
                       cuda_ms(lambda: hk.brick_encode_bwd_reference(
-                          layout, x, g), 3))}
+                          layout, x, g), 1))}
         # each input once, each output once: the points, the touched table
         # entries and the features; for the gradient also g, and the whole
         # dtable zeroed before the touched entries are written
@@ -1296,12 +1495,22 @@ def brick_kernels_against_plain(log2_bricks: int, arrays) -> dict:
         scatter_ms = cuda_ms(lambda: flat.index_add_(0, index, value), 5)
         del index, value, flat
         merged, ops = merged_share(layout, x)
+        gathers = gather_sectors(layout, x, "train", "train")
+        issue = host_ms(lambda: hk.brick_hash_encode(layout, table, x), 20)
+        # the first design's readings are of the config's layout
+        first_ms, first = (
+            first_brick_design("brick_fwd", layout, table, x, out_p)
+            if log2_bricks == NGP_LAYOUTS[0] or FIRST_DESIGNS else (None, ""))
         print(f"brick training forward vs plain, {tag}: bit-equal {equal}, "
               f"max_abs_err {fwd_err:.3e}; plain with the table read in f32 "
               f"differs by {float((out_c - out_p).abs().max()):.3e} | kernel "
-              f"{ms['fwd'][0]:.4f} ms (bound {bounds['fwd']['bound_ms']:.4f} "
-              f"ms by {bounds['fwd']['bound_by']}), plain {ms['fwd'][1]:.3f} "
-              f"ms; {touched} table entries touched")
+              f"{spread(fwd_times)} (bound {bounds['fwd']['bound_ms']:.4f} "
+              f"ms by {bounds['fwd']['bound_by']}, "
+              f"{bounds['fwd']['bound_ms'] / ms['fwd'][0]:.1%} of it "
+              f"reached), with the host's issue time {issue:.4f} ms a call, "
+              f"plain {ms['fwd'][1]:.3f} ms; {touched} table entries "
+              f"touched; {first}"
+              + describe_sectors(gathers, ms["fwd"][0], first_ms))
         print(f"brick table gradient vs plain summed in f64, {tag} (g "
               f"contiguous {g.is_contiguous()}): {describe_brick_bwd(a)} | "
               f"kernel {ms['bwd'][0]:.4f} ms (bound "
@@ -1526,6 +1735,9 @@ def main(argv=None):
                         help="profile this many more steps of each arm "
                              "and of the NGP kernel arm (and 5 fused NGP "
                              "frames)")
+    parser.add_argument("--first", metavar="DIR",
+                        help="csrc directory of the brick gather kernels' "
+                             "first designs, timed beside the present ones")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1559,7 +1771,12 @@ def main(argv=None):
     t0 = time.perf_counter()
     libs = ["fused_nerf_mlp", "fused_nerf_mlp_bwd", "brick_encode_eval",
             "fused_ngp", "brick_hash_encode", "probe_gather"]
-    _build.build_all(libs)   # one nvcc each, all started together
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        firsts = pool.submit(build_first_designs, opts.first) \
+            if opts.first else None
+        _build.build_all(libs)   # one nvcc each, all started together
+        if firsts is not None:
+            FIRST_DESIGNS.update(firsts.result())
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         log = _build.library_path(lib).with_suffix(".log")
@@ -1597,7 +1814,7 @@ def main(argv=None):
             torch.cuda.synchronize()
             a = agreement(out_k, out_p)
             ms_k = cuda_ms(lambda: kernel(*args), 5)
-            ms_p = cuda_ms(lambda: plain(*args), 2)
+            ms_p = cuda_ms(lambda: plain(*args), 1)
             tflops = mlp_kernel.flops_per_point(packed) * n / ms_k / 1e9
             checks[(n, branch)] = dict(
                 err=a["max_abs_err"], ms=ms_k, plain_ms=ms_p,

@@ -6,10 +6,13 @@
 // serve every kernel; encode_level() applies them to the packed eval table
 // of ops/pallas/eval_encode.py: one 32-bit word per brick vertex holds feature
 // 0's bf16 bits in its high half and feature 1's in its low half, so each
-// trilinear corner is one 4-byte load (8 a level). The TPU kernels fetch
-// whole brick rows, by one-hot matmuls on the MXU or by scalar row copies;
-// on the card a corner load is a gather that the L2 serves (the hard_ngp
-// table is 2.8 MB of the 50 MB L2).
+// trilinear corner is one 4-byte load (8 a level, over ~3.5 of the L2's
+// 32-byte sectors). encode_level_cells() reads the same words from the
+// cell-corner table, where a level's 8 corners are one sector. The TPU
+// kernels fetch whole brick rows, by one-hot matmuls on the MXU or by
+// scalar row copies; on the card a corner load is a gather that the L2
+// serves (the hard_ngp table is 2.8 MB of the 50 MB L2 packed, 11.3 MB as
+// cells).
 //
 // Every product and sum is rounded on its own (__fmul_rn / __fadd_rn, never
 // contracted into an FMA), in the order of the plain version in
@@ -98,6 +101,40 @@ __device__ __forceinline__ float2 encode_level(const float (&p)[3], float res,
   uint32_t bits[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) bits[c] = __ldg(row + corner_lane(c));
+  float f0 = 0.0f, f1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float w = corner_weight(cell, c);
+    f0 = __fadd_rn(f0, __fmul_rn(w, __uint_as_float(bits[c] & 0xFFFF0000u)));
+    f1 = __fadd_rn(f1, __fmul_rn(w, __uint_as_float(bits[c] << 16)));
+  }
+  return make_float2(f0, f1);
+}
+
+// The cell-corner table of ops/eval_encode.py (pack_cell_table): row r
+// holds, for each cell k = lx * 16 + ly * 4 + lz of brick r, the packed
+// words of its 8 corners (c = 0..7) at words 8k .. 8k + 7. A level's
+// corners are then one aligned 32-byte sector, two 16-byte loads.
+constexpr int kCellWords = 512;   // words per cell-table row
+
+// The in-brick cell k of a lane lx * 25 + ly * 5 + lz (each in 0..3):
+// lane - 9 lx - ly = lx * 16 + ly * 4 + lz.
+__device__ __forceinline__ int cell_index(int lane) {
+  const int lx = lane / 25;
+  return lane - 9 * lx - (lane - 25 * lx) / 5;
+}
+
+// encode_level() from the cell-corner table: the same words, weights,
+// products and sums in the same order, so the same bits.
+__device__ __forceinline__ float2 encode_level_cells(
+    const float (&p)[3], float res, int offset, int bside, uint32_t hash_mask,
+    const uint32_t* __restrict__ cells) {
+  const Cell cell = locate(p, res, offset, bside, hash_mask);
+  const uint4* __restrict__ at = reinterpret_cast<const uint4*>(
+      cells + static_cast<size_t>(cell.row) * kCellWords +
+      8 * cell_index(cell.lane));
+  const uint4 lo = __ldg(at), hi = __ldg(at + 1);
+  const uint32_t bits[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
   float f0 = 0.0f, f1 = 0.0f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {

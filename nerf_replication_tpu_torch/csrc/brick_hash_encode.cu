@@ -11,12 +11,13 @@
 // gather, and _bwd_kernel, which scatters the per-corner updates into a
 // contribution row and adds it by the transposed one-hot matmul or a
 // serial read-modify-write, race-free on its single-threaded grid. None of
-// that carries over. The forward gives a thread one (point, level), the
-// level running fastest, and reads 16 four-byte entries of the f32
-// parameter table (8 corners x 2 features). The backward gives a warp 32
-// consecutive points at one level and adds with atomicAdd (float2 for a
-// pair of neighbouring corners where it can) after merging, within the
-// warp, the contributions that go to one address.
+// that carries over. Both give a warp 32 consecutive points at one level.
+// The forward (the thread map of csrc/brick_tile.cuh) reads the 16 f32
+// entries of a (point, level) (8 corners x 2 features) of the parameter
+// table as corner pairs, stages its outputs in shared memory and stores
+// them coalesced. The backward adds with atomicAdd (float2 for a pair of
+// neighbouring corners where it can) after merging, within the warp, the
+// contributions that go to one address.
 //
 // Numerics are the TPU kernels': on the levels flagged in bf16_levels (at
 // most 4096 rows) the forward rounds each table read to bf16 and the
@@ -31,18 +32,29 @@
 // What bounds them: 12 bytes a point in, 8 bytes a level out (forward) or
 // in (backward), the touched table entries read or written once and, for
 // the backward, the zeroing of the whole dtable, against 57 f32 operations
-// a level: device-memory bytes. The design spends far more than that: each
-// corner is its own 4-byte access that the L2 serves (the hard_ngp table is
-// 35 MB of the 50 MB L2). The backward's first version issued one atomicAdd
-// a contribution (22.0M on a 114,688-point batch) and ran at the rate of
-// one index_add_ over them: the count of atomics, not their contention, set
-// its time. Points come ray-major, so on the coarse levels neighbouring
-// samples of one ray share a cell: the warp merge removes those atomics,
-// and a float2 atomic adds two corners at once where they are aligned.
+// a level: device-memory bytes. The gathers spend far more than that: the
+// L2 (the hard_ngp table is 35 MB of its 50 MB) serves them in 32-byte
+// sectors, and a (point, level)'s 16 entries span ~7 of them. The
+// forward's first design gave a thread one (point, level), the level
+// running fastest, so the lanes of a load spread over ~3 points and 12
+// levels and never shared a sector; now the lanes of a load are 32
+// consecutive points of one level, which share sectors on the coarse
+// levels, and a lane reads an 8-byte-aligned corner pair in one load. It
+// runs at the first design's speed (chip_smoke.py --first): the
+// SM's L1 had already served the first design's neighbouring points their
+// shared sectors. What sets the time is the table's layout, f0 and f1 of
+// a vertex 512 bytes apart: with the two side by side the same kernel ran
+// 1.4x faster, but #7, Adam's state and the checkpoint share the layout.
+// The backward's first version issued one atomicAdd a contribution (22.0M
+// on a 114,688-point batch) and ran at the rate of one index_add_ over
+// them: the count of atomics, not their contention, set its time. Points
+// come ray-major, so on the coarse levels neighbouring samples of one ray
+// share a cell: the warp merge removes those atomics, and a float2 atomic
+// adds two corners at once where they are aligned.
 
 #include <cuda_bf16.h>
 
-#include "brick_encode.cuh"
+#include "brick_tile.cuh"
 
 namespace {
 
@@ -53,28 +65,36 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__global__ void __launch_bounds__(kThreads)
-brick_hash_encode_fwd_kernel(const float* __restrict__ x,
-                             const float* __restrict__ table,
-                             float* __restrict__ out, int n,
-                             const brick::Levels lv, int n_levels,
-                             uint32_t bf16_levels) {
-  const long long t = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (t >= static_cast<long long>(n) * n_levels) return;
-  const int i = static_cast<int>(t / n_levels);
-  const int l = static_cast<int>(t - static_cast<long long>(i) * n_levels);
-  const float p[3] = {x[3 * i], x[3 * i + 1], x[3 * i + 2]};
+// Corners c and c + 1 (dz = 0, 1) of one feature: two neighbouring floats
+// of a row, at p and p + 1. Every lane loads the 8-byte-aligned float2
+// that holds p: where p is aligned that is the pair, one sector; where it
+// is not, its second value is corner c and one more 4-byte load reads
+// corner c + 1.
+__device__ __forceinline__ float2 corner_pair(const float* __restrict__ p) {
+  const bool odd = reinterpret_cast<uintptr_t>(p) & 4u;
+  const float2 v = __ldg(reinterpret_cast<const float2*>(
+      reinterpret_cast<uintptr_t>(p) & ~uintptr_t{7}));
+  return odd ? make_float2(v.y, __ldg(p + 1)) : v;
+}
+
+// Features (f0, f1) of level l at point p, from the f32 training table:
+// the plain version's reads, roundings, products and sums.
+__device__ __forceinline__ float2 train_level(const float (&p)[3], int l,
+                                              const float* __restrict__ table,
+                                              const brick::Levels& lv,
+                                              uint32_t bf16_levels) {
   const brick::Cell cell =
       brick::locate(p, lv.res[l], lv.offset[l], lv.bside[l], lv.hash_mask[l]);
   const float* __restrict__ row =
       table + static_cast<size_t>(cell.row) * kRow + cell.lane;
-  const bool bf16 = (bf16_levels >> l) & 1u;
   float v0[8], v1[8];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    v0[c] = __ldg(row + brick::corner_lane(c));
-    v1[c] = __ldg(row + 128 + brick::corner_lane(c));
+  for (int c = 0; c < 8; c += 2) {
+    const float2 a = corner_pair(row + brick::corner_lane(c));
+    const float2 b = corner_pair(row + 128 + brick::corner_lane(c));
+    v0[c] = a.x, v0[c + 1] = a.y, v1[c] = b.x, v1[c + 1] = b.y;
   }
+  const bool bf16 = (bf16_levels >> l) & 1u;
   float f0 = 0.0f, f1 = 0.0f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
@@ -84,8 +104,24 @@ brick_hash_encode_fwd_kernel(const float* __restrict__ x,
     f0 = __fadd_rn(f0, __fmul_rn(w, a));
     f1 = __fadd_rn(f1, __fmul_rn(w, b));
   }
-  // out[i, 2l .. 2l + 1]: neighbouring threads write neighbouring pairs
-  reinterpret_cast<float2*>(out)[t] = make_float2(f0, f1);
+  return make_float2(f0, f1);
+}
+
+// The thread map of csrc/brick_tile.cuh at 32-point tiles and a warp a
+// level (blockDim.x = 32 L): each warp takes 32 consecutive points at one
+// level, the map of the table gradient below.
+constexpr int kFwdTile = 32;
+
+__global__ void __launch_bounds__(kFwdTile * brick::kMaxLevels)
+brick_hash_encode_fwd_kernel(const float* __restrict__ x,
+                             const float* __restrict__ table,
+                             float* __restrict__ out, int n,
+                             const __grid_constant__ brick::Levels lv,
+                             int n_levels, uint32_t bf16_levels) {
+  brick::encode_tile<kFwdTile>(x, out, n, n_levels,
+                               [&](const float (&p)[3], int l) {
+    return train_level(p, l, table, lv, bf16_levels);
+  });
 }
 
 // Sums v over the lanes of `peers` (the lanes that add to this lane's
@@ -174,11 +210,6 @@ brick_hash_encode_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-int blocks_for(int n, int n_levels) {
-  const long long threads = static_cast<long long>(n) * n_levels;
-  return static_cast<int>((threads + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
@@ -188,10 +219,12 @@ extern "C" {
 int brick_hash_encode_fwd(const float* x, const float* table, float* out,
                           int n, const brick::Levels* levels, int n_levels,
                           uint32_t bf16_levels, void* stream) {
-  if (n <= 0) return 0;
   if (n_levels < 1 || n_levels > brick::kMaxLevels)
     return static_cast<int>(cudaErrorInvalidValue);
-  brick_hash_encode_fwd_kernel<<<blocks_for(n, n_levels), kThreads, 0,
+  if (n <= 0) return 0;
+  brick_hash_encode_fwd_kernel<<<(n + kFwdTile - 1) / kFwdTile,
+                                 kFwdTile * n_levels,
+                                 brick::tile_shared_bytes(kFwdTile, n_levels),
                                  static_cast<cudaStream_t>(stream)>>>(
       x, table, out, n, *levels, n_levels, bf16_levels);
   return static_cast<int>(cudaGetLastError());

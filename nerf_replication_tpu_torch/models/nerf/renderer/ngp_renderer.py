@@ -7,8 +7,9 @@ with ``fused`` (the default) the whole field goes through
 ``fused_ngp_eval`` (encode + MLP in one kernel, SH computed per ray and
 broadcast per point), in f32 or, with ``mlp_bf16`` (the JAX package's
 ``NGP_FUSED_BF16=1``), on bf16 operands; without it (``NGP_FUSED=0``) the
-encode goes through ``brick_encode_eval`` and the branch's ``nn.Module``
-MLP runs on its features. The JAX package falls back to the unfused chain
+encode goes through ``brick_encode_eval`` (from the cell-corner table,
+built once here) and the branch's ``nn.Module`` MLP runs on its
+features. The JAX package falls back to the unfused chain
 where its fused TPU kernel does not fit; here a network the fused kernel
 does not cover raises, and the unfused chain is asked for by name.
 
@@ -71,11 +72,12 @@ def make_ngp_eval_apply(net, fused: bool = True, mlp_bf16: bool = False):
     if not fused:
         if on_cuda:
             eval_encode.build()
+        cells = eval_encode.pack_cell_table(packed)
 
         def apply_unfused(pts, viewdirs, model=""):
             shape = pts.shape[:-1]
             x = enc.to_unit(pts.reshape(-1, 3).float()).contiguous()
-            feat = eval_encode.brick_encode_eval(layout, packed, x)
+            feat = eval_encode.brick_encode_eval(layout, cells, x)
             view_feat = None
             if net.use_viewdirs and viewdirs is not None:
                 dirs = viewdirs.expand(*shape, viewdirs.shape[-1])

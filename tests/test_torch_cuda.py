@@ -281,7 +281,8 @@ def test_ngp_kernels_match_plain_versions(cuda, monkeypatch, n):
     packed = eval_encode.pack_eval_table(net.xyz_encoder.table.detach())
     x, sh = _ngp_inputs(net, n, seed=n, device=cuda)
     launches = eval_encode.brick_encode_eval.launches
-    feats = eval_encode.brick_encode_eval(layout, packed, x)
+    feats = eval_encode.brick_encode_eval(
+        layout, eval_encode.pack_cell_table(packed), x)
     torch.cuda.synchronize()
     assert eval_encode.brick_encode_eval.launches == launches + 1
     assert feats.shape == (n, 24)
@@ -319,17 +320,18 @@ def test_ngp_wrappers_refuse_what_the_kernels_do_not_take(cuda, monkeypatch):
     _, net = _ngp(monkeypatch, cuda)
     layout = net.xyz_encoder.layout
     packed = eval_encode.pack_eval_table(net.xyz_encoder.table.detach())
+    cells = eval_encode.pack_cell_table(packed)
     x, sh = _ngp_inputs(net, 8, seed=0, device=cuda)
     ops, meta = fused_ngp.extract_mlp_weights(
         net.fine.state_dict(), 24, net.fine.depth, net.fine.skips, 1)
     strided = torch.empty(8, 6, device=cuda)[:, :3].copy_(x)
     for bad_x in (x.double(), strided):
         with pytest.raises(ValueError):
-            eval_encode.brick_encode_eval(layout, packed, bad_x)
+            eval_encode.brick_encode_eval(layout, cells, bad_x)
         with pytest.raises(ValueError):
             fused_ngp.fused_ngp_eval(layout, meta, packed, ops, bad_x, sh)
     with pytest.raises(ValueError):
-        eval_encode.brick_encode_eval(layout, packed.float(), x)
+        eval_encode.brick_encode_eval(layout, cells.float(), x)
     with pytest.raises(ValueError):
         fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh[:, :9])
     # contiguous, but 4 bytes off the 16-byte alignment of its float4 reads
@@ -369,7 +371,8 @@ def _merge_points(net, kind, device):
 def test_brick_training_kernels_match_plain_versions(cuda, monkeypatch, n,
                                                      log2_bricks):
     """The training forward (TPU kernel #6) and the table gradient (#7) at
-    ragged point counts around the 256-thread block, and on point sets
+    ragged point counts around the 256-thread block of the gradient (the
+    forward's tile is 32 points), and on point sets
     that merge contributions across a warp's lanes (``_merge_points``), on
     the trained hard_ngp_b9 table (every level on the bf16 branch) and on a
     random table of the ``log2_bricks`` 13 layout (seven f32 levels). The

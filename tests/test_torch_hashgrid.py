@@ -1,6 +1,7 @@
 """Port parity for the bricked hash grid: layout, brick ids, the packed
-eval table and the plain eval encode (the CPU path of the wrapper that
-launches csrc/brick_encode_eval.cu) against the JAX package, the training
+eval table and the plain eval encode over its cell-corner table (the CPU
+path of the wrapper that launches csrc/brick_encode_eval.cu) against the
+JAX package, the training
 encode's table gradient (the CPU path of the wrappers that launch
 csrc/brick_hash_encode.cu) against jax.grad through the Pallas kernel in
 interpret mode, the HashGridEncoder module, and the gather probes' script
@@ -110,8 +111,8 @@ def test_plain_eval_encode_matches_jax_kernel(mxu_max_rows):
         -1, 1, size=(port.n_rows, 256)).astype(np.float32)
     x = points(300, 3, port)
     out = eval_encode.brick_encode_eval(
-        port, eval_encode.pack_eval_table(torch.from_numpy(table)),
-        torch.from_numpy(x))
+        port, eval_encode.pack_cell_table(eval_encode.pack_eval_table(
+            torch.from_numpy(table))), torch.from_numpy(x))
     expect = jax_encode_eval(ref, jax_pack(jnp.asarray(table)),
                              jnp.asarray(x), mxu_max_rows=mxu_max_rows,
                              blk=128)
@@ -131,8 +132,8 @@ def test_plain_eval_encode_matches_jax_reference_on_b9_table():
         ["table"])
     x = points(4000, 4, port)
     out = eval_encode.brick_encode_eval(
-        port, eval_encode.pack_eval_table(torch.from_numpy(table)),
-        torch.from_numpy(x))
+        port, eval_encode.pack_cell_table(eval_encode.pack_eval_table(
+            torch.from_numpy(table))), torch.from_numpy(x))
     rounded = jnp.asarray(table).astype(jnp.bfloat16).astype(jnp.float32)
     expect = np.asarray(jax_hk.brick_encode_reference(ref, rounded,
                                                       jnp.asarray(x)))
@@ -157,11 +158,12 @@ def test_brick_encode_reference_matches_jax_training_forward():
 
 def test_eval_encode_counts_plain_calls_on_cpu():
     port, _ = layouts(SMALL)
-    packed = eval_encode.pack_eval_table(torch.zeros(port.n_rows, 256))
-    calls = eval_encode.brick_encode_eval_reference.calls
+    cells = eval_encode.pack_cell_table(eval_encode.pack_eval_table(
+        torch.zeros(port.n_rows, 256)))
+    calls = eval_encode.brick_encode_cells_reference.calls
     launches = eval_encode.brick_encode_eval.launches
-    eval_encode.brick_encode_eval(port, packed, torch.rand(5, 3))
-    assert eval_encode.brick_encode_eval_reference.calls == calls + 1
+    eval_encode.brick_encode_eval(port, cells, torch.rand(5, 3))
+    assert eval_encode.brick_encode_cells_reference.calls == calls + 1
     assert eval_encode.brick_encode_eval.launches == launches
 
 

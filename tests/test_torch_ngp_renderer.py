@@ -129,7 +129,7 @@ def test_three_routes_agree_on_b9(b9_net):
     counts = {}
     for route in ("fused", "unfused", "plain"):
         before = (fused_ngp.fused_ngp_eval_reference.calls,
-                  eval_encode.brick_encode_eval_reference.calls,
+                  eval_encode.brick_encode_cells_reference.calls,
                   NeRFMLP.calls, Network.calls)
         if route == "plain":
             renderer.use_apply(net)
@@ -140,7 +140,7 @@ def test_three_routes_agree_on_b9(b9_net):
         counts[route] = tuple(
             a - b for a, b in zip(
                 (fused_ngp.fused_ngp_eval_reference.calls,
-                 eval_encode.brick_encode_eval_reference.calls,
+                 eval_encode.brick_encode_cells_reference.calls,
                  NeRFMLP.calls, Network.calls), before))
     assert counts == {"fused": (2, 0, 0, 0), "unfused": (0, 2, 2, 0),
                       "plain": (0, 0, 2, 2)}
@@ -218,10 +218,11 @@ def test_ngp_smoke_check_sees_precision_faults(b9_net, variant):
     sh = net.dir_encoder(d)
     layout = net.xyz_encoder.layout
     packed = eval_encode.pack_eval_table(net.xyz_encoder.table.detach())
+    cells = eval_encode.pack_cell_table(packed)
     ops, meta = fused_ngp.extract_mlp_weights(
         net.coarse.state_dict(), 24, 3, (1,), 1)
     plains = {
-        "encode": lambda: eval_encode.brick_encode_eval(layout, packed, x),
+        "encode": lambda: eval_encode.brick_encode_eval(layout, cells, x),
         "fused": lambda: fused_ngp.fused_ngp_eval(layout, meta, packed, ops,
                                                   x, sh),
         "fused_bf16": lambda: fused_ngp.fused_ngp_eval(
