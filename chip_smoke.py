@@ -110,10 +110,40 @@ Phases (any failure exits non-zero):
 8. the gather probes (scripts/probe_cuda_gather.py): row, element and
    lane gathers and atomic adds at two contention levels against PyTorch
    indexing, each with its time, the PyTorch call's and its byte bound.
+9. the frame path: the occupancy-raymarch frame renderer
+   (``ngp_renderer.make_ngp_frame_renderer``) at 800x800 on hard test
+   views 0 and 4, for data/pretrain/hard through the encode+MLP kernel
+   and data/pretrain/hard_ngp_b9 through the fused NGP kernel's f32 arm,
+   then its bf16 arm. (a) The grids (64^3 dilated 2, 128^3 dilated 1)
+   through the kernel, their occupied shares and build time beside the
+   JAX record's, and the kernel against its plain version at both
+   lattices in the build's 65,536-point chunks: the raw outputs within
+   the family's bounds, and a cell may flip only where the plain density
+   lies within the check's elementwise bound of the threshold. (b) The
+   gated frame (``raymarch_bench.gated_frame``): the ladder from the JAX
+   record's passing step, with autocap, walking on only if it fails; the
+   gate is the mean uint8 test PSNR within 0.2 dB of phase 3's / phase
+   6's dense render (reused, not rendered again); the step, the PSNRs,
+   the stats beside the JAX record's; for NGP the bf16 arm at the passing
+   step, gated the same way and adopted only if it passes. (c) One
+   frame's launches (the kernel alone, as many as the frame's ray budget
+   asks); the kernel against its plain version on the samples one frame
+   gives it (its first coarse and first fine chunk); a warmed frame under
+   ``torch.cuda.set_sync_debug_mode("error")``; seconds a frame
+   synchronised (median of 40, with the host's issue time) beside the
+   dense frame, and frames with one of overlap (``raymarch_bench``'s
+   timing) over two windows of 100 orbit frames; the truncated frames'
+   times by stage, peak memory, the device busy ms and idle share of one
+   profiled frame. The times come after phases 3 and 6 have run
+   torch.profiler, which leaves the process's later launches slower
+   (scripts/frame_host_time.py): the host-bound NGP frame reads above a
+   fresh process's (raymarch_bench.py's).
+   (d) NGP: (c)'s launches, chunk checks and times for the bf16 arm.
 Every CUDA-event time is the median of five rounds after one warm-up
 call (``cuda_times``). The last three lines are the card's name and power
 limit, the kernel summary (each kernel's launches on its path, error,
-times and bound) and the device, the last two as JSON.
+times and bound; ``frame_launches`` for the frame path's kernels: their
+launches in one frame) and the device, the last two as JSON.
 """
 
 from __future__ import annotations
@@ -1332,6 +1362,7 @@ def phase_ngp(views, profile: bool) -> dict:
     res["launches"] = {"fused": fused_counts["ngp"],
                        "fused_bf16": routes["bf16"][2]["ngp_bf16"],
                        "encode": routes["unfused"][2]["ngp_enc"]}
+    res["dense"] = fused
     return res
 
 
@@ -1727,6 +1758,308 @@ def phase_probes() -> list[dict]:
     return readings
 
 
+# The frame path (phase 9). The JAX package's records on the same
+# checkpoints and hard test views 0 and 4 (quality and ray counts only;
+# no TPU time is the port's): the step that passed its gate, the test
+# PSNR there against the dense render's, the grids' occupied shares, the
+# ray counts at that step and the frame against the dense frame.
+FRAME_RECORDS = {
+    "freq_rm": {"step": (32, 12, 10), "psnr": 31.58, "dense_psnr": 31.75,
+                "grids": (0.089, 0.053), "q_vs_dense_db": 40.5,
+                "stats": {"active_rays": 202432, "occ_rays": 147481,
+                          "nontrivial_rays": 125294}},     # BENCH_r05.json
+    "ngp": {"step": (32, 10, 10), "psnr": 30.13, "dense_psnr": 30.28},
+}                                      # RESULTS_r05.md, honest-gate record
+FRAME_DROP_DB = 0.2     # bench.py's BENCH_NGP_GATE_DROP
+FRAME_TIMED = 40        # synchronised frames timed after a warm-up
+FRAME_WINDOW = 100      # frames of the overlapped window (seconds of them)
+GRID_CHUNK = 65536      # the grid build's points a density call
+
+
+def grid_against_plain(kernel_apply, plain_apply, settings, bounds: Bounds,
+                       resolution: int, threshold: float) -> dict:
+    """The density through the kernel and through its plain version at the
+    centres of a ``resolution``^3 lattice, in the grid build's own chunks
+    of GRID_CHUNK points: the kernel-against-plain check on the raw (N, 4)
+    outputs, and the undilated occupancy of both. A cell may flip only
+    where the plain density lies within the check's elementwise bound
+    (atol + rtol x threshold) of the threshold."""
+    from nerf_replication_tpu_torch.ops.occupancy import grid_points
+    from nerf_replication_tpu_torch.ops.ray_ops import density_activation
+
+    act = density_activation(settings.density_activation)
+    pts = torch.from_numpy(grid_points(resolution, (-1.5,) * 3 + (1.5,) * 3))
+    pts = pts.cuda()[:, None, :]
+    zero = pts.new_zeros(1, 1, 3)
+    with torch.inference_mode():
+        raw_k, raw_p = (torch.cat([
+            apply(pts[i:i + GRID_CHUNK], zero, "fine")[:, 0]
+            for i in range(0, pts.shape[0], GRID_CHUNK)])
+            for apply in (kernel_apply, plain_apply))
+    a = agreement(raw_k, raw_p, bounds)
+    d_k, d_p = act(raw_k[:, 3]), act(raw_p[:, 3])
+    flips = (d_k > threshold) != (d_p > threshold)
+    band = bounds.atol + bounds.rtol * threshold
+    dist = (d_p[flips] - threshold).abs()
+    a.update(flips=int(flips.sum()),
+             flip_max_dist=float(dist.max()) if len(dist) else 0.0,
+             band=band, occupied=float((d_p > threshold).float().mean()))
+    a["ok"] = a["ok"] and a["flip_max_dist"] <= band
+    return a
+
+
+def plain_twin(net, mlp_bf16: bool = False):
+    """The eval apply of ``net`` that the frame path uses, with its kernel
+    wrapper replaced by the kernel's plain version (the same weights, the
+    same inputs): #10 (the arm ``mlp_bf16`` names) for a brick-NGP
+    network, #1 for a frequency one."""
+    from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
+    from nerf_replication_tpu_torch.ops import fused_ngp, mlp_kernel
+
+    if ngp_renderer.is_brick_ngp(net):
+        apply = ngp_renderer.make_ngp_eval_apply(net, mlp_bf16=mlp_bf16)
+        patch = (fused_ngp, "fused_ngp_eval",
+                 fused_ngp.fused_ngp_eval_reference)
+    else:
+        apply = mlp_kernel.make_fused_apply(net)
+        patch = (mlp_kernel, "fused_nerf_mlp_enc",
+                 mlp_kernel.fused_nerf_mlp_enc_reference)
+
+    def plain(pts, viewdirs, model):
+        with mock.patch.object(*patch):
+            return apply(pts, viewdirs, model)
+    return plain
+
+
+def frame_chunks_against_plain(tag: str, apply_fn, plain, frame_args,
+                               chosen, pose, bounds: Bounds) -> list[dict]:
+    """The kernel against its plain version on what one frame gives it:
+    a frame at the passing step is rendered with ``apply_fn`` recording
+    its calls, and the samples of its first coarse chunk and its first
+    fine chunk go through ``apply_fn`` and ``plain``; fails the run where
+    they disagree. Returns the two readings."""
+    from nerf_replication_tpu_torch import raymarch_bench as rb
+
+    seen = []
+
+    def record(pts, viewdirs, model=""):
+        seen.append((pts.clone(), viewdirs.clone(), model))
+        return apply_fn(pts, viewdirs, model)
+
+    fn = rb.frame_factory(record, *frame_args)(
+        *chosen["step"], chosen["caps"], *chosen["probe"])
+    fn(pose)
+    b = fn.budget
+    readings = []
+    for branch, call in (("coarse", 0),
+                         ("fine", b["coarse_rays"] // b["chunk"])):
+        pts, viewdirs, model = seen[call]
+        with torch.inference_mode():
+            out_k = apply_fn(pts, viewdirs, model).reshape(-1, 4)
+            out_p = plain(pts, viewdirs, model).reshape(-1, 4)
+        a = agreement(out_k, out_p, bounds)
+        print(f"frame path {tag}: kernel vs plain on the first "
+              f"{branch} chunk of a frame, {tuple(pts.shape[:2])} samples: "
+              f"{describe(a)}")
+        if not a["ok"]:
+            fail(f"the {tag} kernel disagrees with its plain "
+                 f"version on the frame's {branch} chunk")
+        readings.append({"n": out_k.shape[0], "err": a["max_abs_err"]})
+    return readings
+
+
+def frame_seconds(fn, pose, n: int) -> tuple[list[float], list[float]]:
+    """``n`` frames, each synchronised: the host's seconds to issue each
+    (until ``fn`` returns) and its wall seconds to a synchronised card,
+    each list sorted."""
+    issue, wall = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(pose)
+        issue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    return sorted(issue), sorted(wall)
+
+
+def frame_times(tag: str, fn, pose, poses) -> dict:
+    """Seconds a frame of ``fn``, printed: synchronised frames (median of
+    FRAME_TIMED, with the host's issue time), and ``raymarch_bench``'s
+    overlapped window over ``poses``, twice."""
+    from nerf_replication_tpu_torch import raymarch_bench as rb
+
+    issue, wall = frame_seconds(fn, pose, FRAME_TIMED)
+    rb.time_frames(fn, poses[:1])
+    windows = [rb.time_frames(fn, poses) for _ in range(2)]
+    res = {"seconds": float(np.median(wall)),
+           "issue": float(np.median(issue)), "window": windows}
+    print(f"frame path {tag}: synchronised {1e3 * res['seconds']:.2f}"
+          f" ms a frame (median of {FRAME_TIMED}, {1e3 * wall[0]:.2f}-"
+          f"{1e3 * wall[-1]:.2f}), the host's issue {1e3 * res['issue']:.2f}"
+          f" ms of it; overlapped windows of {len(poses)} orbit frames "
+          f"{1e3 * windows[0]:.2f} / {1e3 * windows[1]:.2f} ms a frame "
+          f"({1 / windows[0]:.2f} / {1 / windows[1]:.2f} fps)")
+    return res
+
+
+def phase_frame(family: str, argv, views, dense: dict, bounds: Bounds,
+                kernel_key: str) -> dict:
+    """Phase 9, one family: the occupancy-raymarch frame path at 800x800
+    through its kernel (``kernel_key`` in the launch counts), gated on
+    hard test views 0 and 4 against the dense render ``dense`` (a
+    ``run_evaluate`` result of the same views). Returns its readings."""
+    from nerf_replication_tpu_torch import raymarch_bench as rb
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.run import (
+        build_grids,
+        build_renderer,
+        load_model,
+    )
+
+    record = FRAME_RECORDS[family]
+    cfg = make_cfg(parse_args(argv))
+    net = load_model(cfg, torch.device("cuda"))
+    renderer = build_renderer(cfg, net)
+    settings, apply_fn = renderer.settings, renderer.apply_fn
+    H, W = int(views[0]["H"]), int(views[0]["W"])
+    focal = float(views[0]["focal"])
+    out = {"family": family}
+
+    # (a) the grids, through the kernel, and the kernel against its plain
+    # version at the grids' lattice points
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    occupancy, select = build_grids(apply_fn, settings, "cuda")
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    counts = read_counts()
+    fractions = (occupancy[0].float().mean().item(),
+                 select[0].float().mean().item())
+    print(f"frame path {family}: grids 64^3 / 128^3 {fractions[0]:.4f} / "
+          f"{fractions[1]:.4f} occupied (JAX record 0.089 / 0.053 for "
+          f"freq_rm), built in {grid_s:.3f} s with {counts[kernel_key]} "
+          f"launches, plain calls {counts['plain'] + counts['module']}")
+    if counts[kernel_key] == 0 or counts["plain"] or counts["module"]:
+        fail(f"the {family} grids were not built through the kernel alone: "
+             f"{counts}")
+    plain = plain_twin(net)
+    for res, thr in ((64, 0.02), (128, 0.02)):
+        a = grid_against_plain(apply_fn, plain, settings, bounds, res, thr)
+        print(f"frame path {family}: grid {res}^3 kernel vs plain: "
+              f"{describe(a)}; undilated cells flipped {a['flips']} "
+              f"(farthest {a['flip_max_dist']:.2e} from the threshold, "
+              f"band {a['band']:.2e}), plain occupied {a['occupied']:.4f}")
+        if not a["ok"]:
+            fail(f"the {family} grid {res}^3 through the kernel disagrees "
+                 f"with its plain version")
+        out.setdefault("checks", []).append({"err": a["max_abs_err"]})
+    torch.cuda.empty_cache()
+
+    # (b) the gated frame (raymarch_bench's): the ladder from the JAX
+    # record's passing step, with autocap; the bf16 arm for NGP
+    dense_imgs = [np.clip(rgb, 0, 1) for rgb in dense["rgb"]]
+    gate = rb.Gate(views, dense_imgs, True, dense["psnr"], FRAME_DROP_DB)
+    ladder = rb.parse_ladder(rb.DEFAULT_LADDER)
+    ladder = [record["step"]] + ladder[ladder.index(record["step"]) + 1:]
+    frame_args = (H, W, focal, occupancy, select, settings)
+    chosen, bf16 = rb.gated_frame(net, apply_fn, frame_args, gate, ladder,
+                                  views[0]["pose"])
+    if chosen is None:
+        fail(f"the {family} frame path passed no ladder step of the gate")
+    info, stats, caps = chosen["info"], chosen["stats"], chosen["caps"]
+    fn = chosen["fn"]
+    print(f"frame path {family}: gate passed at C,M,F={chosen['step']} "
+          f"(JAX record {record['step']}): test PSNR {info['psnr']:.4f} dB, "
+          f"drop {info['drop']:+.4f} dB against the port's dense "
+          f"{dense['psnr']:.4f} dB (budget {FRAME_DROP_DB}; JAX record "
+          f"{record['psnr']} against {record['dense_psnr']}), "
+          f"{info['q_vs_dense_db']:.2f} dB against the dense frame"
+          + (f" (JAX record {record['q_vs_dense_db']})"
+             if "q_vs_dense_db" in record else ""))
+    print(f"frame path {family}: stats {stats} (JAX record "
+          f"{record.get('stats', 'not recorded')}), caps {caps}, probe "
+          f"{chosen['probe']}, budget {fn.budget}")
+
+    # (c) one frame's launches, the kernel against plain on the frame's
+    # chunks, a frame under sync debug, times, profile
+    pose = torch.as_tensor(views[0]["pose"], device="cuda")
+    poses = [torch.as_tensor(p, device="cuda")
+             for p in rb.orbit_poses(FRAME_WINDOW)]
+    b = fn.budget
+    calls = (b["coarse_rays"] + b["fine_rays"] * b["fine_rounds"]) \
+        // b["chunk"]
+
+    def launches(frame_fn, key):
+        frame_fn(pose)
+        torch.cuda.synchronize()
+        reset_counts()
+        frame_fn(pose)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"frame path {family}: one frame's counts {counts} (expected "
+              f"{key} {calls}, every other 0)")
+        if counts != dict.fromkeys(counts, 0) | {key: calls}:
+            fail(f"the {family} frame did not run through {key} alone: "
+                 f"{counts}")
+        return counts[key]
+
+    tag = family if bf16 is None else f"{family} f32 arm"
+    out["frame_launches"] = launches(fn, kernel_key)
+    out["checks"] += frame_chunks_against_plain(
+        tag, apply_fn, plain, frame_args, chosen, pose, bounds)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(pose)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"frame path {family}: a warmed frame ran under "
+          "torch.cuda.set_sync_debug_mode('error')")
+    torch.cuda.reset_peak_memory_stats()
+    times = frame_times(tag, fn, pose, poses)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    build = rb.frame_factory(apply_fn, *frame_args)
+    stage_ms = {}
+    for stage in ("probe", "coarse"):
+        part = build(*chosen["step"], caps, *chosen["probe"], stage=stage)
+        stage_ms[stage] = 1e3 * float(np.median(
+            frame_seconds(part, pose, FRAME_TIMED)[1]))
+    full_ms = 1e3 * times["seconds"]
+    print(f"frame path {family}: {times['seconds']:.4f} s a frame "
+          f"synchronised against the dense "
+          f"{[round(t, 3) for t in dense['net_time']]} s; by stage "
+          f"(truncated frames, synchronised): probe + compaction "
+          f"{stage_ms['probe']:.2f} ms, selection + coarse "
+          f"{stage_ms['coarse'] - stage_ms['probe']:.2f} ms, fine + "
+          f"scatter {full_ms - stage_ms['coarse']:.2f} ms; peak memory "
+          f"{peak_gb:.2f} GB")
+    out["busy_ms"] = profile_runs(lambda: fn(pose), 1, "frame",
+                                  f"frame_{family}", warm=1)
+    out.update(step=chosen["step"], psnr=info["psnr"], drop=info["drop"],
+               stats=stats, **times)
+
+    # (d) NGP: the fused kernel's bf16 arm at the passing step, gated in
+    # (b) and adopted only if it passed
+    if bf16 is not None:
+        print(f"frame path {family} bf16 arm: "
+              f"{'PASSED, adopted' if bf16['passed'] else 'failed'}: test "
+              f"{bf16['psnr']:.4f} dB, drop {bf16['drop']:+.4f} dB")
+        fn16 = bf16["fn"]
+        out["bf16"] = {
+            "passed": bf16["passed"], "psnr": bf16["psnr"],
+            "drop": bf16["drop"],
+            "frame_launches": launches(fn16, "ngp_bf16"),
+            "checks": frame_chunks_against_plain(
+                f"{family} bf16 arm", bf16["apply"], plain_twin(net, True),
+                frame_args, chosen, pose, NGP_BF16_BOUNDS),
+            **frame_times(f"{family} bf16 arm", fn16, pose, poses)}
+    del renderer, net
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=TRAIN_STEPS,
@@ -1922,20 +2255,32 @@ def main(argv=None):
     # -- 8. the gather probes ---------------------------------------------
     probes = phase_probes()
 
-    def entry(name, source, replaces, launches, readings):
+    # -- 9. the frame path ------------------------------------------------
+    frame = {"freq_rm": phase_frame("freq_rm", argv, views, res, MLP_BOUNDS,
+                                    "enc"),
+             "ngp": phase_frame("ngp", NGP_ARGV, views, ngp["dense"],
+                                NGP_BOUNDS, "ngp")}
+
+    def entry(name, source, replaces, launches, readings, frame=None):
         """One kernel of the summary: its last reading (its largest size
         on its path); library_ms is the one PyTorch call that computes the
         same function, where there is one (index_add_ for the table
-        gradient), else null."""
+        gradient), else null; for the kernels of the frame path
+        (``frame``, phase 9's readings of the kernel), frame_launches is
+        its launches in one frame, and max_abs_err covers its checks
+        there too."""
         big = readings[-1]
+        checks = [] if frame is None else frame["checks"]
+        extra = ({} if frame is None
+                 else {"frame_launches": frame["frame_launches"]})
         return {"name": name, "route": "cuda",
                 "source": f"nerf_replication_tpu_torch/csrc/{source}",
                 "replaces": f"nerf_replication_tpu/ops/pallas/{replaces}",
                 "launches": launches,
-                "max_abs_err": max(r["err"] for r in readings),
+                "max_abs_err": max(r["err"] for r in readings + checks),
                 "ms": big["ms"], "plain_ms": big["plain_ms"],
                 "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-                "library_ms": big.get("library_ms")}
+                "library_ms": big.get("library_ms"), **extra}
 
     def probe_entry(name):
         """One probe: its last reading (the contended one for the atomic
@@ -1954,7 +2299,7 @@ def main(argv=None):
     print(smi)
     print(json.dumps({"kernels": [
         entry("fused_nerf_mlp_enc", "fused_nerf_mlp.cu", "mlp_kernel.py:366",
-              launches, list(checks.values())),
+              launches, list(checks.values()), frame["freq_rm"]),
         entry("fused_nerf_mlp", "fused_nerf_mlp.cu", "mlp_train.py:168",
               counts["fwd"], train_checks["fwd"]),
         entry("fused_nerf_mlp_bwd", "fused_nerf_mlp_bwd.cu",
@@ -1963,10 +2308,10 @@ def main(argv=None):
               "eval_encode.py:202 and :245", ngp["launches"]["encode"],
               ngp["encode"]),
         entry("fused_ngp_eval", "fused_ngp.cu", "fused_ngp.py:258",
-              ngp["launches"]["fused"], ngp["fused"]),
+              ngp["launches"]["fused"], ngp["fused"], frame["ngp"]),
         entry("fused_ngp_eval_bf16", "fused_ngp.cu",
               "fused_ngp.py:258 (mlp_bf16)", ngp["launches"]["fused_bf16"],
-              ngp["fused_bf16"]),
+              ngp["fused_bf16"], frame["ngp"]["bf16"]),
         entry("brick_hash_encode", "brick_hash_encode.cu",
               "hashgrid_kernel.py:311", brick["launches"]["fwd"],
               brick["fwd"]),

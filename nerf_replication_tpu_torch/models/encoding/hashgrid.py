@@ -32,8 +32,12 @@ def normalize_to_unit(x: torch.Tensor, bounds) -> torch.Tensor:
     d = x.shape[-1]
     lo = torch.tensor(bounds[:d], dtype=x.dtype, device=x.device)
     hi = torch.tensor(bounds[d:], dtype=x.dtype, device=x.device)
+    return _into_box(x, lo, hi, (hi - lo).max() + EPS)
+
+
+def _into_box(x, lo, hi, side):
     x = torch.minimum(torch.maximum(x, lo), hi)
-    return (x - lo) / ((hi - lo).max() + EPS)
+    return (x - lo) / side
 
 
 class HashGridEncoder(nn.Module):
@@ -51,6 +55,16 @@ class HashGridEncoder(nn.Module):
         self.per_level_scale = per_level_scale
         self.log2_bricks = log2_bricks
         self.bounds = tuple(bounds)
+        if self.bounds:
+            # the corners as buffers: they move with the module, so no
+            # call copies them to the device (a copy would wait for the
+            # host inside a frame)
+            lo = torch.tensor(self.bounds[:3], dtype=torch.float32)
+            hi = torch.tensor(self.bounds[3:], dtype=torch.float32)
+            self.register_buffer("box_lo", lo, persistent=False)
+            self.register_buffer("box_hi", hi, persistent=False)
+            self.register_buffer("box_side", (hi - lo).max() + EPS,
+                                 persistent=False)
         self.layout = hk.make_brick_layout(
             n_levels, base_resolution, finest_resolution,
             log2_bricks=log2_bricks, per_level_scale=per_level_scale)
@@ -89,7 +103,7 @@ class HashGridEncoder(nn.Module):
         """World points (N, 3) -> [0,1]^3: normalised to the bounds when
         set, then clipped."""
         if self.bounds:
-            x = normalize_to_unit(x, self.bounds)
+            x = _into_box(x, self.box_lo, self.box_hi, self.box_side)
         return torch.clamp(x, 0.0, 1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

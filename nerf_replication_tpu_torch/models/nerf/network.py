@@ -138,6 +138,12 @@ class Network(nn.Module):
         mlp = self.fine if model == "fine" else self.coarse
         return mlp(pts_feat, view_feat).reshape(*shape, 4)
 
+    def density(self, pts: torch.Tensor, model: str = "fine") -> torch.Tensor:
+        """Raw density (...) at ``pts`` (..., 3), queried with zero view
+        directions (occupancy probing, mesh extraction)."""
+        zero_dirs = pts.new_zeros(*pts.shape[:-1], 3)
+        return self(pts, zero_dirs, model=model)[..., 3]
+
 
 def make_network(cfg, generator: torch.Generator | None = None) -> Network:
     """The config's Network, initialised from ``generator`` (default: a

@@ -18,7 +18,7 @@ whose encoder runs the brick-encode CUDA kernels, whatever that flag says:
 the JAX package has no fused train MLP for that family either
 (``make_fused_train_apply`` returns None there, ops/pallas/mlp_train.py).
 
-Not ported yet (ROADMAP.md A.5): ``render_image_fast``,
+Not ported yet (ROADMAP.md item 3): ``render_image_fast``,
 ``make_frame_renderer``, ``fine_stage_ert`` and the ESS/ERT masks;
 :meth:`RenderSettings.from_cfg` refuses configs that ask for them.
 """
@@ -68,7 +68,7 @@ class RenderSettings:
                 or int(get("ert_segments", 1)) > 1:
             raise NotImplementedError(
                 "fast_sampling / ert_segments are not ported yet: "
-                "ROADMAP.md item A.5")
+                "ROADMAP.md item 3")
         return cls(
             N_samples=int(get("N_samples", 64)),
             N_importance=int(get("N_importance", 128)),

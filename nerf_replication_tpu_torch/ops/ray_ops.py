@@ -1,10 +1,11 @@
 """Volume-rendering ray ops in PyTorch.
 
-The counterparts of nerf_replication_tpu/ops/ray_ops.py:28-229, with the
+The counterparts of nerf_replication_tpu/ops/ray_ops.py:28-245, with the
 same conventions and numerics in float32: :func:`get_rays`,
 :func:`stratified_sample`, :func:`density_activation`,
 :func:`compute_weights` (1e10 far tail or ``finite_tail``, +1e-10 in the
-transmittance product), :func:`sample_pdf` and :func:`composite`.
+transmittance product), :func:`sample_pdf`, :func:`composite` and
+:func:`ray_aabb_intersect`.
 """
 
 from __future__ import annotations
@@ -132,3 +133,23 @@ def composite(rgb: torch.Tensor, weights: torch.Tensor, t: torch.Tensor,
     if white_bkgd:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
     return rgb_map, depth_map, acc_map
+
+
+def ray_aabb_intersect(rays_o: torch.Tensor, rays_d: torch.Tensor, bbox_min,
+                       bbox_max, near_default: float, far_default: float):
+    """Slab test of rays (N, 3) against the box [bbox_min, bbox_max]:
+    ``(near, far, hit)``, each (N,). A ray that misses (or whose box lies
+    behind it) gets ``near_default`` / ``far_default``; a hit starts at
+    depth 0 at the earliest."""
+    lo = torch.as_tensor(bbox_min, dtype=rays_o.dtype, device=rays_o.device)
+    hi = torch.as_tensor(bbox_max, dtype=rays_o.dtype, device=rays_o.device)
+    inv_d = 1.0 / torch.where(rays_d.abs() < 1e-10, 1e-10, rays_d)
+    t0 = (lo - rays_o) * inv_d
+    t1 = (hi - rays_o) * inv_d
+    tmin = torch.minimum(t0, t1).amax(dim=-1)
+    tmax = torch.maximum(t0, t1).amin(dim=-1)
+    start = torch.clamp(tmin, min=0.0)
+    hit = tmax > start
+    near = torch.where(hit, start, near_default)
+    far = torch.where(hit, tmax, far_default)
+    return near, far, hit

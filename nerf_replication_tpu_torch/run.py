@@ -21,7 +21,15 @@ encode + NGP MLP kernel for brick hash-grid NGP networks, e.g.
 
 A network the kernel does not cover then raises; with the flag off the
 plain ``nn.Module`` network runs.
-``--type dataset/input/mesh`` are not ported yet (ROADMAP.md A.7).
+
+``task_arg.fast_render True`` renders every batch that carries a camera
+``pose`` through the occupancy-raymarch frame renderer
+(``ngp_renderer.make_ngp_frame_renderer``) instead of the dense path, with
+the same apply: occupancy grids of the network's own density first (64^3
+dilated 2 cells for the span probe, 128^3 dilated 1 for the candidate
+selection; ``occ_resolution``, ``occ_sel_resolution``, ``occ_threshold``),
+then one frame renderer per (H, W, focal) with the ``fast_*`` keys.
+``--type dataset/input/mesh`` are not ported yet (ROADMAP.md item 10).
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from .evaluators import make_evaluator, psnr_uint8
 from .models import make_network
 from .models.nerf.renderer import make_renderer, ngp_renderer
 from .ops import mlp_kernel
+from .ops.occupancy import build_occupancy_grid
+from .ops.ray_ops import density_activation
 from .utils.ckpt_utils import load_network, load_pretrain, params_from_jax
 
 
@@ -91,6 +101,71 @@ def build_renderer(cfg, network):
     return renderer
 
 
+def build_grids(apply_fn, settings, device, resolution: int = 64,
+                sel_resolution: int = 128, threshold: float = 0.02):
+    """The frame path's occupancy grids from the density of ``apply_fn``'s
+    "fine" branch (zero view directions, activated as ``settings`` says):
+    ``(occupancy, select_occupancy)``, the first ``(grid, bbox, 2)`` at
+    ``resolution`` dilated 2 cells, the second ``(grid, bbox)`` at
+    ``sel_resolution`` dilated 1 cell, or None unless it is finer."""
+    act = density_activation(settings.density_activation)
+
+    def density(pts):
+        return act(apply_fn(pts[:, None, :], pts.new_zeros(1, 1, 3),
+                            "fine")[:, 0, 3])
+
+    grid, bbox = build_occupancy_grid(density, resolution=resolution,
+                                      threshold=threshold, dilate=2,
+                                      device=device)
+    select = None
+    if sel_resolution > resolution:
+        select = build_occupancy_grid(density, resolution=sel_resolution,
+                                      threshold=threshold, dilate=1,
+                                      device=device)
+    return (grid, bbox, 2), select
+
+
+def make_frame_fn(cfg, renderer):
+    """``frame(batch) -> (rgb (H*W, 3), depth (H*W,))`` through the
+    occupancy-raymarch frame renderer when ``task_arg.fast_render`` is on
+    (a strict boolean), else None. The grids are built now, from
+    ``renderer.apply_fn``; one frame renderer is made per (H, W, focal)."""
+    ta = cfg.task_arg
+    if not as_bool(ta.get("fast_render", False), "task_arg.fast_render"):
+        return None
+    occupancy, select = build_grids(
+        renderer.apply_fn, renderer.settings, renderer.device,
+        int(ta.get("occ_resolution", 64)),
+        int(ta.get("occ_sel_resolution", 128)),
+        float(ta.get("occ_threshold", 0.02)))
+    print(f"occupancy grid: {occupancy[0].float().mean().item():.3f} "
+          "occupied")
+    probe_sub = ta.get("fast_probe_sub", 4)
+    probe_sub = probe_sub if probe_sub == "auto" else int(probe_sub)
+    cache = {}
+
+    def frame(batch):
+        H, W = int(batch["H"]), int(batch["W"])
+        focal = float(batch["focal"])
+        key = (H, W, focal)
+        if key not in cache:
+            cache[key] = ngp_renderer.make_ngp_frame_renderer(
+                renderer.apply_fn, H, W, focal, occupancy,
+                renderer.settings,
+                n_candidates=int(ta.get("fast_candidates", 32)),
+                n_coarse=int(ta.get("fast_coarse", 16)),
+                n_fine=int(ta.get("fast_fine", 16)),
+                capacity=float(ta.get("fast_capacity", 0.4)),
+                out_dtype=torch.float32, return_depth=True,
+                select_occupancy=select,
+                occ_capacity=float(ta.get("fast_occ_capacity", 0.0)) or None,
+                probe_sub=probe_sub,
+                probe_stride=int(ta.get("fast_probe_stride", 1)))
+        return cache[key](np.asarray(batch["pose"]).reshape(4, 4))
+
+    return frame
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -100,17 +175,22 @@ def run_evaluate(cfg, loader=None) -> dict:
     """Evaluate every view of ``loader`` (default: the config's test
     split); a loader is any iterable of test batches. Returns the mean
     metrics plus ``net_time`` (seconds per view) and ``rgb`` (the
-    rendered (N, 3) images, numpy)."""
+    rendered (N, 3) images, numpy). With ``task_arg.fast_render`` a batch
+    with a ``pose`` goes through the frame path (:func:`make_frame_fn`)."""
     device = resolve_device(cfg)
     network = load_model(cfg, device)
     renderer = build_renderer(cfg, network)
+    frame = make_frame_fn(cfg, renderer)
     loader = make_test_dataset(cfg) if loader is None else loader
     evaluator = make_evaluator(cfg)
     net_time, images = [], []
     for batch in loader:
         _sync(device)
         t0 = time.perf_counter()
-        rgb, _ = renderer.render(batch)
+        if frame is not None and "pose" in batch:
+            rgb, _ = frame(batch)
+        else:
+            rgb, _ = renderer.render(batch)
         _sync(device)
         net_time.append(time.perf_counter() - t0)
         images.append(rgb.cpu().numpy())
@@ -158,7 +238,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.type not in RUNS:
         raise SystemExit(f"--type must be one of {sorted(RUNS)}; dataset, "
-                         "input and mesh are not ported yet (ROADMAP.md A.7)")
+                         "input and mesh are not ported yet (ROADMAP.md "
+                         "item 10)")
     RUNS[args.type](make_cfg(args))
 
 

@@ -177,6 +177,27 @@ def test_normalize_to_unit_matches_jax():
         np.asarray(jax_normalize(jnp.asarray(x), bounds)))
 
 
+def test_to_unit_takes_a_gradient_after_inference_mode():
+    """The encoder's box corners do not depend on the mode of their first
+    use: an eval under inference_mode, then a gradient with respect to the
+    points through the same encoder; both bit-equal to normalize_to_unit,
+    the gradient 1 / side inside the box and 0 outside."""
+    bounds = (-1.2, -1.2, -1.2, 1.2, 1.2, 1.2)
+    enc = HashGridEncoder(n_levels=3, base_resolution=8, finest_resolution=32,
+                          log2_bricks=9, bounds=bounds)
+    x = torch.from_numpy(np.random.default_rng(8).uniform(
+        -1.5, 1.5, (100, 3)).astype(np.float32))
+    with torch.inference_mode():
+        evaluated = enc.to_unit(x)
+    xg = x.clone().requires_grad_(True)
+    out = enc.to_unit(xg)
+    out.sum().backward()
+    expect = torch.clamp(normalize_to_unit(x, bounds), 0.0, 1.0)
+    assert torch.equal(evaluated, expect) and torch.equal(out.detach(), expect)
+    inside = (x.abs() < 1.2).float()
+    assert torch.equal(xg.grad, inside / enc.box_side)
+
+
 def test_hashgrid_encoder_from_cfg():
     """The hard_ngp encoder section with the reference YAML names; the xla
     backend is not ported and names its ROADMAP item."""

@@ -25,6 +25,9 @@ SLICE_MODULES = [
     "nerf_replication_tpu_torch.models.nerf.network",
     "nerf_replication_tpu_torch.models.nerf.renderer.volume_renderer",
     "nerf_replication_tpu_torch.ops.ray_ops",
+    "nerf_replication_tpu_torch.ops.occupancy",
+    "nerf_replication_tpu_torch.models.nerf.renderer.ngp_renderer",
+    "nerf_replication_tpu_torch.raymarch_bench",
     "nerf_replication_tpu_torch.ops.mlp_kernel",
     "nerf_replication_tpu_torch.ops._build",
     "nerf_replication_tpu_torch.datasets.nerf.blender",
