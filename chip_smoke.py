@@ -139,11 +139,32 @@ Phases (any failure exits non-zero):
    (scripts/frame_host_time.py): the host-bound NGP frame reads above a
    fresh process's (raymarch_bench.py's).
    (d) NGP: (c)'s launches, chunk checks and times for the bf16 arm.
+10. the compacted frequency frame (``Renderer.make_frame_renderer``,
+   ``raymarch_bench.compact_frame``, bench.py's ``freq`` family) at 800x800
+   through #1/#2, beside the JAX record (result/bench_freq_r5.log). (a)
+   The 64^3 grid (threshold 0.05, dilated 2) through #1, its occupied
+   share. (b) The frame of orbit pose 0 at capacity 0.35 / coarse 0.4,
+   then autocap; its stats. (c) The ERT gate (the 2-segment frame against
+   the 1-segment one, >= 45 dB), then the GT-drop of both on hard test
+   views 0 and 4 against phase 3's dense render (the adopted one <= 0.2
+   dB). (d) #1 against its plain version on the frame's first coarse and
+   first fine chunk and both ERT segments of its first fine chunk. (e)
+   ``render_image_fast`` through ``run_evaluate`` with
+   ``task_arg.fast_sampling`` on views 0 and 4, within 0.02 dB of phase
+   3's PSNR, through #1. (f) One real 1024-ray training batch with
+   ``fast_sampling``: #3 and #5 against plain within phase 4's bounds,
+   then the fused arm against the nn.Module arm (loss, leaf gradients).
+   (g) One ERT frame's launches (#1 alone), a warmed frame under
+   ``set_sync_debug_mode("error")``, synchronised frames (median of 40,
+   with the host's issue time) and two 100-frame windows, each for the ERT
+   frame and the 1-segment one, the device busy ms and idle share of one
+   profiled ERT frame.
 Every CUDA-event time is the median of five rounds after one warm-up
 call (``cuda_times``). The last three lines are the card's name and power
 limit, the kernel summary (each kernel's launches on its path, error,
 times and bound; ``frame_launches`` for the frame path's kernels: their
-launches in one frame) and the device, the last two as JSON.
+launches in one frame, ``compact_frame_launches`` #1's in one compacted
+frame) and the device, the last two as JSON.
 """
 
 from __future__ import annotations
@@ -152,6 +173,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -2060,6 +2082,240 @@ def phase_frame(family: str, argv, views, dense: dict, bounds: Bounds,
     return out
 
 
+# The compacted frequency frame (phase 10). The JAX package's record of
+# bench.py's freq family on data/pretrain/hard at 800x800 (quality and ray
+# counts only; no TPU time is the port's): result/bench_freq_r5.log.
+COMPACT_RECORD = {"grid": 0.089, "q_vs_dense_db": 71.4,
+                  "first": {"active_rays": 180000, "coarse_rays": 280000,
+                            "coarse_overflow": 0, "fine_overflow": 0},
+                  "stats": {"active_rays": 180000, "coarse_rays": 240000,
+                            "coarse_overflow": 0, "fine_overflow": 0}}
+FAST_RENDER_MAX_DB = 0.02   # render_image_fast's PSNR against the dense one
+# one masked training batch: the fused arm against the nn.Module arm, the
+# bounds of tests/test_torch_fast_render.py (the JAX package's own arms
+# read 3.1% apart in gradient norm on 48 of these rays)
+ARMS_LOSS_REL, ARMS_GRAD_REL = 2e-3, 5e-2
+
+
+def masked_batch_checks(cfg, arrays) -> dict:
+    """Phase 10 (f): phase 4's checks of #3 and #5 against their plain
+    versions on one real 1024-ray batch of ``cfg`` (``fast_sampling`` on),
+    then the batch's loss and leaf gradients through the fused arm (its
+    launches counted) against the nn.Module arm, the same seed for both.
+    Returns phase 4's readings."""
+    from nerf_replication_tpu_torch.run import load_model
+    from nerf_replication_tpu_torch.train import make_trainer
+    from nerf_replication_tpu_torch.train.cli import make_pipeline
+
+    print("masked batch (task_arg.fast_sampling): phase 4's checks")
+    readings = phase_train_kernels(cfg, arrays)
+    arms = {}
+    for fused in (True, False):
+        cfg_arm = cfg.clone()
+        cfg_arm.network.use_pallas_mlp_train = fused
+        net = load_model(cfg_arm, torch.device("cuda"))
+        wrapper = make_trainer(cfg_arm, net).wrapper
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rays = make_pipeline(cfg_arm, arrays, "cuda").sample(gen, 1 << 30)
+        reset_counts()
+        loss, _ = wrapper.loss_fn(rays, gen, train=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        arms[fused] = (float(loss.detach()), torch.cat(
+            [p.grad.ravel() for _, p in net.named_parameters()]),
+            read_counts())
+    (loss_k, grad_k, counts), (loss_m, grad_m, _) = arms[True], arms[False]
+    loss_rel = abs(loss_k - loss_m) / abs(loss_m)
+    grad_rel = float((grad_k - grad_m).norm() / grad_m.norm())
+    print(f"masked batch, fused arm against nn.Module arm: loss {loss_k:.6f} "
+          f"/ {loss_m:.6f} (rel {loss_rel:.2e} <= {ARMS_LOSS_REL}), all "
+          f"leaves rel-norm {grad_rel:.2e} (<= {ARMS_GRAD_REL}); the fused "
+          f"arm's counts {counts}")
+    if (counts["fwd"], counts["bwd"], counts["plain"], counts["module"]) \
+            != (2, 2, 0, 0):
+        fail(f"the masked batch did not run through #3-#5 alone: {counts}")
+    if loss_rel > ARMS_LOSS_REL or grad_rel > ARMS_GRAD_REL:
+        fail("the masked batch's fused arm disagrees with the nn.Module arm")
+    torch.cuda.empty_cache()
+    return readings
+
+
+def compact_chunks_against_plain(renderer, net, frame_args, caps,
+                                 pose) -> list[dict]:
+    """Phase 10 (d): #1 against its plain version on what the compacted
+    frame gives it: the first coarse chunk and the first fine chunk of
+    the 1-segment frame, and both ERT segments of the first fine chunk of
+    the 2-segment frame; fails the run where they disagree."""
+    from nerf_replication_tpu_torch.models.nerf.renderer import Renderer
+
+    H, W, focal, occupancy = frame_args
+    plain = plain_twin(net)
+    readings = []
+    for segments in (1, 2):
+        seen = []
+
+        def record(pts, viewdirs, model=""):
+            seen.append((pts.clone(), viewdirs.clone(), model))
+            return renderer.apply_fn(pts, viewdirs, model)
+
+        r = Renderer(net, settings=dataclasses.replace(
+            renderer.settings, ert_segments=segments)).use_apply(record)
+        fn = r.make_frame_renderer(H, W, focal, capacity=caps[0],
+                                   coarse_capacity=caps[1],
+                                   occupancy=occupancy)
+        fn(pose)
+        first_fine = fn.budget["coarse_rays"] // fn.budget["chunk"]
+        picks = ({"coarse chunk": 0, "fine chunk": first_fine}
+                 if segments == 1 else
+                 {"ERT segment 1": first_fine,
+                  "ERT segment 2": first_fine + 1})
+        for label, call in picks.items():
+            pts, viewdirs, model = seen[call]
+            with torch.inference_mode():
+                out_k = renderer.apply_fn(pts, viewdirs, model).reshape(-1, 4)
+                out_p = plain(pts, viewdirs, model).reshape(-1, 4)
+            a = agreement(out_k, out_p)
+            print(f"compacted frame: kernel vs plain on the {label}, "
+                  f"{tuple(pts.shape[:2])} samples: {describe(a)}")
+            if not a["ok"]:
+                fail(f"the kernel disagrees with its plain version on the "
+                     f"compacted frame's {label}")
+            readings.append({"n": out_k.shape[0], "err": a["max_abs_err"]})
+        del seen
+    torch.cuda.empty_cache()
+    return readings
+
+
+def phase_compact(argv, views, dense: dict, arrays) -> dict:
+    """Phase 10: the compacted frequency frame
+    (``Renderer.make_frame_renderer``, raymarch_bench's ``freq`` family)
+    at 800x800 through #1/#2, ``render_image_fast`` through ``run
+    --type evaluate``, and one masked training batch through #3-#5.
+    ``dense`` is phase 3's run_evaluate result. Returns its readings."""
+    from nerf_replication_tpu_torch import raymarch_bench as rb
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.evaluators import psnr_uint8
+    from nerf_replication_tpu_torch.run import (
+        build_grids,
+        build_renderer,
+        load_model,
+        run_evaluate,
+    )
+
+    record = COMPACT_RECORD
+    cfg = make_cfg(parse_args(argv))
+    net = load_model(cfg, torch.device("cuda"))
+    renderer = build_renderer(cfg, net)
+    H, W = int(views[0]["H"]), int(views[0]["W"])
+    focal = float(views[0]["focal"])
+    out = {}
+
+    # (a) the grid
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    occupancy, _ = build_grids(renderer.apply_fn, renderer.settings, "cuda",
+                               rb.FREQ_OCC_RES, 0, rb.FREQ_OCC_THRESH)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    share = occupancy[0].float().mean().item()
+    print(f"compacted frame: grid {rb.FREQ_OCC_RES}^3 threshold "
+          f"{rb.FREQ_OCC_THRESH} dilated 2: {share:.4f} occupied (JAX record "
+          f"{record['grid']}), built in {time.perf_counter() - t0:.3f} s "
+          f"with {counts['enc']} launches of #1")
+    if not counts["enc"] or counts["plain"] or counts["module"]:
+        fail(f"the compacted frame's grid was not built through #1: {counts}")
+
+    # (b), (c) the frame of orbit pose 0, autocap, the ERT gate
+    poses = [torch.as_tensor(p, device="cuda")
+             for p in rb.orbit_poses(FRAME_WINDOW)]
+    frame = rb.compact_frame(renderer, H, W, focal, occupancy, poses[0],
+                             log=lambda m: print(f"compacted frame: {m}"))
+    stats, caps = frame["stats"], frame["caps"]
+    print(f"compacted frame: stats {stats} after autocap to fine "
+          f"{caps[0]:.4f} / coarse {caps[1]:.4f} (JAX record "
+          f"{record['stats']}, first frame {record['first']}); ERT frame "
+          f"{frame['ert_stats']}")
+    print(f"compacted frame: ERT gate {frame['q_vs_dense_db']:.2f} dB of the "
+          f"2-segment frame against the 1-segment one (>= {rb.ERT_GATE_DB}; "
+          f"JAX record {record['q_vs_dense_db']}), {frame['gate']['kind']}")
+    if frame["gate"]["kind"] != "freq-ert":
+        fail("the ERT gate failed: the 2-segment frame lies below "
+             f"{rb.ERT_GATE_DB} dB of the 1-segment one")
+    gate = rb.Gate(views, [np.clip(rgb, 0, 1) for rgb in dense["rgb"]], True,
+                   dense["psnr"], FRAME_DROP_DB,
+                   log=lambda m: print(f"compacted frame: {m}"))
+    drops = {name: gate(frame[key], f"GT-drop check ({name})")
+             for name, key in (("ERT", "ert_fn"), ("1-segment", "dense_fn"))}
+    if not drops["ERT"][0]:
+        fail(f"the adopted compacted frame drops "
+             f"{drops['ERT'][1]['drop']:.4f} dB below the dense render")
+
+    # (d) #1 against plain on the frame's own chunks
+    checks = compact_chunks_against_plain(
+        renderer, net, (H, W, focal, occupancy), caps, poses[0])
+
+    # (e) render_image_fast through run --type evaluate
+    reset_counts()
+    fast = run_evaluate(make_cfg(parse_args(argv + [
+        "task_arg.fast_sampling", "True"])), loader=views)
+    counts = read_counts()
+    vs_dense = psnr_uint8(fast["rgb"][0], dense["rgb"][0])
+    print(f"render_image_fast (run --type evaluate, task_arg.fast_sampling): "
+          f"PSNR {fast['psnr']:.4f} dB against the dense {dense['psnr']:.4f}"
+          f" (<= {FAST_RENDER_MAX_DB} dB apart), view 0 against the dense "
+          f"render {vs_dense:.2f} dB, frame times "
+          f"{[round(t, 3) for t in fast['net_time']]} s (dense "
+          f"{[round(t, 3) for t in dense['net_time']]}), counts {counts}")
+    if abs(fast["psnr"] - dense["psnr"]) > FAST_RENDER_MAX_DB \
+            or not counts["enc"] or counts["plain"] or counts["module"]:
+        fail("render_image_fast is not the dense render through #1")
+
+    # (f) one masked training batch
+    train_cfg = make_cfg(parse_args(TRAIN_ARGV + [
+        "pretrain_path", "data/pretrain/hard", "task_arg.fast_sampling",
+        "True"]))
+    out["train"] = masked_batch_checks(train_cfg, arrays)
+
+    # (g) one frame's launches, a frame under sync debug, times, profile
+    b = frame["ert_fn"].budget
+    calls = (b["coarse_rays"] + b["fine_rays"] * b["fine_segments"]) \
+        // b["chunk"]
+    fns = {"ERT": frame["ert_fn"], "1-segment": frame["dense_fn"]}
+    fns["ERT"](poses[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    fns["ERT"](poses[0])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"compacted frame: one ERT frame's counts {counts} (expected enc "
+          f"{calls}, every other 0)")
+    if counts != dict.fromkeys(counts, 0) | {"enc": calls}:
+        fail(f"the compacted frame did not run through #1 alone: {counts}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fns["ERT"](poses[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("compacted frame: a warmed frame ran under "
+          "torch.cuda.set_sync_debug_mode('error')")
+    torch.cuda.reset_peak_memory_stats()
+    times = {name: frame_times(f"compacted frame ({name})", fn, poses[0],
+                               poses) for name, fn in fns.items()}
+    dense_s = [round(t, 3) for t in dense["net_time"]]
+    print(f"compacted frame: dense frame {dense_s} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    out["busy_ms"] = profile_runs(lambda: fns["ERT"](poses[0]), 1, "frame",
+                                  "frame_compact", warm=1)
+    out.update(checks=checks, frame_launches=counts["enc"], stats=stats,
+               caps=caps, gate=frame["q_vs_dense_db"], drops=drops,
+               fast_psnr=fast["psnr"], times=times)
+    del renderer, net
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=TRAIN_STEPS,
@@ -2249,7 +2505,6 @@ def main(argv=None):
 
     # -- 7. NGP training --------------------------------------------------
     brick = phase_ngp_train(arrays, views, opts.steps, opts.profile)
-    del arrays
     torch.cuda.empty_cache()
 
     # -- 8. the gather probes ---------------------------------------------
@@ -2261,18 +2516,30 @@ def main(argv=None):
              "ngp": phase_frame("ngp", NGP_ARGV, views, ngp["dense"],
                                 NGP_BOUNDS, "ngp")}
 
-    def entry(name, source, replaces, launches, readings, frame=None):
+    # -- 10. the compacted frequency frame ---------------------------------
+    compact = phase_compact(argv, views, res, arrays)
+    del arrays
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, launches, readings, frame=None,
+              compact=None, more=()):
         """One kernel of the summary: its last reading (its largest size
         on its path); library_ms is the one PyTorch call that computes the
         same function, where there is one (index_add_ for the table
         gradient), else null; for the kernels of the frame path
         (``frame``, phase 9's readings of the kernel), frame_launches is
-        its launches in one frame, and max_abs_err covers its checks
-        there too."""
+        its launches in one frame, for #1 on the compacted frame
+        (``compact``, phase 10's) compact_frame_launches too, and
+        max_abs_err covers their checks and the readings ``more``."""
         big = readings[-1]
-        checks = [] if frame is None else frame["checks"]
-        extra = ({} if frame is None
-                 else {"frame_launches": frame["frame_launches"]})
+        checks = list(more)
+        extra = {}
+        if frame is not None:
+            checks += frame["checks"]
+            extra["frame_launches"] = frame["frame_launches"]
+        if compact is not None:
+            checks += compact["checks"]
+            extra["compact_frame_launches"] = compact["frame_launches"]
         return {"name": name, "route": "cuda",
                 "source": f"nerf_replication_tpu_torch/csrc/{source}",
                 "replaces": f"nerf_replication_tpu/ops/pallas/{replaces}",
@@ -2299,11 +2566,13 @@ def main(argv=None):
     print(smi)
     print(json.dumps({"kernels": [
         entry("fused_nerf_mlp_enc", "fused_nerf_mlp.cu", "mlp_kernel.py:366",
-              launches, list(checks.values()), frame["freq_rm"]),
+              launches, list(checks.values()), frame["freq_rm"], compact),
         entry("fused_nerf_mlp", "fused_nerf_mlp.cu", "mlp_train.py:168",
-              counts["fwd"], train_checks["fwd"]),
+              counts["fwd"], train_checks["fwd"],
+              more=compact["train"]["fwd"]),
         entry("fused_nerf_mlp_bwd", "fused_nerf_mlp_bwd.cu",
-              "mlp_train.py:225", counts["bwd"], train_checks["bwd"]),
+              "mlp_train.py:225", counts["bwd"], train_checks["bwd"],
+              more=compact["train"]["bwd"]),
         entry("brick_encode_eval", "brick_encode_eval.cu",
               "eval_encode.py:202 and :245", ngp["launches"]["encode"],
               ngp["encode"]),

@@ -199,6 +199,17 @@ def _chunks(fn, chunk: int, *xs):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def partition(keep: torch.Tensor, count: int,
+              idx: torch.Tensor) -> torch.Tensor:
+    """The stable partition of ``keep`` (n,) bool (kept first, index order
+    kept within each class), its first ``count`` indices; ``idx`` is
+    ``arange(n)`` on the device. The argsort(~keep) permutation by cumsum
+    slots and one scatter, no sort and no host read."""
+    kept = keep.long().cumsum(0)          # cumsum(1 - keep) = i + 1 - kept
+    slot = torch.where(keep, kept - 1, kept[-1] + idx - kept)
+    return torch.empty_like(idx).scatter_(0, slot, idx)[:count]
+
+
 def make_ngp_frame_renderer(
     apply_fn, H: int, W: int, focal: float, occupancy, s,
     n_candidates: int = 32, n_coarse: int = 16, n_fine: int = 16,
@@ -317,14 +328,6 @@ def make_ngp_frame_renderer(
     def pad(x):
         return torch.cat([x, x.new_zeros(n_pad, *x.shape[1:])]) \
             if n_pad else x
-
-    def partition(keep, count, idx):
-        """The stable partition of ``keep`` (kept first, index order
-        kept within each class), its first ``count`` indices: the
-        argsort(~keep) permutation by cumsum slots and one scatter."""
-        kept = keep.long().cumsum(0)      # cumsum(1 - keep) = i + 1 - kept
-        slot = torch.where(keep, kept - 1, kept[-1] + idx - kept)
-        return torch.empty_like(idx).scatter_(0, slot, idx)[:count]
 
     def select(ro, rd, te, span):
         """``n_coarse`` of ``n_candidates`` depths a ray: occupied

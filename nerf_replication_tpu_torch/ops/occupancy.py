@@ -131,10 +131,11 @@ def ray_spans(rays_o: torch.Tensor, rays_d: torch.Tensor,
 
 
 def rays_active(rays_o: torch.Tensor, rays_d: torch.Tensor, t_probe,
-                grid: torch.Tensor, bbox) -> torch.Tensor:
+                grid: torch.Tensor, bbox, scale=None) -> torch.Tensor:
     """Probe occupancy along each ray at depths ``t_probe`` ((S,) or
-    (N, S)): active (N,) bool, any probe in an occupied cell."""
+    (N, S)): active (N,) bool, any probe in an occupied cell. ``scale`` as
+    for :func:`points_occupied`."""
     t = torch.as_tensor(t_probe, dtype=torch.float32, device=rays_o.device)
     t = t.expand(rays_o.shape[0], t.shape[-1])
     pts = rays_o[:, None] + rays_d[:, None] * t[..., None]      # (N, S, 3)
-    return points_occupied(pts, grid, bbox).any(dim=-1)
+    return points_occupied(pts, grid, bbox, scale).any(dim=-1)

@@ -1,10 +1,14 @@
 """Frame bench of the port: frames through the occupancy-raymarch frame
 path, behind a quality gate. The counterpart of bench.py's
 ``_raymarch_bench`` (bench.py:465) with ``run_freq_raymarch`` (:417) and
-``run_ngp`` (:314):
+``run_ngp`` (:314), and of its compacted frequency frame ``run_freq``
+(:784):
 
     python -m nerf_replication_tpu_torch.raymarch_bench --model freq_rm
     python -m nerf_replication_tpu_torch.raymarch_bench --model ngp
+    python -m nerf_replication_tpu_torch.raymarch_bench --model freq
+
+``freq_rm`` and ``ngp``:
 
 1. occupancy grids of the network's own density (64^3 dilated 2 cells for
    the span probe, 128^3 dilated 1 cell for the candidate selection);
@@ -25,6 +29,17 @@ path, behind a quality gate. The counterpart of bench.py's
    handful of frames), each frame dispatched before the last is read
    back; one JSON line in bench.py's shape (``render_fps_800x800`` with
    its ``gate`` dict; ``render_fps_<size>x<size>`` at another ``--size``).
+
+``freq`` (:func:`compact_frame`): the compacted frame of
+``Renderer.make_frame_renderer`` through the encode+MLP kernel, with one
+64^3 grid (threshold 0.05, dilated 2 cells); budgets 0.35 fine / 0.4
+coarse, refitted to the first frame's active rays (:func:`freq_autocap`);
+the 2-segment ERT fine pass adopted only if its frame of the first pose
+lies >= 45 dB from the 1-segment frame's (the ``gate``, kind ``freq-ert``
+or ``freq-dense``). Beside it the other families' gate (:class:`Gate`:
+on the GT views a drop of at most 0.2 dB against the dense render) as a
+check, reported as ``gt_drop``; a failed check is a warning line, as an
+overflow is.
 
 bench.py's defaults are constants here; ``--size``, ``--frames`` and
 ``--ray_chunk`` (a reading at another chunk than the config's says so in
@@ -49,7 +64,7 @@ import torch
 
 from .config import make_cfg, parse_args
 from .evaluators import psnr_uint8
-from .models.nerf.renderer import RenderSettings, ngp_renderer
+from .models.nerf.renderer import Renderer, RenderSettings, ngp_renderer
 from .run import build_grids, build_renderer, load_model, resolve_device
 from .utils import synthetic_scene
 
@@ -57,6 +72,8 @@ from .utils import synthetic_scene
 DEFAULT_LADDER = ("16,8,6;24,10,8;32,10,10;32,12,10;32,12,12;32,14,12;"
                   "40,16,14;48,20,16;64,32,24")
 MODELS = {
+    "freq": ["--cfg_file", "configs/nerf/hard.yaml", "pretrain_path",
+             "data/pretrain/hard"],
     "freq_rm": ["--cfg_file", "configs/nerf/hard.yaml", "pretrain_path",
                 "data/pretrain/hard"],
     "ngp": ["--cfg_file", "configs/nerf/hard_ngp.yaml", "pretrain_path",
@@ -74,6 +91,11 @@ CAPACITY = 0.35
 PROBE = ("auto", 2)
 GATE_DROP_DB, GATE_DB = 0.2, 40.0
 CAMERA_ANGLE_X = synthetic_scene.CAMERA_ANGLE_X
+# run_freq's defaults (BENCH_OCC_RES, BENCH_OCC_THRESH, BENCH_CAPACITY,
+# BENCH_COARSE_CAPACITY, BENCH_ERT_GATE)
+FREQ_OCC_RES, FREQ_OCC_THRESH = 64, 0.05
+FREQ_CAPACITY, FREQ_COARSE_CAPACITY = 0.35, 0.4
+ERT_GATE_DB = 45.0
 
 
 def parse_ladder(text: str) -> list[tuple[int, int, int]]:
@@ -230,6 +252,75 @@ def frame_factory(apply_fn, H: int, W: int, focal: float, occupancy,
     return build
 
 
+def freq_autocap(active_rays: float, n_pixels: int, capacity: float,
+                 coarse_capacity: float) -> tuple[float, float] | None:
+    """run_freq's budgets fitted to a frame's active rays (bench.py:868-
+    880): coarse ``min(1, a x 1.15 + 0.02)``, fine ``min(coarse, a x 1.10 +
+    0.02)`` of the active share ``a``; None unless either moves by more
+    than 0.03."""
+    active = active_rays / n_pixels
+    new_ccap = min(1.0, active * 1.15 + 0.02)
+    new_cap = min(new_ccap, active * 1.10 + 0.02)
+    if abs(new_ccap - coarse_capacity) > 0.03 or abs(new_cap - capacity) \
+            > 0.03:
+        return new_cap, new_ccap
+    return None
+
+
+def compact_frame(renderer, H: int, W: int, focal: float, occupancy,
+                  first_pose, log=print) -> dict:
+    """The ``freq`` family's frame (bench.py:784-917): uint8 frames of
+    ``Renderer.make_frame_renderer`` with ``occupancy``, at the default
+    budgets, refitted once to ``first_pose``'s active rays
+    (:func:`freq_autocap`); a warning on any overflow; then the ERT gate,
+    the 2-segment frame of ``first_pose`` against the 1-segment one, the
+    former adopted at >= ERT_GATE_DB. Returns the adopted ``fn``, both
+    frames (``dense_fn`` 1 segment, ``ert_fn`` 2), ``caps`` (fine,
+    coarse), the 1-segment ``stats`` and the ERT frame's ``ert_stats`` of
+    ``first_pose``, and the ``gate`` dict."""
+    def build(capacity, coarse_capacity, segments):
+        r = Renderer(renderer.net, settings=dataclasses.replace(
+            renderer.settings, ert_segments=segments)).use_apply(
+                renderer.apply_fn)
+        return r.make_frame_renderer(
+            H, W, focal, capacity=capacity, coarse_capacity=coarse_capacity,
+            out_dtype=torch.uint8, occupancy=occupancy, return_stats=True)
+
+    caps = (FREQ_CAPACITY, FREQ_COARSE_CAPACITY)
+    fn = build(*caps, 1)
+    img, stats = fn(first_pose)
+    stats = host_stats(stats)
+    log(f"frame stats: {stats}")
+    fitted = freq_autocap(stats["active_rays"], H * W, *caps)
+    if fitted is not None:
+        log(f"autocap: active {stats['active_rays'] / (H * W):.3f} -> "
+            f"coarse {fitted[1]:.2f}, fine {fitted[0]:.2f}")
+        caps = fitted
+        fn = build(*caps, 1)
+        img, stats = fn(first_pose)
+        stats = host_stats(stats)
+        log(f"frame stats: {stats}")
+    if stats["coarse_overflow"] or stats["fine_overflow"]:
+        log("WARNING: capacity overflow - some real rays rendered "
+            "coarse-only or as background")
+    ert_fn = build(*caps, 2)
+    ert_img, ert_stats = ert_fn(first_pose)
+    q = psnr_uint8(ert_img.cpu().numpy().astype(np.float32) / 255.0,
+                   img.cpu().numpy().astype(np.float32) / 255.0)
+    if q >= ERT_GATE_DB:
+        log(f"ERT gate PASSED ({q:.1f} dB >= {ERT_GATE_DB}): 2-segment ERT "
+            "on")
+        gate = {"kind": "freq-ert", "q_vs_dense_db": round(q, 1),
+                "gate_db": ERT_GATE_DB}
+    else:
+        log(f"ERT gate failed ({q:.1f} dB < {ERT_GATE_DB}): dense path kept")
+        gate = {"kind": "freq-dense", "q_vs_dense_db": round(q, 1)}
+    return {"fn": ert_fn if q >= ERT_GATE_DB else fn, "dense_fn": fn,
+            "ert_fn": ert_fn, "caps": caps, "stats": stats,
+            "ert_stats": host_stats(ert_stats), "gate": gate,
+            "q_vs_dense_db": q}
+
+
 def orbit_poses(frames: int) -> list[np.ndarray]:
     """bench.py's orbit: ``frames`` poses at radius 4, height 1.5."""
     return [synthetic_scene.look_at_pose(np.array(
@@ -292,8 +383,10 @@ def main(argv=None) -> dict:
         f"{settings.ray_chunk}, device {device}")
 
     t0 = time.perf_counter()
-    occupancy, select = build_grids(apply_fn, settings, device, OCC_RES,
-                                    SEL_RES, OCC_THRESH)
+    occupancy, select = (
+        build_grids(apply_fn, settings, device, FREQ_OCC_RES, 0,
+                    FREQ_OCC_THRESH) if a.model == "freq" else
+        build_grids(apply_fn, settings, device, OCC_RES, SEL_RES, OCC_THRESH))
     if device.type == "cuda":
         torch.cuda.synchronize()
     grid_s = time.perf_counter() - t0
@@ -327,16 +420,35 @@ def main(argv=None) -> dict:
                   if gt else None)
     log(f"dense reference: {dense_s:.3f} s a frame"
         + (f", test PSNR {dense_psnr:.4f} dB" if gt else ""))
+    out = {"metric": f"render_fps_{H}x{W}", "unit": "fps",
+           "platform": "gpu" if device.type == "cuda" else device.type,
+           "device": card() if device.type == "cuda" else "cpu",
+           "size": H, "ray_chunk": settings.ray_chunk}
+    poses = [torch.as_tensor(p, device=device)
+             for p in orbit_poses(a.frames)]
     gate = Gate(views, dense, gt, dense_psnr, GATE_DROP_DB, GATE_DB, log)
+    if a.model == "freq":
+        frame = compact_frame(renderer, H, W, focal, occupancy, poses[0],
+                              log=log)
+        passed, info = gate(frame["fn"], "GT-drop check")
+        if not passed:
+            log("WARNING: the compacted frame fails the GT-drop check")
+        summary = {**frame["gate"], "family": a.model,
+                   "caps": list(frame["caps"]), "stats": frame["stats"],
+                   "gt_drop": {"passed": passed, **info}}
+        time_frames(frame["fn"], poses[:1])          # warm-up
+        per = time_frames(frame["fn"], poses)
+        log(f"frames: {len(poses)} at {per:.4f} s a frame")
+        out.update(value=round(1.0 / per, 3),
+                   vs_baseline=round(1.0 / per / BASELINE_FPS, 3),
+                   gate=summary)
+        print(json.dumps(out))
+        return out
 
     chosen, bf16 = gated_frame(net, apply_fn,
                                (H, W, focal, occupancy, select, settings),
                                gate, parse_ladder(DEFAULT_LADDER),
                                views[0]["pose"], log=log)
-    out = {"metric": f"render_fps_{H}x{W}", "unit": "fps",
-           "platform": "gpu" if device.type == "cuda" else device.type,
-           "device": card() if device.type == "cuda" else "cpu",
-           "size": H, "ray_chunk": settings.ray_chunk}
     if chosen is None:
         log("gate: no ladder step passed; reporting the dense path's fps")
         fps = 1.0 / dense_s
@@ -349,8 +461,6 @@ def main(argv=None) -> dict:
     log(f"gate PASSED at C,M,F={chosen['step']} "
         f"({chosen['info']['q_vs_dense_db']:.2f} dB vs dense frame)")
     fn = bf16["fn"] if bf16 and bf16["passed"] else chosen["fn"]
-    poses = [torch.as_tensor(p, device=device)
-             for p in orbit_poses(a.frames)]
     time_frames(fn, poses[:1])          # warm-up
     per = time_frames(fn, poses)
     fps = 1.0 / per

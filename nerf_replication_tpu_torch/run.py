@@ -22,6 +22,10 @@ encode + NGP MLP kernel for brick hash-grid NGP networks, e.g.
 A network the kernel does not cover then raises; with the flag off the
 plain ``nn.Module`` network runs.
 
+``task_arg.fast_sampling True`` renders every view through
+``Renderer.render_image_fast`` (a coarse pass over every ray, the fine pass
+over the rays it finds opaque), the reference's ``fast_sampling`` eval.
+
 ``task_arg.fast_render True`` renders every batch that carries a camera
 ``pose`` through the occupancy-raymarch frame renderer
 (``ngp_renderer.make_ngp_frame_renderer``) instead of the dense path, with

@@ -97,10 +97,25 @@ def test_render_settings_from_hard_cfg(port_cfg):
     assert s.density_activation == "softplus"
 
 
-def test_render_settings_refuse_unported_fast_sampling(port_cfg):
+def test_render_settings_parse_fast_sampling_and_ert(port_cfg):
+    """The ESS/ERT keys as the JAX package reads them, ``ert_frac`` a YAML
+    list made a tuple of floats; flags strict, a non-list ``ert_frac``
+    refused."""
     cfg = port_cfg.clone()
-    cfg.task_arg.fast_sampling = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.task_arg.update({"fast_sampling": True, "ess_verbose": 1,
+                         "weights_threshold": 0.3, "ert_threshold": 0.5,
+                         "ert_segments": 3, "ert_eps": 1e-3,
+                         "ert_frac": [0.6, 1], "ert_split": 0.5})
+    s = RenderSettings.from_cfg(cfg)
+    assert (s.fast_sampling, s.ess_verbose, s.weights_threshold,
+            s.ert_threshold, s.ert_segments, s.ert_eps, s.ert_frac,
+            s.ert_split) == (True, True, 0.3, 0.5, 3, 1e-3, (0.6, 1.0), 0.5)
+    cfg.task_arg.fast_sampling = "false"
+    with pytest.raises(TypeError, match="fast_sampling"):
+        RenderSettings.from_cfg(cfg)
+    cfg.task_arg.fast_sampling = False
+    cfg.task_arg.ert_frac = "0.5"
+    with pytest.raises(TypeError, match="ert_frac"):
         RenderSettings.from_cfg(cfg)
 
 
