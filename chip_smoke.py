@@ -159,12 +159,41 @@ Phases (any failure exits non-zero):
    with the host's issue time) and two 100-frame windows, each for the ERT
    frame and the 1-segment one, the device busy ms and idle share of one
    profiled ERT frame.
+11. the vertex-exact ``xla`` hash grid (plain PyTorch: the JAX package
+   runs it in XLA, no Pallas kernel) and the composite encoders. (a)
+   configs/nerf/hard_ngp.yaml with ``network.xyz_encoder.backend xla`` (12
+   levels, 6 hashed at 2^19 rows: 3,963,248 x 2, a seeded U(-1, 1) table)
+   on the points of one real 1024-ray batch (49,152 coarse and 114,688
+   fine) and of one 8000-ray eval chunk of view 0 (384,000 and 896,000):
+   the corner rows bit-equal to the CPU's, the forward against the CPU's
+   float64 sum of the same products, the bf16 arm against its own CPU run;
+   on the training points also the table gradient (a seeded cotangent)
+   against float64 sums of its contributions, every row within its
+   worst-case summation bound, and the input gradient against the CPU's
+   float32 run; CUDA-event times of the forward and backward beside the
+   byte bound, one ``index_add_`` of the contributions and a sort of
+   their rows, and #6/#7 on the same points. (b) 2000 steps of that
+   config from a fresh init (seed 0) through ``train()`` in four epochs,
+   each after the first resumed: rays/s, peak memory, no kernel launched
+   (the nn.Module and the xla encode, 2 calls a step), eval PSNR of hard
+   test views 0 and 4 after each epoch beside phase 7's brick arm, the
+   last above the NGP floor, the checkpoint read back bit for bit. (c)
+   ``run_evaluate`` of views 0 and 4 from that checkpoint, densely at
+   800x800: the trained network's images bit for bit, frame times, the
+   device busy ms and idle share of one profiled frame. (d) the 11
+   composite and D-NeRF encoder names at the reference's defaults (16
+   levels, ``log2_hashmap_size`` 19; dnerf W 256, D 8; 3 frames) on
+   65,536 seeded points: forward, every parameter gradient and the points'
+   on the card against the CPU in float64, and the card's float32 run
+   against its float64 one (reported).
 Every CUDA-event time is the median of five rounds after one warm-up
 call (``cuda_times``). The last three lines are the card's name and power
 limit, the kernel summary (each kernel's launches on its path, error,
 times and bound; ``frame_launches`` for the frame path's kernels: their
 launches in one frame, ``compact_frame_launches`` #1's in one compacted
-frame) and the device, the last two as JSON.
+frame; under ``plain_pytorch`` the xla encode, which is no kernel: its
+calls in phase 11's training, errors, times and bounds) and the device,
+the last two as JSON.
 """
 
 from __future__ import annotations
@@ -705,6 +734,7 @@ def ray_points(n: int, gen: torch.Generator):
 def _counters():
     """(object, attribute) of every wrapper's launch count and every plain
     version's and nn.Module's call count."""
+    from nerf_replication_tpu_torch.models.encoding import hashgrid
     from nerf_replication_tpu_torch.models.nerf.network import NeRFMLP, Network
     from nerf_replication_tpu_torch.ops import (
         eval_encode,
@@ -734,6 +764,7 @@ def _counters():
             hashgrid_kernel.brick_encode_bwd_reference)],
         "module": [(Network, "calls")],
         "mlp": [(NeRFMLP, "calls")],
+        "xla_encode": [(hashgrid.hash_encode, "calls")],
     }
 
 
@@ -746,7 +777,8 @@ def reset_counts():
 
 def read_counts() -> dict:
     """Launches of each kernel; calls of the plain versions (summed), of
-    ``Network.forward`` (module) and of ``NeRFMLP.forward`` (mlp)."""
+    ``Network.forward`` (module), of ``NeRFMLP.forward`` (mlp) and of the
+    xla hash grid's encode (xla_encode, plain PyTorch: no kernel)."""
     return {name: sum(getattr(obj, attr) for obj, attr in counter)
             for name, counter in _counters().items()}
 
@@ -883,10 +915,17 @@ PROFILE_PARTS = (
 
 
 def profile_runs(run, count: int, unit: str, tag: str, warm: int = 3):
+    """The device busy ms a call of :func:`profile_reading`."""
+    return profile_reading(run, count, unit, tag, warm)["busy_ms"]
+
+
+def profile_reading(run, count: int, unit: str, tag: str,
+                    warm: int = 3) -> dict:
     """``count`` calls of ``run`` (after ``warm`` to warm up) under
     torch.profiler: the device time a call by part (PROFILE_PARTS, the rest
     as "other") and the idle share of the wall time; the full table goes to
-    build/profile_<tag>.txt. Returns the device busy ms a call."""
+    build/profile_<tag>.txt. Returns the device busy ms and the wall ms a
+    call, and the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -917,7 +956,8 @@ def profile_runs(run, count: int, unit: str, tag: str, warm: int = 3):
           f"{100 * (1 - busy / wall):.1f}%); device ms a {unit}: " + "; ".join(
               f"{name} {t / 1e3 / count:.3f}" for name, t in
               sorted(parts.items(), key=lambda kv: -kv[1])))
-    return busy * 1e3 / count
+    return {"busy_ms": busy * 1e3 / count, "wall_ms": wall * 1e3 / count,
+            "idle": 1 - busy / wall}
 
 
 def profile_steps(trainer, pipeline, steps: int, tag: str):
@@ -1446,18 +1486,27 @@ def describe_brick_bwd(a: dict) -> str:
 def brick_real_batch(log2_bricks: int, arrays):
     """A hard_ngp network of that brick cap, NGP_WARM_STEPS training steps
     from its seed-0 init, and what its encoder sees on one more real
-    batch: [(x, g) of the coarse pass, (x, g) of the fine pass], g the
-    loss's gradient with respect to the encoder's output."""
+    batch (:func:`encoder_real_batch`)."""
+    cfg = _ngp_train_cfg("network.xyz_encoder.log2_bricks", str(log2_bricks),
+                         "ep_iter", str(NGP_WARM_STEPS))
+    return encoder_real_batch(cfg, arrays, warm=True)
+
+
+def encoder_real_batch(cfg, arrays, warm: bool):
+    """The config's network from its seed-0 init, after one epoch of
+    ``ep_iter`` training steps when ``warm``, and what its encoder sees on
+    one more real batch: [(x, g) of the coarse pass, (x, g) of the fine
+    pass], x in [0,1]^3 and g the loss's gradient with respect to the
+    encoder's output."""
     from nerf_replication_tpu_torch.models import make_network
     from nerf_replication_tpu_torch.train import make_trainer
     from nerf_replication_tpu_torch.train.cli import make_pipeline
 
-    cfg = _ngp_train_cfg("network.xyz_encoder.log2_bricks", str(log2_bricks),
-                         "ep_iter", str(NGP_WARM_STEPS))
     net = make_network(cfg).cuda()
     trainer = make_trainer(cfg, net)
     pipeline = make_pipeline(cfg, arrays, "cuda")
-    trainer.train_device(0, pipeline)
+    if warm:
+        trainer.train_device(0, pipeline)
     seen = []
 
     def capture(encoder, inputs, output):
@@ -1638,19 +1687,22 @@ def ngp_checkpoint_round_trip(arm: dict, view) -> bool:
 
 
 def ngp_train_arm(plain: bool, arrays, views, steps: int,
-                  stops=(1, 2, 3, 4)) -> dict:
-    """One arm of phase 7 through the train CLI's ``train()``: epochs of
-    ``steps // 4`` steps from the fresh seed-0 init up to the first of
-    ``stops``, then a run resumed from the checkpoint up to each later
-    stop, with an eval at every stop. ``plain`` forces the encoder's
-    autograd.Function to its plain forward and backward on the card."""
+                  stops=(1, 2, 3, 4), label: str | None = None,
+                  extra=()) -> dict:
+    """One arm of phase 7 (and of phase 11, with the config options
+    ``extra``) through the train CLI's ``train()``: epochs of ``steps //
+    4`` steps from the fresh seed-0 init up to the first of ``stops``, then
+    a run resumed from the checkpoint up to each later stop, with an eval
+    through the eval renderer at every stop. ``plain`` forces the brick
+    encoder's autograd.Function to its plain forward and backward on the
+    card."""
     from nerf_replication_tpu_torch.evaluators import psnr_uint8
     from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
     from nerf_replication_tpu_torch.run import build_renderer
     from nerf_replication_tpu_torch.train.cli import train
 
-    label = "plain" if plain else "kernels"
-    opts = ["ep_iter", str(steps // 4), "trained_model_dir",
+    label = label or ("plain" if plain else "kernels")
+    opts = [*extra, "ep_iter", str(steps // 4), "trained_model_dir",
             f"build/smoke_ngp_train_{label}"]
 
     def evaluate(net):
@@ -1678,7 +1730,8 @@ def ngp_train_arm(plain: bool, arrays, views, steps: int,
             images, evals[trainer.step] = evaluate(trainer.network)
     losses = np.concatenate([s["loss"] for s in summaries])
     psnrs = np.concatenate([s["psnr"] for s in summaries])
-    arm = dict(cfg=cfg, trainer=trainer, counts=counts, steps=trainer.step,
+    arm = dict(cfg=cfg, model_dir=opts[-1], trainer=trainer, counts=counts,
+               steps=trainer.step,
                losses=losses, images=images, evals=evals, peak_gb=peak_gb,
                eval_psnr=evals[trainer.step],
                rays_per_s=[s["rays_per_s"] for s in summaries])
@@ -1688,8 +1741,8 @@ def ngp_train_arm(plain: bool, arrays, views, steps: int,
           f"{[round(r) for r in arm['rays_per_s']]}, final smoothed loss "
           f"{float(np.median(losses[-20:])):.5f}, train PSNR "
           f"{float(np.median(psnrs[-20:])):.2f} dB, peak memory in training "
-          f"{peak_gb:.2f} GB, eval PSNR (hard test views 0, 4, 800x800, fused "
-          f"NGP eval) by step "
+          f"{peak_gb:.2f} GB, eval PSNR (hard test views 0, 4, 800x800, eval "
+          f"renderer) by step "
           f"{ {step: round(db, 4) for step, db in evals.items()} }, counts in "
           f"training {counts}")
     return arm
@@ -1754,6 +1807,7 @@ def phase_ngp_train(arrays, views, steps: int, profile: int) -> dict:
         fail("the NGP checkpoint does not give back the trained state")
     res["launches"] = {"fwd": k["counts"]["brick_fwd"],
                        "bwd": k["counts"]["brick_bwd"]}
+    res["evals"] = k["evals"]
     return res
 
 
@@ -1834,10 +1888,14 @@ def plain_twin(net, mlp_bf16: bool = False):
     """The eval apply of ``net`` that the frame path uses, with its kernel
     wrapper replaced by the kernel's plain version (the same weights, the
     same inputs): #10 (the arm ``mlp_bf16`` names) for a brick-NGP
-    network, #1 for a frequency one."""
+    network, #1 for a frequency one; an xla-grid network runs no kernel,
+    so its nn.Module is its own plain twin."""
     from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
     from nerf_replication_tpu_torch.ops import fused_ngp, mlp_kernel
 
+    if ngp_renderer.is_xla_ngp(net):
+        print("xla hash grid: the nn.Module network is its own plain twin")
+        return net
     if ngp_renderer.is_brick_ngp(net):
         apply = ngp_renderer.make_ngp_eval_apply(net, mlp_bf16=mlp_bf16)
         patch = (fused_ngp, "fused_ngp_eval",
@@ -2316,6 +2374,450 @@ def phase_compact(argv, views, dense: dict, arrays) -> dict:
     return out
 
 
+# -- phase 11: the vertex-exact xla hash grid and the composite encoders --
+
+XLA_OPTS = ("network.xyz_encoder.backend", "xla")
+# The xla encode on the card against the same function on the CPU. The
+# corner rows and weights come from the same f32 points on both (both
+# bit-equal); the forward's reference sums the products in f64. The card's
+# f32 sum of 8 products is within 15 roundings of 2^-24 of the sum of
+# |w v|, which is at most max |table| (the weights sum to 1):
+# XLA_FWD_TOL x max |table|.
+XLA_FWD_TOL = 1e-6
+# Table gradient: the f32 contributions w x g (bit-equal on both) added on
+# the card in any order (atomics) against their f64 sum; a row of n
+# contributions lies within n x 2^-24 of the sum of their |value|, the
+# worst case of any summation order, and a row no corner touches is
+# exactly zero. Input gradient: the card against the CPU's f32
+# run, which differ in summation order alone: within XLA_DX_TOL of the
+# column's max |dx|.
+XLA_DX_TOL = 1e-5
+# The bf16 arm against its own CPU run: one bf16 rounding of an f32 sum of
+# the C = 2^D corners' bf16 products, added in another order: the two f32
+# sums lie within 2 C x 2^-24 of the sum of |products| (at most max
+# |table|) of each other, and their roundings at most one bf16 step (2^-7
+# of the element) further apart (:func:`xla_bf16_agreement`); most are
+# bit-equal.
+XLA_BF16_REL = 2.0 ** -7
+XLA_BF16_EQUAL = 0.99
+XLA_REPS = 5
+COMPOSITES = ("triplane", "cuda_triplane", "cuda_hashgrid_latent",
+              "cuda_hashgrid_4d", "cuda_hashgrid_coef", "cuda_motion2d",
+              "dnerf", "dnerf_mlp_tensorf", "dnerf_ngp_mlp",
+              "dnerf_ngp_tensorf", "cuda_dnerf_ngp_tensorf")
+COMPOSITE_POINTS = 65_536
+# The composites on the card against the CPU in float64, on points
+# rounded to float32 (so the float32 run sees the same points): the same
+# arithmetic in another order. Where a coordinate comes out of a warp
+# (Motion2D, the D-NeRF family), the two may round it one f64 ulp apart,
+# which the defaults' finest level (16 x 2^15 cells a side) magnifies
+# ~5e5-fold: those read up to ~4.4e-10 of a leaf's max, the others
+# ~2e-15 (PERF.md section 6). Every output and gradient
+# element within COMPOSITE_F64_TOL of its leaf's max |value|. The card's
+# float32 run against the CPU's float32 run on the same points and
+# weights, each leaf by its relative Frobenius norm: within
+# COMPOSITE_F32_TOL where no point is moved (the same arithmetic but for
+# the order of GEMM and index_add_ sums; read <= 3.6e-6, the latent
+# codes' gradient, on the H100); where an MLP or a tensor moves the
+# points (COMPOSITE_WARPS), within COMPOSITE_F32_WARP_TOL times the CPU's
+# own float32 error against its float64 run, since cuBLAS and the CPU
+# round the moved coordinates apart and a moved coordinate one ulp apart
+# is a few hundredths of a finest cell, so those leaves are as far apart
+# as float32 is from exact (read <= 1.30, Motion2D's output layer).
+# Equal float32 errors on both devices put that ratio at <= 2. The card's
+# float32 run against its float64 one is reported, not gated: the
+# normalisation's f32 rounding alone moves a coordinate by hundredths of
+# a finest cell.
+COMPOSITE_F64_TOL = 1e-8
+COMPOSITE_F32_TOL = 5e-5
+COMPOSITE_F32_WARP_TOL = 2.0
+COMPOSITE_WARPS = ("cuda_motion2d", "dnerf", "dnerf_mlp_tensorf",
+                   "dnerf_ngp_mlp", "dnerf_ngp_tensorf",
+                   "cuda_dnerf_ngp_tensorf")
+
+
+def xla_forward_f64(layout, table, x):
+    """The xla encode's reference on the CPU: the corner rows and weights
+    of the f32 points ``x``, the products summed in float64. Returns
+    (features, rows, weights)."""
+    from nerf_replication_tpu_torch.models.encoding import hashgrid as hg
+
+    idx, w = hg._indices_weights(layout, x.cpu())
+    n, L, F = x.shape[0], len(layout.scales), layout.n_features
+    vals = table.detach().cpu().double()[idx.reshape(-1)].reshape(n, L, -1, F)
+    out = (w.double().reshape(n, L, -1, 1) * vals).sum(2)
+    return out.reshape(n, L * F), idx, w
+
+
+def xla_bf16_agreement(out16, ref16, layout, table) -> tuple:
+    """The bf16 arm's features against its CPU run: (within the bound,
+    max error, the share bit-equal)."""
+    err = (out16.cpu() - ref16).abs()
+    limit = (XLA_BF16_REL * ref16.abs() + 2 * 2 ** layout.input_dim
+             * 2.0 ** -24 * float(table.abs().max()))
+    return (bool((err <= limit).all()), float(err.max()),
+            float((err == 0).float().mean()))
+
+
+def xla_table_grad_f64(layout, x, g, rows: int):
+    """The table gradient's f32 contributions on the CPU, summed in f64 by
+    row, with the f64 sums of their |value| and their count a row."""
+    from nerf_replication_tpu_torch.models.encoding import hashgrid as hg
+
+    idx, w = hg._indices_weights(layout, x.cpu())
+    n, L, F = x.shape[0], len(layout.scales), layout.n_features
+    u = (w.reshape(n, L, -1, 1) * g.cpu().reshape(n, L, 1, F)).reshape(-1, F)
+    ids, u = idx.reshape(-1), u.double()
+    zeros = torch.zeros(rows, F, dtype=torch.float64)
+    count = torch.zeros(rows, dtype=torch.float64).index_add_(
+        0, ids, torch.ones(ids.shape[0], dtype=torch.float64))
+    return (zeros.index_add(0, ids, u), zeros.index_add(0, ids, u.abs()),
+            count)
+
+
+def xla_grad_agreement(dtable, ref) -> dict:
+    """A table gradient against :func:`xla_table_grad_f64`'s sums: ``ok``
+    when finite and every element within its row's worst-case summation
+    bound (rows no corner touches: exactly zero); ``worst`` is the largest
+    error over its bound."""
+    sums, absum, count = ref
+    err = (dtable.cpu().double() - sums).abs()
+    limit = count[:, None] * 2.0 ** -24 * absum
+    untouched = count == 0
+    return dict(ok=bool(torch.isfinite(dtable).all())
+                and bool((err <= limit).all()),
+                worst=float((err / limit.clamp_min(1e-300))[~untouched].max()),
+                untouched_zero=not bool(dtable.cpu()[untouched].any()),
+                max_abs_err=float(err.max()))
+
+
+def xla_encode_against_cpu(arrays, views) -> dict:
+    """Phase 11 (a): the xla encode of hard_ngp.yaml (backend xla; a seeded
+    U(-1, 1) table) on the points of one real training batch and of one
+    eval chunk, against the CPU; its times, #6/#7's on the training
+    points, and its byte bound. Returns the readings by size."""
+    from nerf_replication_tpu_torch.models.encoding import hashgrid as hg
+    from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
+
+    cfg = _ngp_train_cfg(*XLA_OPTS)
+    net, batches = encoder_real_batch(cfg, arrays, warm=False)
+    enc = net.xyz_encoder
+    layout = enc.layout
+    rows, F = enc.table.shape
+    L = len(layout.scales)
+    print(f"xla grid of hard_ngp.yaml: {L} levels {layout.scales}, "
+          f"{sum(layout.use_hash)} of them hashed (2^19 rows), {rows:,} rows "
+          f"x {F} features ({rows * F * 4 / 1e6:.1f} MB in f32)")
+    with torch.no_grad():
+        chunk = ngp_chunk_samples(cfg, net, views[0])
+    points = [(f"train {b}", x, True) for b, (x, _) in zip(("coarse", "fine"),
+                                                           batches)]
+    points += [(f"eval {b}", enc.to_unit(chunk[b][0].reshape(-1, 3)), False)
+               for b in ("coarse", "fine")]
+    del net, batches, chunk
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    table = torch.empty(rows, F, device="cuda").uniform_(-1, 1, generator=gen)
+    table16 = table.to(torch.bfloat16)
+    blayout = hk.make_brick_layout(L, 16, 512, log2_bricks=12)
+    btable = torch.empty(blayout.n_rows, hk.ROW, device="cuda").uniform_(
+        -1, 1, generator=gen)
+    flops_pt = L * (2 ** 3 * (2 * F + 3))     # weights, products, sums
+    out_res = []
+    for tag, x, train in points:
+        n = x.shape[0]
+        x = x.contiguous()
+        with torch.no_grad():
+            out = hg.hash_encode(layout, table, x)
+            out16 = hg.hash_encode(layout, table16, x)
+            idx, w = hg._indices_weights(layout, x)
+        ref, idx_cpu, w_cpu = xla_forward_f64(layout, table, x)
+        same_rows = torch.equal(idx.cpu(), idx_cpu)
+        same_w = torch.equal(w.cpu(), w_cpu)
+        del idx, w, idx_cpu, w_cpu
+        err = float((out.cpu().double() - ref).abs().max())
+        limit = XLA_FWD_TOL * float(table.abs().max())
+        ref16 = hg.encode_forward(layout, table16.cpu(), x.cpu())
+        ok16, err16, equal16 = xla_bf16_agreement(out16, ref16, layout,
+                                                  table)
+        fwd = cuda_times(lambda: hg.hash_encode(layout, table, x), XLA_REPS)
+        fwd16 = cuda_ms(lambda: hg.hash_encode(layout, table16, x), XLA_REPS)
+        reading = dict(n=n, err=err, ms=fwd[TIMING_ROUNDS // 2],
+                       bf16_ms=fwd16, **bound(
+                           nbytes(x, out) + n * 8 * L * F * 4,
+                           n * flops_pt, "f32"))
+        print(f"xla encode vs the CPU in f64, {tag} N={n}: rows bit-equal "
+              f"{same_rows}, weights bit-equal {same_w}; max_abs_err "
+              f"{err:.3e} (<= {limit:.3e}); bf16 arm vs its CPU run: max err "
+              f"{err16:.3e} (within its bound: {ok16}), "
+              f"bit-equal {equal16:.4%} (>= {XLA_BF16_EQUAL:.0%}) | forward "
+              f"{spread(fwd)}, bf16 {fwd16:.4f} ms, bound "
+              f"{reading['bound_ms']:.4f} ms by {reading['bound_by']} "
+              f"({reading['bound_ms'] / reading['ms']:.1%} of it reached)")
+        if not (same_rows and same_w and err <= limit and ok16
+                and equal16 >= XLA_BF16_EQUAL
+                and bool(torch.isfinite(out).all())):
+            fail(f"the xla encode disagrees with the CPU, {tag}")
+        if train:
+            reading.update(xla_backward_against_cpu(
+                tag, layout, table, x, rows, blayout, btable))
+        out_res.append(reading)
+        del out, out16, ref, ref16
+        torch.cuda.empty_cache()
+    return {"readings": out_res, "rows": rows}
+
+
+def xla_backward_against_cpu(tag, layout, table, x, rows, blayout,
+                             btable) -> dict:
+    """Phase 11 (a) on a training batch's points: the table gradient for a
+    seeded cotangent and the input gradient against the CPU, the
+    backward's times, one ``index_add_`` of its contributions, the sort
+    of their rows that the JAX package's ``sorted_bwd`` would add, and
+    #6/#7 on the same points."""
+    from nerf_replication_tpu_torch.models.encoding import hashgrid as hg
+    from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
+
+    n, L, F = x.shape[0], len(layout.scales), layout.n_features
+    g = torch.randn(n, L * F, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(12))
+    ref = xla_table_grad_f64(layout, x, g, rows)
+    dtable = hg.encode_backward(layout, table, x, g, True, False)[0]
+    a = xla_grad_agreement(dtable, ref)
+    res = {"bwd_err": a["max_abs_err"], "bwd_ms": cuda_ms(
+        lambda: hg.encode_backward(layout, table, x, g, True, False),
+        XLA_REPS)}
+    print(f"xla table gradient vs f64 sums on the CPU, {tag}: worst error / "
+          f"its row's summation bound {a['worst']:.2e} (<= 1), untouched "
+          f"rows exactly zero {a['untouched_zero']}, max_abs_err "
+          f"{a['max_abs_err']:.3e}")
+    if not (a["ok"] and a["untouched_zero"]):
+        fail(f"the xla table gradient disagrees with the CPU, {tag}")
+    del dtable
+    with_dx = layout._replace(input_grad=True)
+    dx = hg.encode_backward(with_dx, table, x, g, False, True)[1]
+    dx_cpu = hg.encode_backward(with_dx, table.cpu(), x.cpu(), g.cpu(), False,
+                                True)[1]
+    dx_err = (dx.cpu() - dx_cpu).abs()
+    dx_rel = float((dx_err.amax(0) / dx_cpu.abs().amax(0)).max())
+    res["dx_ms"] = cuda_ms(lambda: hg.encode_backward(
+        with_dx, table, x, g, True, True), XLA_REPS)
+    # the contributions alone through one index_add_
+    idx, w = hg._indices_weights(layout, x)
+    u = (w.reshape(n, L, -1, 1) * g.reshape(n, L, 1, F)).reshape(-1, F)
+    ids = idx.reshape(-1)
+    flat = torch.zeros(rows, F, device="cuda")
+    res["library_ms"] = cuda_ms(lambda: flat.index_add_(0, ids, u), XLA_REPS)
+    res["sort_ms"] = cuda_ms(lambda: torch.sort(ids, stable=True), XLA_REPS)
+    del idx, w, u, ids, flat
+    res["brick_fwd_ms"] = cuda_ms(
+        lambda: hk.brick_hash_encode(blayout, btable, x), 20)
+    res["brick_bwd_ms"] = cuda_ms(
+        lambda: hk.brick_hash_encode_bwd(blayout, x, g), 20)
+    res.update({f"bwd_{k}": v for k, v in bound(
+        nbytes(x, g) + rows * F * 4, n * L * 8 * 2 * F, "f32").items()})
+    print(f"xla input gradient vs the CPU's f32 run, {tag}: max err / column "
+          f"max |dx| {dx_rel:.2e} (<= {XLA_DX_TOL}), max |dx| "
+          f"{float(dx_cpu.abs().max()):.3e} | backward: table "
+          f"{res['bwd_ms']:.4f} ms, with the input gradient "
+          f"{res['dx_ms']:.4f} ms, bound {res['bwd_bound_ms']:.4f} ms by "
+          f"{res['bwd_bound_by']}; one index_add_ of its "
+          f"{n * L * 8 * F:,} contributions {res['library_ms']:.4f} ms "
+          f"({res['library_ms'] / res['bwd_ms']:.0%} of the backward), a "
+          f"sort of their {n * L * 8:,} rows (the JAX sorted_bwd order) "
+          f"{res['sort_ms']:.4f} ms more; the brick kernels on these points: "
+          f"#6 {res['brick_fwd_ms']:.4f} ms, #7 {res['brick_bwd_ms']:.4f} ms")
+    if dx_rel > XLA_DX_TOL or not bool(torch.isfinite(dx).all()):
+        fail(f"the xla input gradient disagrees with the CPU, {tag}")
+    return res
+
+
+def xla_eval(arm: dict, views) -> dict:
+    """Phase 11 (c): ``run_evaluate`` of views 0 and 4 from the xla arm's
+    checkpoint, densely, through the nn.Module, the images those of the
+    trained network's last eval bit for bit; one profiled frame."""
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.models.nerf.renderer import RenderSettings
+    from nerf_replication_tpu_torch.run import (
+        build_renderer,
+        load_model,
+        run_evaluate,
+    )
+
+    cfg = make_cfg(parse_args([
+        "--type", "evaluate", "--cfg_file", "configs/nerf/hard_ngp.yaml",
+        *XLA_OPTS, "trained_model_dir", arm["model_dir"],
+        "save_result", "False",
+        "device", "cuda"]))
+    H, W = int(views[0]["H"]), int(views[0]["W"])
+    calls = 2 * math.ceil(H * W / RenderSettings.from_cfg(cfg).ray_chunk)
+    reset_counts()
+    res = run_evaluate(cfg, loader=views)
+    counts = read_counts()
+    renderer = build_renderer(cfg, load_model(cfg, torch.device("cuda")))
+    frame = profile_reading(lambda: renderer.render(views[0]), 1, "frame",
+                            "ngp_xla_frame", warm=1)
+    del renderer
+    same = all(np.array_equal(a, b) for a, b in zip(res["rgb"],
+                                                    arm["images"]))
+    print(f"xla NGP eval from {cfg.trained_model_dir}: PSNR "
+          f"{res['psnr']:.4f} dB (the trained arm's last eval "
+          f"{arm['eval_psnr']:.4f}; images bit-equal {same}), SSIM "
+          f"{res['ssim']:.4f}, frame times "
+          f"{[round(t, 4) for t in res['net_time']]} s, counts {counts}; one "
+          f"profiled frame: device busy {frame['busy_ms']:.2f} ms of "
+          f"{frame['wall_ms']:.2f} ms (idle {frame['idle']:.1%})")
+    expect = dict.fromkeys(counts, 0) | {
+        "module": calls * len(views), "mlp": calls * len(views),
+        "xla_encode": calls * len(views)}
+    if counts != expect:
+        fail(f"the xla eval did not run the nn.Module alone: {counts}")
+    if not same:
+        fail("the xla eval from the checkpoint renders other images than "
+             "the trained network")
+    return {"psnr": res["psnr"], "net_time": res["net_time"], **frame}
+
+
+def composite_inputs(name: str, seed: int) -> torch.Tensor:
+    """COMPOSITE_POINTS points inside the bounds, and for the timed
+    encoders frames 0, 1, 2 and fractional times; float64 values that
+    float32 represents exactly."""
+    g = np.random.default_rng(seed)
+    x = g.uniform(-0.9, 0.9, (COMPOSITE_POINTS, 3))
+    if not name.endswith("triplane"):
+        t = g.choice([0.0, 1.0, 2.0, 0.5, 1.7], COMPOSITE_POINTS)
+        x = np.concatenate([x, t[:, None]], -1)
+    return torch.from_numpy(x.astype(np.float32).astype(np.float64))
+
+
+def rel_norm(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """|a - ref| / |ref| in float64, Frobenius norms."""
+    ref = ref.double()
+    return float((a.double() - ref).norm() / ref.norm().clamp_min(1e-300))
+
+
+def run_composite(enc, x, cot) -> dict:
+    """Forward and backward of ``enc``: the output, every parameter's
+    gradient and the points'."""
+    enc.zero_grad(set_to_none=True)
+    x = x.clone().requires_grad_(True)
+    out = enc(x)
+    (out * cot).sum().backward()
+    res = {"out": out.detach(), "x": x.grad}
+    res.update({k: p.grad if p.grad is not None else torch.zeros_like(p)
+                for k, p in enc.named_parameters()})
+    return res
+
+
+def composites_against_cpu() -> dict:
+    """Phase 11 (d): each composite encoder at the reference's defaults
+    (16 levels, log2_hashmap_size 19; dnerf W 256, D 8; 3 frames) on
+    COMPOSITE_POINTS seeded points: the card against the CPU in float64
+    and in float32 (gated), the card's float32 run against its float64
+    one (reported)."""
+    import copy
+
+    from nerf_replication_tpu_torch.config import CN
+    from nerf_replication_tpu_torch.models.encoding import get_encoder
+
+    res = {}
+    for i, name in enumerate(COMPOSITES):
+        enc = get_encoder(CN({"type": name, "num_frames": 3,
+                              "bounds": [-1.0] * 3 + [1.0] * 3}),
+                          torch.Generator().manual_seed(i))
+        x = composite_inputs(name, i)
+        cot = torch.from_numpy(np.random.default_rng(100 + i).normal(
+            size=(x.shape[0], enc.output_dim)))
+        card = copy.deepcopy(enc).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f32 = run_composite(card, x.float().cuda(), cot.float().cuda())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu32 = run_composite(enc, x.float(), cot.float())
+        on_card = run_composite(card.double(), x.cuda(), cot.cuda())
+        on_cpu = run_composite(enc.double(), x, cot)
+        worst, f32_cpu, f32_rel, cpu_rel = {}, {}, {}, {}
+        for key, ref in on_cpu.items():
+            top = float(ref.abs().max())
+            worst[key] = float((on_card[key].cpu() - ref).abs().max()) / max(
+                top, 1e-300)
+            f32_cpu[key] = rel_norm(f32[key].cpu(), cpu32[key])
+            f32_rel[key] = rel_norm(f32[key], on_card[key])
+            cpu_rel[key] = rel_norm(cpu32[key], ref)
+        key = max(worst, key=worst.get)
+        if name in COMPOSITE_WARPS:
+            # each leaf's f32 gap, card to CPU, against the CPU's own
+            # f32 error
+            scaled = {k: v / max(cpu_rel[k], 1e-300)
+                      for k, v in f32_cpu.items()}
+            tol32 = COMPOSITE_F32_WARP_TOL
+        else:
+            scaled, tol32 = f32_cpu, COMPOSITE_F32_TOL
+        key32 = max(scaled, key=scaled.get)
+        ok = (max(worst.values()) <= COMPOSITE_F64_TOL
+              and scaled[key32] <= tol32 and all(
+                  bool(torch.isfinite(v).all()) for v in f32.values()))
+        res[name] = dict(worst=worst[key], ms=ms, leaves=len(worst),
+                         f32_cpu=f32_cpu[key32], f32_gate=scaled[key32],
+                         f32_out=f32_rel["out"],
+                         f32_worst=max(f32_rel.values()))
+        gate = ("/ the CPU's f32 error" if name in COMPOSITE_WARPS else "")
+        print(f"composite {name}: {sum(p.numel() for p in enc.parameters()):,}"
+              f" parameters, output {tuple(on_cpu['out'].shape)}; card vs CPU "
+              f"in f64, worst of {len(worst)} (output, points, parameter "
+              f"gradients) max err / its max {worst[key]:.2e} ({key}; <= "
+              f"{COMPOSITE_F64_TOL}) | card vs CPU in f32, rel-norm: output "
+              f"{f32_cpu['out']:.2e}, worst leaf {gate} {scaled[key32]:.2e} "
+              f"({key32}: {f32_cpu[key32]:.2e}, the CPU's f32 error "
+              f"{cpu_rel[key32]:.2e}; <= {tol32}) | f32 vs f64 (not "
+              f"gated), rel-norm, card / CPU: output {f32_rel['out']:.2e} / "
+              f"{cpu_rel['out']:.2e}, worst leaf {max(f32_rel.values()):.2e}"
+              f" / {max(cpu_rel.values()):.2e} | f32 forward + backward "
+              f"{ms:.1f} ms (one call)")
+        if not ok:
+            fail(f"the composite encoder {name} disagrees with the CPU")
+        del enc, card, f32, cpu32, on_card, on_cpu
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_xla(arrays, views, steps: int, brick_evals: dict) -> dict:
+    """Phase 11: the xla encode against the CPU (a), 2000 training steps of
+    hard_ngp.yaml on the xla grid (b), the dense eval of its checkpoint
+    (c), the composite encoders against the CPU (d)."""
+    t0 = time.perf_counter()
+    encode = xla_encode_against_cpu(arrays, views)
+    t1 = time.perf_counter()
+    arm = ngp_train_arm(False, arrays, views, steps, label="xla",
+                        extra=XLA_OPTS)
+    expect = dict.fromkeys(arm["counts"], 0) | {
+        "module": 2 * steps, "mlp": 2 * steps, "xla_encode": 2 * steps}
+    if arm["counts"] != expect or arm["steps"] != steps:
+        fail(f"the xla arm did not train through the nn.Module alone: "
+             f"{arm['counts']}")
+    if not np.isfinite(arm["losses"]).all():
+        fail("an xla training loss is not finite")
+    print(f"xla arm against phase 7's brick arm (other grids; not gated), "
+          f"eval PSNR by step: xla "
+          f"{ {s: round(db, 4) for s, db in arm['evals'].items()} }, brick "
+          f"{ {s: round(db, 4) for s, db in brick_evals.items()} }")
+    if arm["eval_psnr"] < NGP_TRAIN_PSNR_FLOOR_DB:
+        fail(f"xla NGP eval PSNR {arm['eval_psnr']:.4f} dB below the floor "
+             f"{NGP_TRAIN_PSNR_FLOOR_DB} dB")
+    if not ngp_checkpoint_round_trip(arm, views[0]):
+        fail("the xla checkpoint does not give back the trained state")
+    del arm["trainer"]
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    evaluated = xla_eval(arm, views)
+    t3 = time.perf_counter()
+    composites = composites_against_cpu()
+    print(f"phase 11 took {time.perf_counter() - t0:.0f} s: (a) {t1 - t0:.0f},"
+          f" (b) {t2 - t1:.0f}, (c) {t3 - t2:.0f}, (d) "
+          f"{time.perf_counter() - t3:.0f}")
+    return {"encode": encode, "calls": arm["counts"]["xla_encode"],
+            "eval": evaluated, "composites": composites}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=TRAIN_STEPS,
@@ -2518,6 +3020,10 @@ def main(argv=None):
 
     # -- 10. the compacted frequency frame ---------------------------------
     compact = phase_compact(argv, views, res, arrays)
+    torch.cuda.empty_cache()
+
+    # -- 11. the xla hash grid and the composite encoders ------------------
+    xla = phase_xla(arrays, views, opts.steps, brick["evals"])
     del arrays
     torch.cuda.empty_cache()
 
@@ -2563,6 +3069,8 @@ def main(argv=None):
                 "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
                 "library_ms": big["library_ms"]}
 
+    train_fine = xla["encode"]["readings"][1]
+    eval_fine = xla["encode"]["readings"][-1]
     print(smi)
     print(json.dumps({"kernels": [
         entry("fused_nerf_mlp_enc", "fused_nerf_mlp.cu", "mlp_kernel.py:366",
@@ -2588,7 +3096,24 @@ def main(argv=None):
               "hashgrid_kernel.py:339", brick["launches"]["bwd"],
               brick["bwd"]),
         *[probe_entry(name) for name in dict.fromkeys(
-            r["name"] for r in probes)]]}))
+            r["name"] for r in probes)]],
+        # no TPU kernel: the JAX package's xla grid runs in XLA
+        "plain_pytorch": [{
+            "name": "xla_hash_encode", "route": "pytorch",
+            "source": "nerf_replication_tpu_torch/models/encoding/hashgrid.py",
+            "replaces": "nerf_replication_tpu/models/encoding/hashgrid.py:133"
+                        " (hash_encode, XLA, no pallas_call)",
+            "calls": xla["calls"],
+            "max_abs_err": max(r["err"] for r in xla["encode"]["readings"]),
+            "bwd_max_abs_err": train_fine["bwd_err"],
+            "n": train_fine["n"], "ms": train_fine["ms"],
+            "bwd_ms": train_fine["bwd_ms"],
+            "bound_ms": train_fine["bound_ms"],
+            "bound_by": train_fine["bound_by"],
+            "bwd_bound_ms": train_fine["bwd_bound_ms"],
+            "library_ms": train_fine["library_ms"],
+            "eval_n": eval_fine["n"], "eval_ms": eval_fine["ms"],
+            "eval_bound_ms": eval_fine["bound_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,26 +1,20 @@
 """Encoder dispatch: the config ``type`` names of
-nerf_replication_tpu/models/encoding/__init__.py. The port has the
-frequency and spherical-harmonics encoders and the brick backend of the
-hash grid; every other name (and the hash grid's ``xla`` backend) raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it."""
+nerf_replication_tpu/models/encoding/__init__.py, the reference's
+``cuda_*`` names as aliases. Parameter-free encoders (frequency, SH) are
+callables with ``output_dim``; the parameterised ones (hash grids, their
+composites, the D-NeRF family) are ``nn.Module``s."""
 
 from __future__ import annotations
 
 from ...config import as_bool
 from .freq import FrequencyEncoder, freq_encode
 
-# type name -> the ROADMAP.md item (queue A) that ports it
-_NOT_PORTED = {
-    t: "A.12 (composite encoders)"
-    for t in ("triplane", "cuda_triplane", "cuda_hashgrid_latent",
-              "cuda_hashgrid_4d", "cuda_hashgrid_coef", "cuda_motion2d",
-              "dnerf", "dnerf_mlp_tensorf", "dnerf_ngp_mlp",
-              "dnerf_ngp_tensorf", "cuda_dnerf_ngp_tensorf")
-}
+_DNERF = ("dnerf", "dnerf_mlp_tensorf", "dnerf_ngp_mlp", "dnerf_ngp_tensorf",
+          "cuda_dnerf_ngp_tensorf")
 
 
 def get_encoder(enc_cfg, generator=None):
-    """The encoder of ``enc_cfg``; a hash grid draws its table's init from
+    """The encoder of ``enc_cfg``; a parameterised one draws its init from
     ``generator`` (a torch.Generator)."""
     t = enc_cfg.type
     if t == "frequency":
@@ -37,10 +31,24 @@ def get_encoder(enc_cfg, generator=None):
     if t in ("hashgrid", "cuda_hashgrid", "grid_hash"):
         from .hashgrid import HashGridEncoder
         return HashGridEncoder.from_cfg(enc_cfg, generator=generator)
-    if t in _NOT_PORTED:
-        raise NotImplementedError(
-            f"encoder type {t!r} is not ported yet: ROADMAP.md item "
-            f"{_NOT_PORTED[t]}")
+    if t in ("triplane", "cuda_triplane"):
+        from .triplane import TriPlaneEncoder
+        return TriPlaneEncoder.from_cfg(enc_cfg, generator)
+    if t == "cuda_hashgrid_latent":
+        from .hashgrid import HashLatentEncoder
+        return HashLatentEncoder.from_cfg(enc_cfg, generator)
+    if t == "cuda_hashgrid_4d":
+        from .hashgrid import HashGrid4DEncoder
+        return HashGrid4DEncoder.from_cfg(enc_cfg, generator)
+    if t == "cuda_hashgrid_coef":
+        from .hashgrid import HashCoefEncoder
+        return HashCoefEncoder.from_cfg(enc_cfg, generator)
+    if t == "cuda_motion2d":
+        from .triplane import Motion2DEncoder
+        return Motion2DEncoder.from_cfg(enc_cfg, generator)
+    if t in _DNERF:
+        from .dnerf import DNeRFEncoder
+        return DNeRFEncoder.from_cfg(enc_cfg, variant=t, generator=generator)
     raise ValueError(f"unknown encoder type: {t!r}")
 
 

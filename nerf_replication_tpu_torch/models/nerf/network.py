@@ -34,19 +34,7 @@ from torch import nn
 
 from ...config import as_bool
 from ..encoding import get_encoder
-
-
-# std of a unit normal truncated at +-2: lecun_normal divides by it
-_TRUNC_STD = 0.87962566103423978
-
-
-def lecun_normal_(layer: nn.Linear, generator: torch.Generator) -> None:
-    """Flax's ``lecun_normal`` kernel and zero bias, in place."""
-    std = layer.in_features ** -0.5 / _TRUNC_STD
-    with torch.no_grad():
-        nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                              generator=generator)
-        layer.bias.zero_()
+from ..flax_init import lecun_normal_
 
 
 def _dense(layer: nn.Linear, h: torch.Tensor, dtype) -> torch.Tensor:
@@ -148,15 +136,22 @@ class Network(nn.Module):
 def make_network(cfg, generator: torch.Generator | None = None) -> Network:
     """The config's Network, initialised from ``generator`` (default: a
     CPU generator seeded with ``cfg.seed``): a hash-grid table first, then
-    coarse, then fine."""
+    coarse, then fine. A top-level ``num_frames`` goes into the encoder
+    sections that do not set their own, as in the JAX package (the
+    reference's time-conditioned encoders read it globally)."""
     c = cfg.network
+    if "num_frames" in cfg:
+        for key in ("xyz_encoder", "dir_encoder"):
+            enc = c.get(key)
+            if enc is not None and "num_frames" not in enc:
+                enc["num_frames"] = cfg.num_frames
     if generator is None:
         generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     use_viewdirs = as_bool(cfg.get("task_arg", {}).get("use_viewdirs", True),
                            "task_arg.use_viewdirs")
     dtype = getattr(torch, c.get("dtype", "bfloat16"))
     xyz_encoder = get_encoder(c.xyz_encoder, generator)
-    dir_encoder = get_encoder(c.dir_encoder)
+    dir_encoder = get_encoder(c.dir_encoder, generator)
 
     def mk():
         return NeRFMLP(

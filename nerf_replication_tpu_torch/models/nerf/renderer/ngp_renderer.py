@@ -2,7 +2,9 @@
 ``make_ngp_eval_apply`` in
 nerf_replication_tpu/models/nerf/renderer/ngp_renderer.py:71-172.
 
-It routes a brick hash-grid network's eval calls through the CUDA kernels:
+It routes a brick hash-grid network's eval calls through the CUDA kernels
+(a network of the vertex-exact ``xla`` grid has no kernel and runs as its
+``nn.Module``, :func:`is_xla_ngp`):
 with ``fused`` (the default) the whole field goes through
 ``fused_ngp_eval`` (encode + MLP in one kernel, SH computed per ray and
 broadcast per point), in f32 or, with ``mlp_bf16`` (the JAX package's
@@ -30,8 +32,23 @@ from ....ops.ray_ops import density_activation, sample_pdf
 from ...encoding.hashgrid import HashGridEncoder
 
 
+def grid_backend(net) -> str | None:
+    """The backend of ``net``'s hash-grid encoder ("brick" or "xla"), or
+    None for another encoder."""
+    enc = net.xyz_encoder
+    return enc.backend if isinstance(enc, HashGridEncoder) else None
+
+
 def is_brick_ngp(net) -> bool:
-    return isinstance(net.xyz_encoder, HashGridEncoder)
+    """The NGP networks whose eval and training have kernels."""
+    return grid_backend(net) == "brick"
+
+
+def is_xla_ngp(net) -> bool:
+    """The vertex-exact grid's networks: no kernel covers them (the JAX
+    package runs them through ``net.apply``), so they run as the
+    ``nn.Module``."""
+    return grid_backend(net) == "xla"
 
 
 def unsupported(net) -> str | None:

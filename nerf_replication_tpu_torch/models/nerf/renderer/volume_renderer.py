@@ -400,8 +400,9 @@ class Renderer:
     def train_apply(self):
         """The training apply, made at first use. A brick hash-grid NGP
         network: the ``nn.Module``, whose encoder runs the brick-encode
-        kernels (built now on a CUDA network, so a failed build raises).
-        Else the differentiable fused MLP kernels with
+        kernels (built now on a CUDA network, so a failed build raises). A
+        network of the vertex-exact ``xla`` grid: the ``nn.Module``, which
+        no kernel covers. Else the differentiable fused MLP kernels with
         ``network.use_pallas_mlp_train`` True (built now likewise; a
         network they do not cover raises), or the ``nn.Module`` with
         autograd."""
@@ -409,6 +410,10 @@ class Renderer:
             if ngp_renderer.is_brick_ngp(self.net):
                 if self.device.type == "cuda":
                     hashgrid_kernel.build()
+                self._train_apply = self.net
+            elif ngp_renderer.is_xla_ngp(self.net):
+                print("xla hash grid: training the nn.Module network (no "
+                      "kernel covers it)")
                 self._train_apply = self.net
             elif not self.fused_train:
                 self._train_apply = self.net

@@ -67,27 +67,32 @@ def resolve_device(cfg) -> torch.device:
 def load_model(cfg, device):
     """The config's Network with its trained weights, on ``device``. A
     checkpoint that does not fit the config raises (a strict load), e.g. a
-    hash-grid table of another ``log2_bricks``."""
+    hash-grid table of another ``log2_bricks`` (brick) or
+    ``log2_hashmap_size`` (xla)."""
     network = make_network(cfg)
     tree = (load_pretrain(cfg.pretrain_path) if cfg.get("pretrain_path")
             else load_network(cfg.trained_model_dir, epoch=cfg.test.epoch))
     state = params_from_jax(tree)
-    layout = getattr(network.xyz_encoder, "layout", None)
-    rows = state.get("xyz_encoder.table", torch.empty(0)).shape[0]
-    if layout is not None and rows != layout.n_rows:
-        raise ValueError(
-            f"the checkpoint's hash-grid table has {rows} rows, the config's "
-            f"layout {layout.n_rows}: set network.xyz_encoder.log2_bricks to "
-            "the checkpoint's")
+    if ngp_renderer.grid_backend(network) is not None:
+        enc = network.xyz_encoder
+        rows = state.get("xyz_encoder.table", torch.empty(0)).shape[0]
+        key = "log2_bricks" if enc.backend == "brick" else "log2_hashmap_size"
+        if rows != enc.table.shape[0]:
+            raise ValueError(
+                f"the checkpoint's hash-grid table has {rows} rows, the "
+                f"config's {enc.backend} layout {enc.table.shape[0]}: set "
+                f"network.xyz_encoder.{key} to the checkpoint's")
     network.load_state_dict(state)
     return network.to(device).eval()
 
 
 def build_renderer(cfg, network):
     """The config's renderer. With ``network.use_pallas_mlp`` on, a brick
-    NGP network runs through the fused NGP kernel and any other through
-    the fused MLP kernel; a network that its kernel does not cover raises
-    rather than running the plain network."""
+    NGP network runs through the fused NGP kernel, a network of the
+    vertex-exact ``xla`` grid through its ``nn.Module`` (no kernel covers
+    it, as in the JAX package) and any other through the fused MLP kernel;
+    a network that its kernel does not cover raises rather than running
+    the plain network."""
     renderer = make_renderer(cfg, network)
     if not as_bool(cfg.network.get("use_pallas_mlp", True),
                    "network.use_pallas_mlp"):
@@ -95,6 +100,9 @@ def build_renderer(cfg, network):
     if ngp_renderer.is_brick_ngp(network):
         renderer.use_apply(ngp_renderer.make_ngp_eval_apply(network))
         print("fused CUDA NGP eval: True")
+        return renderer
+    if ngp_renderer.is_xla_ngp(network):
+        print("xla hash grid: the nn.Module network (no kernel covers it)")
         return renderer
     if not renderer.enable_fused_mlp():
         raise ValueError(

@@ -11,7 +11,7 @@ epoch (the JAX ``fold_in``), so a resumed run draws what an unbroken one
 draws. ``val`` drives the evaluator through the eval renderer, with the
 fused kernel's weights packed from the current parameters.
 
-Not ported yet (ROADMAP.md A.6): the host-loader ``train`` loop.
+Not ported yet (ROADMAP.md item 8): the host-loader ``train`` loop.
 """
 
 from __future__ import annotations

@@ -143,48 +143,63 @@ def load_model(model_dir: str, resume: bool = True, epoch: int = -1):
     return payload
 
 
-_INDEXED = re.compile(r"^(pts|views)_(\d+)$")
+# a Flax list submodule's name (``pts_3``, ``basis_0``, ``time_mlp_4``)
+_INDEXED = re.compile(r"^(.+)_(\d+)$")
+
+
+def _f32(array) -> torch.Tensor:
+    """A float32 copy, C-contiguous."""
+    return torch.from_numpy(np.array(array, dtype=np.float32, order="C"))
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """A Flax NeRF params tree ``{"params": {"coarse"|"fine": {layer:
-    {kernel (in, out), bias}}, "xyz_encoder": {"table": array}}}`` (numpy)
-    -> the port Network's state_dict. Flax's ``Dense.kernel`` is (in, out)
-    and ``nn.Linear.weight`` (out, in), so every kernel is transposed;
-    ``pts_{i}``/``views_{i}`` become ``pts.{i}``/``views.{i}``. A leaf that
-    is an array itself (a hash-grid table) keeps its name and layout."""
+    """A Flax params tree ``{"params": {...}}`` (numpy) -> the port's
+    state_dict, at any depth: a Dense ``{kernel (in, out), bias}`` becomes
+    ``.weight`` (out, in) and ``.bias``, so every kernel is transposed; a
+    submodule named as a Flax list item (``pts_3``, ``mlp_0``, ``basis_2``,
+    ``time_mlp_4``) becomes the ``nn.ModuleList`` key (``pts.3``, ...); a
+    leaf that is an array itself (a hash-grid table, ``latent_t``,
+    ``st_feat_1``) keeps its name and layout."""
     state = {}
-    for branch, layers in tree["params"].items():
-        for name, leaf in layers.items():
-            if not isinstance(leaf, dict):
-                state[f"{branch}.{name}"] = torch.from_numpy(
-                    np.array(leaf, dtype=np.float32))
+
+    def walk(node: dict, prefix: str):
+        if "kernel" in node:
+            state[f"{prefix}weight"] = _f32(np.asarray(node["kernel"]).T)
+            state[f"{prefix}bias"] = _f32(node["bias"])
+            return
+        for name, child in node.items():
+            if not isinstance(child, dict):
+                state[prefix + name] = _f32(child)
                 continue
             m = _INDEXED.match(name)
-            key = f"{branch}.{m[1]}.{m[2]}" if m else f"{branch}.{name}"
-            kernel = np.asarray(leaf["kernel"], dtype=np.float32)
-            state[f"{key}.weight"] = torch.from_numpy(kernel.T.copy())
-            state[f"{key}.bias"] = torch.from_numpy(
-                np.asarray(leaf["bias"], dtype=np.float32).copy())
+            walk(child, prefix + (f"{m[1]}.{m[2]}." if m else f"{name}."))
+
+    walk(tree["params"], "")
     return state
 
 
 def params_to_jax(state: dict) -> dict:
-    """The inverse of :func:`params_from_jax`: a port Network's state_dict
-    -> the Flax params tree (numpy float32, kernels (in, out), other
-    parameters as they are)."""
+    """The inverse of :func:`params_from_jax`: a port state_dict -> the
+    Flax params tree (numpy float32, kernels (in, out), other parameters
+    as they are, ``nn.ModuleList`` keys back to Flax list names)."""
     tree: dict = {"params": {}}
     for key, value in state.items():
-        branch, rest = key.split(".", 1)
         arr = value.detach().cpu().float().numpy()
-        entries = tree["params"].setdefault(branch, {})
-        layer, _, leaf = rest.rpartition(".")
-        if leaf not in ("weight", "bias"):       # e.g. xyz_encoder.table
-            entries[rest] = arr.copy()
-            continue
-        entry = entries.setdefault(layer.replace(".", "_"), {})  # pts.3 -> pts_3
+        parts = key.split(".")
+        names = []                      # mlp.0 -> mlp_0
+        for part in parts[:-1]:
+            if part.isdigit():
+                names[-1] = f"{names[-1]}_{part}"
+            else:
+                names.append(part)
+        node = tree["params"]
+        for name in names:
+            node = node.setdefault(name, {})
+        leaf = parts[-1]
         if leaf == "weight":
-            entry["kernel"] = np.ascontiguousarray(arr.T)
-        else:
-            entry["bias"] = arr.copy()
+            node["kernel"] = np.ascontiguousarray(arr.T)
+        elif leaf == "bias":
+            node["bias"] = arr.copy()
+        else:                           # e.g. xyz_encoder.table
+            node[leaf] = arr.copy()
     return tree

@@ -184,7 +184,8 @@ def test_to_unit_takes_a_gradient_after_inference_mode():
     the gradient 1 / side inside the box and 0 outside."""
     bounds = (-1.2, -1.2, -1.2, 1.2, 1.2, 1.2)
     enc = HashGridEncoder(n_levels=3, base_resolution=8, finest_resolution=32,
-                          log2_bricks=9, bounds=bounds)
+                          log2_bricks=9, bounds=bounds, backend="brick",
+                          input_grad=False)
     x = torch.from_numpy(np.random.default_rng(8).uniform(
         -1.5, 1.5, (100, 3)).astype(np.float32))
     with torch.inference_mode():
@@ -199,8 +200,9 @@ def test_to_unit_takes_a_gradient_after_inference_mode():
 
 
 def test_hashgrid_encoder_from_cfg():
-    """The hard_ngp encoder section with the reference YAML names; the xla
-    backend is not ported and names its ROADMAP item."""
+    """The hard_ngp encoder section with the reference YAML names; with
+    ``backend xla`` the same section builds the vertex-exact grid, whose
+    table has its own shape."""
     section = {"type": "cuda_hashgrid", "backend": "brick", "input_dim": 3,
                "num_levels": 12, "level_dim": 2, "base_resolution": 16,
                "desired_resolution": 512, "log2_hashmap_size": 19,
@@ -213,8 +215,10 @@ def test_hashgrid_encoder_from_cfg():
     assert list(enc.state_dict()) == ["table"]
     out = enc(torch.rand(2, 5, 3) * 2.4 - 1.2)
     assert out.shape == (2, 5, 24)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A.10"):
-        get_encoder(CN({**section, "backend": "xla"}))
+    xla = get_encoder(CN({**section, "backend": "xla"}))
+    assert xla.backend == "xla" and enc.backend == "brick"
+    assert tuple(xla.table.shape) == (xla.layout.offsets[-1], 2)
+    assert xla(torch.rand(2, 5, 3) * 2.4 - 1.2).shape == (2, 5, 24)
     with pytest.raises(ValueError):
         get_encoder(CN({**section, "level_dim": 4}))
 
@@ -231,7 +235,8 @@ def test_hashgrid_encoder_matches_flax_module():
                           log2_bricks=5, bounds=bounds, backend="brick",
                           input_grad=False)
     enc = HashGridEncoder(n_levels=4, base_resolution=4, finest_resolution=32,
-                          log2_bricks=5, bounds=bounds)
+                          log2_bricks=5, bounds=bounds, backend="brick",
+                          input_grad=False)
     table = np.random.default_rng(8).uniform(-1, 1, tuple(enc.table.shape))
     with torch.no_grad():
         enc.table.copy_(torch.from_numpy(table))
@@ -376,7 +381,7 @@ def test_hashgrid_encoder_trains_through_the_function():
     the plain versions, once each way, and launches nothing; its table
     gradient is the plain backward's."""
     enc = HashGridEncoder(n_levels=3, base_resolution=8, finest_resolution=32,
-                          log2_bricks=9)
+                          log2_bricks=9, backend="brick", input_grad=False)
     x = torch.from_numpy(points(50, 15, enc.layout))
     cot = torch.from_numpy(np.random.default_rng(16).normal(
         size=(x.shape[0], 6)).astype(np.float32))

@@ -22,6 +22,9 @@ SLICE_MODULES = [
     "nerf_replication_tpu_torch.utils.ckpt_utils",
     "nerf_replication_tpu_torch.utils.synthetic_scene",
     "nerf_replication_tpu_torch.models.encoding",
+    "nerf_replication_tpu_torch.models.encoding.hashgrid",
+    "nerf_replication_tpu_torch.models.encoding.triplane",
+    "nerf_replication_tpu_torch.models.encoding.dnerf",
     "nerf_replication_tpu_torch.models.nerf.network",
     "nerf_replication_tpu_torch.models.nerf.renderer.volume_renderer",
     "nerf_replication_tpu_torch.ops.ray_ops",
