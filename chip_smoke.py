@@ -186,14 +186,33 @@ Phases (any failure exits non-zero):
    65,536 seeded points: forward, every parameter gradient and the points'
    on the card against the CPU in float64, and the card's float32 run
    against its float64 one (reported).
+12. the host loader (``make_data_loader``, ``Trainer.train``). (a)
+   configs/img_fit/lego_view0.yaml as committed (D 4, W 128, 10 bands,
+   8192 pixels a step, Adam 5e-4) on one 800x800 view of the hard scene
+   that ``generate_scene`` writes on the card, 2 epochs of 500 steps
+   through ``train()`` from the JAX init data/pretrain/img_fit_init with
+   dataset seed 0 (overridden: data_root, scene, the epoch count, the seed,
+   and ``eval_ep`` 1 for an eval at each epoch end): the eval PSNR at each
+   epoch end, the epoch-2 one within 0.2 dB of the JAX package's reading
+   of the same run on the CPU (scripts/img_fit_jax_reference.py), pixels/s,
+   the data time's share of the wall, peak memory; no kernel runs. (b)
+   configs/nerf/hard.yaml on phase 5's 20 train views as a Blender train
+   split (each item 1024 pixels of one view): the first host batch's loss
+   and leaf gradients through #3-#5 against the nn.Module arm (phase 10
+   (f)'s bounds), then 200 steps of ``Trainer.train`` from the seed-0 init:
+   2 launches of #3/#4 and 2 of #5 a step, no plain call, a finite loss,
+   steps/s and the data time's share. (c) With ``--profile``, 20 more
+   host-loader steps of each under torch.profiler
+   (build/profile_host_loader_{img_fit,nerf}.txt).
 Every CUDA-event time is the median of five rounds after one warm-up
 call (``cuda_times``). The last three lines are the card's name and power
 limit, the kernel summary (each kernel's launches on its path, error,
 times and bound; ``frame_launches`` for the frame path's kernels: their
 launches in one frame, ``compact_frame_launches`` #1's in one compacted
 frame; under ``plain_pytorch`` the xla encode, which is no kernel: its
-calls in phase 11's training, errors, times and bounds) and the device,
-the last two as JSON.
+calls in phase 11's training, errors, times and bounds; #3/#4 and #5
+also under ``host_loader_launches``, their launches in phase 12 (b)) and
+the device, the last two as JSON.
 """
 
 from __future__ import annotations
@@ -947,15 +966,17 @@ def profile_reading(run, count: int, unit: str, tag: str,
                      if any(k in e.key for k in keys)), "other")
         parts[part] = parts.get(part, 0.0) + e.self_device_time_total
     busy = sum(parts.values()) / 1e6
+    summary = (f"profile {tag}: {count} {unit}s under the profiler, wall "
+               f"{wall * 1e3 / count:.2f} ms a {unit}, device busy "
+               f"{busy * 1e3 / count:.2f} ms a {unit} (idle "
+               f"{100 * (1 - busy / wall):.1f}%); device ms a {unit}: "
+               + "; ".join(f"{name} {t / 1e3 / count:.3f}" for name, t in
+                           sorted(parts.items(), key=lambda kv: -kv[1])))
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", f"profile_{tag}.txt"), "w") as f:
+        f.write(summary + "\n\n")
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
-    print(f"profile {tag}: {count} {unit}s under the profiler, wall "
-          f"{wall * 1e3 / count:.2f} ms a {unit}, device busy "
-          f"{busy * 1e3 / count:.2f} ms a {unit} (idle "
-          f"{100 * (1 - busy / wall):.1f}%); device ms a {unit}: " + "; ".join(
-              f"{name} {t / 1e3 / count:.3f}" for name, t in
-              sorted(parts.items(), key=lambda kv: -kv[1])))
+    print(summary)
     return {"busy_ms": busy * 1e3 / count, "wall_ms": wall * 1e3 / count,
             "idle": 1 - busy / wall}
 
@@ -2818,6 +2839,202 @@ def phase_xla(arrays, views, steps: int, brick_evals: dict) -> dict:
             "eval": evaluated, "composites": composites}
 
 
+# Phase 12: the host loader. (a) img_fit as committed, from the JAX init
+# data/pretrain/img_fit_init (written by scripts/img_fit_jax_reference.py),
+# whose reading of the same run on the CPU (the JAX package's own
+# generate_scene, init, dataset seed and 1000 steps) is the gate's target.
+IMG_FIT_ARGV = ["--cfg_file", "configs/img_fit/lego_view0.yaml", "scene",
+                "hard", "device", "cuda", "resume", "False", "pretrain",
+                "data/pretrain/img_fit_init", "eval_ep", "1"]
+IMG_FIT_EPOCHS = 2
+IMG_FIT_DATA_SEED = 0
+IMG_FIT_SIZE = 800            # the lego view's size
+# eval PSNR at the ends of epochs 1 and 2 (scripts/img_fit_jax_reference.py)
+IMG_FIT_JAX_PSNR_DB = (25.864508824931885, 28.03621272812383)
+IMG_FIT_GATE_DB = 0.2
+HOST_STEPS = 200              # (b): host-loader steps of the NeRF model
+HOST_PROFILE_STEPS = 20
+
+
+def host_step_fn(trainer, loader):
+    """One more host-loader step a call: the next batch to the device and
+    through the trainer's step (for the profiled window)."""
+    from nerf_replication_tpu_torch.train.trainers.trainer import (
+        host_batch_to_device,
+    )
+
+    batches = iter(loader)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    return lambda: trainer.train_step(
+        host_batch_to_device(next(batches), trainer.device), gen)
+
+
+def host_loader_img_fit(profile: bool) -> dict:
+    """Phase 12 (a): configs/img_fit/lego_view0.yaml through ``train()``
+    and the host loader on one 800x800 view of the hard scene written by
+    ``generate_scene`` on the card, 2 epochs of 500 steps from the JAX
+    init; the epoch-2 eval PSNR within IMG_FIT_GATE_DB of the JAX
+    package's CPU reading; no kernel launched."""
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.datasets import make_data_loader
+    from nerf_replication_tpu_torch.train.cli import train
+    from nerf_replication_tpu_torch.utils import synthetic_scene
+
+    root = os.path.join(ROOT, "build", "smoke_img_fit")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    synthetic_scene.generate_scene(root, "hard", H=IMG_FIT_SIZE,
+                                   W=IMG_FIT_SIZE, n_train=1, n_val=0,
+                                   n_test=0, device="cuda")
+    print(f"img_fit scene: one {IMG_FIT_SIZE}x{IMG_FIT_SIZE} hard view "
+          f"written by generate_scene in {time.perf_counter() - t0:.1f} s")
+    cfg = make_cfg(parse_args(IMG_FIT_ARGV + [
+        "train_dataset.data_root", root, "test_dataset.data_root", root,
+        "train.epoch", str(IMG_FIT_EPOCHS),
+        "trained_model_dir", os.path.join(root, "model"),
+        "record_dir", os.path.join(root, "record"),
+        "result_dir", os.path.join(root, "result")]))
+    cfg.train_dataset.seed = IMG_FIT_DATA_SEED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer = train(cfg)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    psnrs = [e["psnr"] for e in trainer.evals]
+    s = trainer.summaries
+    data_share = sum(float(x["data_time"].sum()) for x in s) / sum(
+        x["wall"] for x in s)
+    res = dict(psnrs=psnrs, pixels_per_s=[x["rays_per_s"] for x in s],
+               data_share=data_share, peak_gb=peak_gb, counts=counts)
+    print(f"img_fit (host loader): {trainer.step} steps of "
+          f"{s[-1]['rows']} pixels, eval PSNR by epoch "
+          f"{[round(p, 4) for p in psnrs]} dB (JAX package on the CPU "
+          f"{list(IMG_FIT_JAX_PSNR_DB)}), pixels/s by epoch "
+          f"{[round(r) for r in res['pixels_per_s']]}, data_time "
+          f"{100 * data_share:.1f}% of the wall, peak memory "
+          f"{peak_gb:.3f} GB, counts {counts}")
+    if len(psnrs) != IMG_FIT_EPOCHS or not np.isfinite(psnrs).all():
+        fail(f"img_fit gave no finite eval PSNR each epoch: {psnrs}")
+    if any(counts.values()):
+        fail(f"img_fit ran a kernel or a NeRF module: {counts}")
+    if abs(psnrs[-1] - IMG_FIT_JAX_PSNR_DB[-1]) > IMG_FIT_GATE_DB:
+        fail(f"img_fit epoch-2 PSNR {psnrs[-1]:.4f} dB is not within "
+             f"{IMG_FIT_GATE_DB} dB of the JAX package's "
+             f"{IMG_FIT_JAX_PSNR_DB[-1]:.4f} dB")
+    if profile:
+        loader = make_data_loader(cfg, is_train=True, max_iter=1 << 20)
+        res["profile"] = profile_reading(
+            host_step_fn(trainer, loader), HOST_PROFILE_STEPS, "step",
+            "host_loader_img_fit")
+    return res
+
+
+def host_loader_nerf(arrays, profile: bool) -> dict:
+    """Phase 12 (b): configs/nerf/hard.yaml through ``Trainer.train`` over
+    a host loader on phase 5's 20 train views, built as a Blender train
+    split (``Dataset.from_arrays``: each item draws N_rays pixels of one
+    view): the first host batch's loss and leaf gradients through the
+    kernels against the nn.Module arm (phase 10 (f)'s bounds), then
+    HOST_STEPS steps from the seed-0 init: 2 launches of #3/#4 and 2 of #5
+    a step as in phase 5, no plain call, a finite loss."""
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.datasets import make_loader
+    from nerf_replication_tpu_torch.datasets.nerf.blender import Dataset
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.train import make_recorder, make_trainer
+    from nerf_replication_tpu_torch.train.trainers.trainer import (
+        host_batch_to_device,
+    )
+    from nerf_replication_tpu_torch.utils import synthetic_scene
+
+    cfg = make_cfg(parse_args(TRAIN_ARGV + ["ep_iter", str(HOST_STEPS),
+                                            "log_interval", "50"]))
+    images, poses = arrays[0], arrays[1]
+
+    def loader():
+        split = Dataset.from_arrays(cfg, images, poses,
+                                    synthetic_scene.CAMERA_ANGLE_X, seed=0)
+        return make_loader(cfg, split, is_train=True, max_iter=HOST_STEPS)
+
+    batch = host_batch_to_device(next(iter(loader())), torch.device("cuda"))
+    arms = {}
+    for fused in (True, False):
+        cfg_arm = cfg.clone()
+        cfg_arm.network.use_pallas_mlp_train = fused
+        net = make_network(cfg_arm).cuda()
+        wrapper = make_trainer(cfg_arm, net).wrapper
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        reset_counts()
+        loss, _ = wrapper.loss_fn(batch, gen, train=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        arms[fused] = (float(loss.detach()), torch.cat(
+            [p.grad.ravel() for _, p in net.named_parameters()]),
+            read_counts())
+    (loss_k, grad_k, first), (loss_m, grad_m, _) = arms[True], arms[False]
+    loss_rel = abs(loss_k - loss_m) / abs(loss_m)
+    grad_rel = float((grad_k - grad_m).norm() / grad_m.norm())
+    print(f"host batch ({batch['rays_o'].shape[0]} x "
+          f"{batch['rays_o'].shape[1]} rays), kernels against nn.Module: "
+          f"loss {loss_k:.6f} / {loss_m:.6f} (rel {loss_rel:.2e} <= "
+          f"{ARMS_LOSS_REL}), all leaves rel-norm {grad_rel:.2e} (<= "
+          f"{ARMS_GRAD_REL}); the kernel arm's counts {first}")
+    if (first["fwd"], first["bwd"], first["plain"], first["module"]) != \
+            (2, 2, 0, 0):
+        fail(f"the host batch did not run through #3-#5 alone: {first}")
+    if loss_rel > ARMS_LOSS_REL or grad_rel > ARMS_GRAD_REL:
+        fail("the host batch's kernel arm disagrees with the nn.Module arm")
+
+    net = make_network(cfg).cuda()
+    trainer = make_trainer(cfg, net)
+    trainer.wrapper.renderer.train_apply   # builds the kernels now
+    recorder = make_recorder(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    summary = trainer.train(0, loader(), recorder)
+    counts = read_counts()
+    steps = summary["steps"]
+    data_share = float(summary["data_time"].sum()) / summary["wall"]
+    res = dict(steps=steps, counts=counts, steps_per_s=steps / summary["wall"],
+               rays_per_s=summary["rays_per_s"], data_share=data_share,
+               loss=summary["loss"])
+    print(f"NeRF (host loader): {steps} steps in {summary['wall']:.2f} s, "
+          f"{res['steps_per_s']:.2f} steps/s ({summary['rays_per_s']:,.0f} "
+          f"rays/s; phase 5's train_device above), data_time "
+          f"{100 * data_share:.1f}% of the wall, loss first/last "
+          f"{summary['loss'][0]:.5f} / {summary['loss'][-1]:.5f}, counts "
+          f"{counts}")
+    if (counts["fwd"], counts["bwd"], counts["plain"], counts["module"]) != \
+            (2 * steps, 2 * steps, 0, 0):
+        fail(f"the host-loader run did not train through #3-#5 alone: "
+             f"{counts}")
+    if not np.isfinite(summary["loss"]).all():
+        fail("the host-loader run's loss is not finite")
+    if profile:
+        res["profile"] = profile_reading(
+            host_step_fn(trainer, make_loader(
+                cfg, Dataset.from_arrays(cfg, images, poses,
+                                         synthetic_scene.CAMERA_ANGLE_X,
+                                         seed=1),
+                is_train=True, max_iter=1 << 20)),
+            HOST_PROFILE_STEPS, "step", "host_loader_nerf")
+    return res
+
+
+def phase_host_loader(arrays, profile: bool) -> dict:
+    """Phase 12: (a) img_fit and (b) the NeRF model through the host
+    loader; (c) with ``--profile``, a profiled window of 20 host-loader
+    steps of each."""
+    t0 = time.perf_counter()
+    img_fit = host_loader_img_fit(profile)
+    torch.cuda.empty_cache()
+    nerf = host_loader_nerf(arrays, profile)
+    torch.cuda.empty_cache()
+    print(f"phase 12 took {time.perf_counter() - t0:.0f} s")
+    return {"img_fit": img_fit, "nerf": nerf}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=TRAIN_STEPS,
@@ -3024,8 +3241,11 @@ def main(argv=None):
 
     # -- 11. the xla hash grid and the composite encoders ------------------
     xla = phase_xla(arrays, views, opts.steps, brick["evals"])
-    del arrays
     torch.cuda.empty_cache()
+
+    # -- 12. the host loader: img_fit, and the NeRF model ------------------
+    host = phase_host_loader(arrays, opts.profile > 0)
+    del arrays
 
     def entry(name, source, replaces, launches, readings, frame=None,
               compact=None, more=()):
@@ -3071,16 +3291,21 @@ def main(argv=None):
 
     train_fine = xla["encode"]["readings"][1]
     eval_fine = xla["encode"]["readings"][-1]
+    # phase 12: img_fit runs no kernel; the host-loader NeRF run launches
+    # #3/#4 and #5 (host_loader_launches)
+    host_counts = host["nerf"]["counts"]
     print(smi)
     print(json.dumps({"kernels": [
         entry("fused_nerf_mlp_enc", "fused_nerf_mlp.cu", "mlp_kernel.py:366",
               launches, list(checks.values()), frame["freq_rm"], compact),
-        entry("fused_nerf_mlp", "fused_nerf_mlp.cu", "mlp_train.py:168",
-              counts["fwd"], train_checks["fwd"],
-              more=compact["train"]["fwd"]),
-        entry("fused_nerf_mlp_bwd", "fused_nerf_mlp_bwd.cu",
-              "mlp_train.py:225", counts["bwd"], train_checks["bwd"],
-              more=compact["train"]["bwd"]),
+        {**entry("fused_nerf_mlp", "fused_nerf_mlp.cu", "mlp_train.py:168",
+                 counts["fwd"], train_checks["fwd"],
+                 more=compact["train"]["fwd"]),
+         "host_loader_launches": host_counts["fwd"]},
+        {**entry("fused_nerf_mlp_bwd", "fused_nerf_mlp_bwd.cu",
+                 "mlp_train.py:225", counts["bwd"], train_checks["bwd"],
+                 more=compact["train"]["bwd"]),
+         "host_loader_launches": host_counts["bwd"]},
         entry("brick_encode_eval", "brick_encode_eval.cu",
               "eval_encode.py:202 and :245", ngp["launches"]["encode"],
               ngp["encode"]),

@@ -8,8 +8,10 @@ without a default is taken as it is.
 
 Port-only keys: ``device`` (default ``cuda``) and ``pretrain_path`` (a
 ``data/pretrain/<name>`` directory to evaluate instead of
-``trained_model_dir``). The training keys and their defaults are the JAX
-package's.
+``trained_model_dir``). The training and host-loader keys (``train``,
+``test``, ``distributed``, ``log_interval``, the cadence) and their
+defaults are the JAX package's; ``train.num_workers`` is read by no code
+(the loader reads in-process).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ def default_cfg() -> CN:
     c.pretrain = ""
     c.resume = True
     c.seed = 0
+    c.distributed = False
 
     # pluggable modules: registry names (see registry.py)
     c.train_dataset_module = "src.datasets.nerf.blender"
@@ -42,22 +45,36 @@ def default_cfg() -> CN:
     c.loss_module = "src.train.trainers.nerf"
 
     c.task_arg = CN()
-    c.test = CN({"epoch": -1})
 
     # training (nerf_replication_tpu/config/config.py defaults)
     c.ep_iter = -1
     c.save_ep = 100000
     c.save_latest_ep = 1
     c.eval_ep = 1
+    c.log_interval = 20
     c.train = CN()
     c.train.epoch = 10000
+    c.train.num_workers = 8
+    c.train.collator = "default"
+    c.train.batch_sampler = "default"
+    c.train.sampler_meta = CN()
+    c.train.shuffle = True
     c.train.eps = 1e-8
     c.train.optim = "adam"
     c.train.lr = 5e-4
     c.train.weight_decay = 0.0
     c.train.scheduler = CN(
         {"type": "multi_step", "milestones": [80, 120, 200, 240], "gamma": 0.5})
+    c.train.batch_size = 4
     c.train.clip_grad_value = 40.0
+
+    # the host loader (datasets/make_dataset.py)
+    c.test = CN()
+    c.test.batch_size = 1
+    c.test.collator = "default"
+    c.test.epoch = -1
+    c.test.batch_sampler = "default"
+    c.test.sampler_meta = CN()
 
     c.trained_model_dir = "data/trained_model"
     c.record_dir = "data/record"

@@ -1,21 +1,27 @@
 """Datasets of the port: ``cfg.train_dataset_module`` and
-``cfg.test_dataset_module`` resolve through the port's registry."""
+``cfg.test_dataset_module`` resolve through the port's registry;
+``make_data_loader`` is the host loader."""
 
-from ..registry import resolve
-from . import nerf  # noqa: F401 (registry side effect)
+from . import img_fit, latent, light_stage, nerf  # noqa: F401 (registry)
+from .make_dataset import (
+    DataLoader,
+    make_data_loader,
+    make_dataset,
+    make_loader,
+)
 from .pipeline import DeviceRayPipeline
 
 
 def make_train_dataset(cfg):
     """The config's train split."""
-    kwargs = {**dict(cfg.train_dataset), "split": "train"}
-    return resolve("dataset", cfg.train_dataset_module)(cfg, **kwargs)
+    return make_dataset(cfg, True, split="train")
 
 
 def make_test_dataset(cfg):
     """The config's test split, iterable as batch dicts."""
-    kwargs = {**dict(cfg.test_dataset), "split": "test"}
-    return resolve("dataset", cfg.test_dataset_module)(cfg, **kwargs)
+    return make_dataset(cfg, False, split="test")
 
 
-__all__ = ["DeviceRayPipeline", "make_test_dataset", "make_train_dataset"]
+__all__ = ["DataLoader", "DeviceRayPipeline", "make_data_loader",
+           "make_dataset", "make_loader", "make_test_dataset",
+           "make_train_dataset"]

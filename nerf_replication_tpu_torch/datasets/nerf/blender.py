@@ -92,6 +92,24 @@ class Dataset:
                         base + "_normal_0001.png", size, Image.BILINEAR)
                         / 255.0)
 
+    @classmethod
+    def from_arrays(cls, cfg, images, poses, camera_angle_x: float,
+                    split: str = "train", seed=None) -> "Dataset":
+        """A split from arrays already in memory, as the loader makes them
+        (images (N, H, W, 3) float32 composited, poses (N, 4, 4)), with
+        no files read: its ``__getitem__`` gives the same batches."""
+        self = cls.__new__(cls)
+        ta = cfg.get("task_arg", {}) if cfg is not None else {}
+        self.split = split
+        self.H, self.W = int(images.shape[1]), int(images.shape[2])
+        self.n_rays = int(ta.get("N_rays", 1024))
+        self.camera_angle_x = float(camera_angle_x)
+        self._rng = np.random.default_rng(seed)
+        self.images = [np.asarray(img, np.float32) for img in images]
+        self.poses = [np.asarray(p, np.float32) for p in poses]
+        self.depths, self.normals, self.alphas = [], [], []
+        return self
+
     @property
     def focal(self) -> float:
         return self.W / (2.0 * np.tan(self.camera_angle_x / 2.0))

@@ -1,6 +1,7 @@
-"""Image metrics: uint8-quantized PSNR and SSIM, as
+"""Image metrics: uint8-quantized and float PSNR and SSIM, as
 nerf_replication_tpu/evaluators/metrics.py (numpy + scipy): PSNR on images
-quantized by truncation to uint8 then taken as floats; SSIM matching
+quantized by truncation to uint8 then taken as floats; float PSNR in
+float64 (skimage's ``peak_signal_noise_ratio``); SSIM matching
 ``skimage.metrics.structural_similarity`` defaults (uniform 7x7 window,
 K1 0.01, K2 0.03, unbiased covariance, valid-region mean)."""
 
@@ -17,6 +18,17 @@ def psnr_uint8(img_pred: np.ndarray, img_gt: np.ndarray) -> float:
     if mse < 1e-10:
         return 100.0
     return float(10.0 * np.log10(255.0 ** 2 / mse))
+
+
+def psnr(img_pred: np.ndarray, img_gt: np.ndarray,
+         data_range: float = 1.0) -> float:
+    """Float PSNR, the MSE taken in float64; 100 dB below an MSE of
+    1e-12."""
+    mse = np.mean((np.asarray(img_pred, np.float64)
+                   - np.asarray(img_gt, np.float64)) ** 2)
+    if mse < 1e-12:
+        return 100.0
+    return float(10.0 * np.log10(data_range ** 2 / mse))
 
 
 def _ssim_single(x: np.ndarray, y: np.ndarray, win_size: int,

@@ -63,16 +63,27 @@ _GRID_FIELDS = ("input_dim", "n_levels", "n_features", "log2_hashmap_size",
 
 def normalize_to_unit(x: torch.Tensor, bounds) -> torch.Tensor:
     """Clamp to ``bounds`` (lo..., hi...) and scale into [0,1]^D by the
-    largest side, in float32 as the JAX package does."""
+    largest side, in float32 as the jitted JAX package does."""
     d = x.shape[-1]
-    lo = torch.tensor(bounds[:d], dtype=x.dtype, device=x.device)
-    hi = torch.tensor(bounds[d:], dtype=x.dtype, device=x.device)
-    return _into_box(x, lo, hi, (hi - lo).max() + EPS)
+    lo, hi, inv = (torch.from_numpy(a).to(x.device)
+                   for a in box_constants(bounds[:d], bounds[d:]))
+    return _into_box(x, lo, hi, inv)
 
 
-def _into_box(x, lo, hi, side):
+def box_constants(lo, hi) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """float32 lo, hi and the reciprocal of the largest side plus EPS,
+    rounded once to float32. The JAX package divides by that side inside
+    ``jit``, where XLA turns a division by a constant into a product by
+    its float32 reciprocal; at +-1.2 or +-1.5 the side is no power of two
+    and a true division lands an ulp off on about one coordinate in six."""
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    side = np.max(hi - lo) + np.float32(EPS)
+    return lo, hi, np.array(np.float32(1.0) / side)
+
+
+def _into_box(x, lo, hi, inv_side):
     x = torch.minimum(torch.maximum(x, lo), hi)
-    return (x - lo) / side
+    return (x - lo) * inv_side
 
 
 def frame_time(t: torch.Tensor, frames: int) -> torch.Tensor:
@@ -89,11 +100,10 @@ def _register_box(module: nn.Module, bounds) -> None:
     if not bounds:
         return
     d = len(bounds) // 2
-    lo = torch.tensor(bounds[:d], dtype=torch.float32)
-    hi = torch.tensor(bounds[d:], dtype=torch.float32)
-    module.register_buffer("box_lo", lo, persistent=False)
-    module.register_buffer("box_hi", hi, persistent=False)
-    module.register_buffer("box_side", (hi - lo).max() + EPS,
+    lo, hi, inv = box_constants(bounds[:d], bounds[d:])
+    module.register_buffer("box_lo", torch.from_numpy(lo), persistent=False)
+    module.register_buffer("box_hi", torch.from_numpy(hi), persistent=False)
+    module.register_buffer("box_inv_side", torch.from_numpy(inv),
                            persistent=False)
 
 
@@ -101,7 +111,7 @@ def _normalize(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``normalize_to_unit`` by ``module``'s box buffers, if it has any."""
     if not module.bounds:
         return x
-    return _into_box(x, module.box_lo, module.box_hi, module.box_side)
+    return _into_box(x, module.box_lo, module.box_hi, module.box_inv_side)
 
 
 # -- the vertex-exact functional core -------------------------------------

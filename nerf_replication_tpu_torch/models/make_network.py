@@ -13,5 +13,13 @@ def _make_nerf(cfg):
     return mk(cfg)
 
 
+@register("network", "img_fit", aliases=(
+    "src.models.img_fit.network",
+    "nerf_replication_tpu.models.img_fit.network"))
+def _make_img_fit(cfg):
+    from .img_fit.network import make_network as mk
+    return mk(cfg)
+
+
 def make_network(cfg):
     return resolve("network", cfg.network_module)(cfg)

@@ -34,8 +34,8 @@ from ...encoding.hashgrid import HashGridEncoder
 
 def grid_backend(net) -> str | None:
     """The backend of ``net``'s hash-grid encoder ("brick" or "xla"), or
-    None for another encoder."""
-    enc = net.xyz_encoder
+    None for another encoder or a network without one (img_fit)."""
+    enc = getattr(net, "xyz_encoder", None)
     return enc.backend if isinstance(enc, HashGridEncoder) else None
 
 

@@ -6,6 +6,7 @@
 * evaluate — render the config's test split, mean MSE/PSNR/SSIM and the
   frame time, fps = 1 / mean(frame times after the first)
 * network  — render up to 4 views, per-view PSNR + PNG dumps
+* dataset  — iterate the test loader, print ray shapes and batch keys
 
 The weights come from ``pretrain_path`` when it is set, else from the
 newest checkpoint under ``trained_model_dir``. The device is the config's
@@ -33,7 +34,7 @@ the same apply: occupancy grids of the network's own density first (64^3
 dilated 2 cells for the span probe, 128^3 dilated 1 for the candidate
 selection; ``occ_resolution``, ``occ_sel_resolution``, ``occ_threshold``),
 then one frame renderer per (H, W, focal) with the ``fast_*`` keys.
-``--type dataset/input/mesh`` are not ported yet (ROADMAP.md item 10).
+``--type input/mesh`` are not ported yet (ROADMAP.md item 10).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import numpy as np
 import torch
 
 from .config import as_bool, make_cfg, parse_args
-from .datasets import make_test_dataset
+from .datasets import make_data_loader, make_test_dataset
 from .evaluators import make_evaluator, psnr_uint8
 from .models import make_network
 from .models.nerf.renderer import make_renderer, ngp_renderer
@@ -240,7 +241,24 @@ def run_network(cfg, loader=None) -> None:
     print("total_time:", total)
 
 
-RUNS = {"evaluate": run_evaluate, "network": run_network}
+def run_dataset(cfg) -> int:
+    """Iterate the test loader (``make_data_loader(cfg, is_train=False)``)
+    and print the first batch's ray shapes and first rays and every
+    batch's keys, as the JAX package's ``run --type dataset``. Returns the
+    number of batches."""
+    count = 0
+    for count, batch in enumerate(make_data_loader(cfg, is_train=False), 1):
+        if count == 1:
+            print("rays_o shape:", batch["rays_o"].shape)
+            print("rays_d shape:", batch["rays_d"].shape)
+            print("example rays_o[0]:", batch["rays_o"][0, 0])
+            print("example rays_d[0]:", batch["rays_d"][0, 0])
+        print(f"batch {count - 1}: keys={sorted(batch.keys())}")
+    return count
+
+
+RUNS = {"dataset": run_dataset, "evaluate": run_evaluate,
+        "network": run_network}
 
 
 def main(argv=None):
@@ -249,9 +267,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     args = parse_args(argv)
     if args.type not in RUNS:
-        raise SystemExit(f"--type must be one of {sorted(RUNS)}; dataset, "
-                         "input and mesh are not ported yet (ROADMAP.md "
-                         "item 10)")
+        raise SystemExit(f"--type must be one of {sorted(RUNS)}; input and "
+                         "mesh are not ported yet (ROADMAP.md item 10)")
     RUNS[args.type](make_cfg(args))
 
 

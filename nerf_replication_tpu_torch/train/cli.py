@@ -13,6 +13,14 @@ every ``save_ep`` epochs and as ``latest.ckpt`` every ``save_latest_ep``,
 and the test split is evaluated every ``eval_ep``. ``--test`` evaluates
 the checkpoint (or ``pretrain_path``) through ``Trainer.val``.
 
+Where the JAX package's train.py takes its host loader (:84-110), when
+``task`` is ``img_fit`` or the train dataset has no ``as_arrays``, every
+epoch runs ``Trainer.train`` over ``make_data_loader(cfg, is_train=True,
+is_distributed=cfg.distributed, max_iter=cfg.ep_iter)`` instead, e.g.
+``python -m nerf_replication_tpu_torch.train --cfg_file
+configs/img_fit/lego_view0.yaml`` (a ``data_root`` holding the scene). The
+val loader is ``make_data_loader(cfg, is_train=False)``.
+
 The device is the config's ``device`` (``cuda`` unless ``device cpu``).
 ``network.use_pallas_mlp_train`` (default True) trains the 8x256 MLP
 through the fused CUDA kernels, ``False`` through the ``nn.Module`` with
@@ -28,7 +36,12 @@ import os
 import torch
 
 from ..config import as_bool, make_cfg, parse_args
-from ..datasets import DeviceRayPipeline, make_test_dataset, make_train_dataset
+from ..datasets import (
+    DeviceRayPipeline,
+    make_data_loader,
+    make_loader,
+    make_train_dataset,
+)
 from ..evaluators import make_evaluator
 from ..models import make_network
 from ..run import load_model as load_eval_model
@@ -64,8 +77,9 @@ def _pretrain_dir(name: str) -> str:
 
 def train(cfg, train_arrays=None, val_loader=None):
     """Train per the config; returns the Trainer. ``train_arrays``
-    (images, poses, K and, for ``random_bkgd``, alphas) and ``val_loader``
-    replace the config's splits."""
+    (images, poses, K and, for ``random_bkgd``, alphas) replace the
+    config's split on the device-resident path, and ``val_loader``
+    replaces the config's test loader."""
     device = resolve_device(cfg)
     network = make_network(cfg).to(device)
     trainer = make_trainer(cfg, network)
@@ -83,12 +97,26 @@ def train(cfg, train_arrays=None, val_loader=None):
         network.load_state_dict(params_from_jax(
             load_pretrain(_pretrain_dir(cfg.pretrain))))
 
-    if train_arrays is None:
+    # the host loader where the JAX package's train.py takes it
+    host = dict(is_train=True,
+                is_distributed=as_bool(cfg.distributed, "distributed"),
+                max_iter=cfg.ep_iter)
+    loader = None
+    if train_arrays is None and cfg.task == "img_fit":
+        loader = make_data_loader(cfg, **host)
+    elif train_arrays is None:
         dataset = make_train_dataset(cfg)
-        train_arrays = (*dataset.as_arrays(), dataset.alpha_arrays())
-    pipeline = make_pipeline(cfg, train_arrays, device)
+        if hasattr(dataset, "as_arrays"):
+            train_arrays = (*dataset.as_arrays(), dataset.alpha_arrays())
+        else:
+            loader = make_loader(cfg, dataset, **host)
+    pipeline = (None if loader is not None
+                else make_pipeline(cfg, train_arrays, device))
     for epoch in range(begin_epoch, int(cfg.train.epoch)):
-        trainer.train_device(epoch, pipeline, recorder)
+        if pipeline is None:
+            trainer.train(epoch, loader, recorder)
+        else:
+            trainer.train_device(epoch, pipeline, recorder)
         ckpt = (network, trainer.optimizer.state_dict(),
                 {"step": trainer.step}, recorder.state_dict(), epoch,
                 cfg.trained_model_dir)
@@ -97,9 +125,9 @@ def train(cfg, train_arrays=None, val_loader=None):
         if (epoch + 1) % cfg.save_latest_ep == 0:
             save_model(*ckpt, latest=True)
         if (epoch + 1) % cfg.eval_ep == 0:
-            loader = make_test_dataset(cfg) if val_loader is None \
-                else val_loader
-            trainer.val(epoch, loader, evaluator, recorder)
+            if val_loader is None:
+                val_loader = make_data_loader(cfg, is_train=False)
+            trainer.val(epoch, val_loader, evaluator, recorder)
     return trainer
 
 
@@ -108,7 +136,8 @@ def test(cfg, val_loader=None) -> dict:
     ``Trainer.val``."""
     network = load_eval_model(cfg, resolve_device(cfg))
     trainer = make_trainer(cfg, network)
-    loader = make_test_dataset(cfg) if val_loader is None else val_loader
+    loader = (make_data_loader(cfg, is_train=False) if val_loader is None
+              else val_loader)
     return trainer.val(-1, loader, make_evaluator(cfg))
 
 

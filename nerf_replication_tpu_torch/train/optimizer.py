@@ -7,19 +7,47 @@ JAX package computes the update in XLA, not in a kernel, so ``torch.optim``
 computes it here: Adam, decoupled AdamW for ``weight_decay`` > 0 (optax
 ``adamw``), RAdam and SGD with L2 weight decay added to the gradient
 (optax ``add_decayed_weights`` before the update).
+
+optax takes Adam's bias corrections ``1 - b**t`` in float32, from ``b``
+rounded to float32 (``1 - 0.999`` comes out 1.3e-5 below 0.001), where
+``torch.optim`` takes them in float64; so early updates in the JAX package
+are ~6e-6 smaller. :func:`optax_bias_scale` scales the learning rate of each
+Adam step to give optax's update.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from .scheduler import make_lr_schedule
 
 
+def _bias_correction_f32(b: float, t: int) -> float:
+    """optax's ``1 - b**t`` in float32, as XLA computes it (its float32
+    ``pow`` is the correctly rounded power of the float32 ``b``)."""
+    power = np.float32(float(np.float32(b)) ** t)
+    return float(np.float32(1) - power)
+
+
+def optax_bias_scale(betas, t: int) -> float:
+    """The factor on the learning rate of torch's Adam step ``t`` (from 1)
+    that makes it optax's: ``lr / bc1 * m / (sqrt(v) / sqrt(bc2) + eps)``
+    with float64 corrections becomes ``lr / bc1_f32 * m / (sqrt(v) /
+    sqrt(bc2_f32) + eps')``, where eps' = eps * sqrt(bc2 / bc2_f32) is
+    within 1e-5 of eps."""
+    b1, b2 = betas
+    return ((1 - b1 ** t) / _bias_correction_f32(b1, t)
+            * math.sqrt(_bias_correction_f32(b2, t) / (1 - b2 ** t)))
+
+
 class ScheduledOptimizer:
     """``torch.optim`` optimizer + step -> lr schedule + value clip. Its
     k-th :meth:`step` (``count`` k, from 0) clips every gradient to
-    [-clip, clip], sets the learning rate to ``schedule(k)`` and updates."""
+    [-clip, clip], sets the learning rate to ``schedule(k)`` (for Adam
+    times :func:`optax_bias_scale`) and updates."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, schedule,
                  clip: float):
@@ -38,8 +66,12 @@ class ScheduledOptimizer:
         if self.clip > 0:
             torch.nn.utils.clip_grad_value_(self.params, self.clip)
         lr = self.schedule(self.count)
+        adam = isinstance(self.optimizer,
+                          (torch.optim.Adam, torch.optim.AdamW))
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            group["lr"] = (lr * optax_bias_scale(group["betas"],
+                                                 self.count + 1)
+                           if adam else lr)
         self.optimizer.step()
         self.count += 1
 

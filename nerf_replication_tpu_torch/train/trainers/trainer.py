@@ -1,4 +1,5 @@
-"""Trainer: the device-resident training loop and validation.
+"""Trainer: the host-loader and device-resident training loops and
+validation.
 
 The counterpart of nerf_replication_tpu/train/trainers/trainer.py. Its
 ``train_device`` (:144-216) runs an epoch of ``ep_iter`` fused
@@ -6,12 +7,16 @@ sample -> render -> loss -> grad -> update steps as compiled ``lax.scan``
 chunks; here :meth:`Trainer.train_device` is a Python loop of the same
 steps on the device (sample from the GPU-resident split, render, loss,
 ``backward``, clip 40, optimizer step), with no host synchronisation
-inside the epoch. The epoch's generator is seeded from ``seed`` and the
-epoch (the JAX ``fold_in``), so a resumed run draws what an unbroken one
-draws. ``val`` drives the evaluator through the eval renderer, with the
-fused kernel's weights packed from the current parameters.
-
-Not ported yet (ROADMAP.md item 8): the host-loader ``train`` loop.
+inside the epoch. :meth:`Trainer.train` (JAX :95-142) is the host-loader
+loop: each batch of a ``make_data_loader`` goes to the device
+(:func:`host_batch_to_device`) and through the same step, with the
+per-iteration data and batch times, and every ``log_interval`` iterations
+and on the last a synchronised log line (ETA, smoothed stats, lr,
+memory). The epoch's generator is seeded from ``seed`` and the epoch (the
+JAX ``fold_in``), so a resumed run draws what an unbroken one draws.
+``val`` drives the evaluator through the wrapper's ``render_eval`` where
+it has one (img_fit), else through the eval renderer, with the fused
+kernel's weights packed from the current parameters.
 """
 
 from __future__ import annotations
@@ -26,10 +31,40 @@ from ..optimizer import make_optimizer
 from ..scheduler import make_lr_schedule
 
 
+def host_batch_to_device(batch, device: torch.device):
+    """numpy (nested dicts, lists, tuples) -> tensors on ``device``;
+    ``meta`` stays on the host. A CUDA copy goes from pinned memory without
+    blocking: a copy from pageable memory can wait for the stream."""
+    if isinstance(batch, dict):
+        return {k: (v if k == "meta" else host_batch_to_device(v, device))
+                for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(host_batch_to_device(v, device) for v in batch)
+    t = torch.as_tensor(np.asarray(batch))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _rows(batch: dict) -> int:
+    """Rays (or pixels) in a host batch: the rows of its first (..., k)
+    array among rays_o, uv."""
+    for key in ("rays_o", "uv"):
+        if key in batch:
+            return int(np.prod(np.shape(batch[key])[:-1]))
+    return 0
+
+
 def epoch_seed(seed: int, epoch: int) -> int:
     """The generator seed of ``epoch``: a function of (seed, epoch) only."""
     return int(np.random.SeedSequence([int(seed), int(epoch)])
                .generate_state(1, np.uint64)[0] >> 1)
+
+
+def _device_mem_mb(device: torch.device) -> float:
+    if device.type != "cuda":
+        return 0.0
+    return torch.cuda.memory_allocated(device) / 2 ** 20
 
 
 class Trainer:
@@ -41,9 +76,11 @@ class Trainer:
         self.optimizer = make_optimizer(cfg, self.network.parameters(),
                                         self.lr_schedule)
         self.ep_iter = int(cfg.get("ep_iter", -1))
+        self.log_interval = int(cfg.get("log_interval", 20))
         self.max_epoch = int(cfg.train.epoch)
         self.seed = int(cfg.get("seed", 0))
-        self.summaries: list[dict] = []   # one per train_device epoch
+        self.summaries: list[dict] = []   # one per training epoch
+        self.evals: list[dict] = []       # one per val
 
     @property
     def device(self) -> torch.device:
@@ -62,6 +99,67 @@ class Trainer:
         loss.backward()
         self.optimizer.step()
         return stats
+
+    def train(self, epoch: int, loader, recorder) -> dict:
+        """One epoch over a host loader. Synchronises with the card only
+        on the iterations that log (every ``log_interval`` and the last),
+        where the stats of the steps since the last log go to the
+        recorder. Returns the epoch's summary as :meth:`train_device`'s,
+        plus per-step ``data_time`` and ``batch_time`` (host seconds: a
+        step's batch time is its enqueue time unless it logs) and the rays
+        (pixels) a step."""
+        device = self.device
+        gen = torch.Generator(device=device).manual_seed(
+            epoch_seed(self.seed, epoch))
+        self.network.train()
+        recorder.epoch = epoch
+        max_iter = len(loader)
+        stats, pending, rows = [], [], 0
+        data_times, batch_times = [], []
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = end = time.perf_counter()
+        for iteration, batch in enumerate(loader):
+            data_time = time.perf_counter() - end
+            rows = _rows(batch)
+            s = self.train_step(host_batch_to_device(batch, device), gen)
+            pending.append(torch.stack([s["loss"], s["color_mse"],
+                                        s["psnr"]]))
+            log = ((iteration + 1) % self.log_interval == 0
+                   or iteration == max_iter - 1)
+            if log:   # the epoch's only synchronisations
+                done = torch.stack(pending).cpu().numpy()
+                stats.append(done)
+                pending = []
+            batch_time = time.perf_counter() - end
+            end = time.perf_counter()
+            recorder.step += 1
+            recorder.batch_time.update(batch_time)
+            recorder.data_time.update(data_time)
+            data_times.append(data_time)
+            batch_times.append(batch_time)
+            if log:
+                for loss, mse, psnr in done:
+                    recorder.update_loss_stats(
+                        {"loss": loss, "color_mse": mse, "psnr": psnr})
+                eta = recorder.batch_time.global_avg * (
+                    (self.max_epoch - epoch) * max_iter - iteration)
+                print(f"eta: {int(eta)}s  {recorder}  lr: "
+                      f"{self.optimizer.lr():.6f}  mem: "
+                      f"{_device_mem_mb(device):.0f}MB")
+                recorder.record("train")
+        wall = time.perf_counter() - t0
+        stats = np.concatenate(stats) if stats else np.zeros((0, 3))
+        summary = {"epoch": epoch, "steps": max_iter, "wall": wall,
+                   "rays_per_s": max_iter * rows / wall,
+                   "loss": stats[:, 0], "psnr": stats[:, 2],
+                   "lr": self.optimizer.lr(),
+                   "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                                  if device.type == "cuda" else 0),
+                   "data_time": np.asarray(data_times),
+                   "batch_time": np.asarray(batch_times), "rows": rows}
+        self.summaries.append(summary)
+        return summary
 
     def train_device(self, epoch: int, pipeline, recorder=None) -> dict:
         """One epoch of ``ep_iter`` steps (500 if unset) drawn from
@@ -106,20 +204,43 @@ class Trainer:
         return summary
 
     def val(self, epoch: int, loader, evaluator, recorder=None) -> dict:
-        """Render every view of ``loader`` with the current weights through
-        the eval renderer (the fused kernel per ``network.use_pallas_mlp``)
-        and return the evaluator's mean metrics."""
-        from ...run import build_renderer
-
+        """Evaluate every batch of ``loader`` with the current weights and
+        return the mean metrics. A wrapper with ``render_eval`` (img_fit)
+        renders through it on the device, with the batch's MSE and PSNR
+        beside the evaluator's (JAX :231-272); a NeRF renders through the
+        eval renderer (the fused kernel per ``network.use_pallas_mlp``)."""
         self.network.eval()
-        renderer = build_renderer(self.cfg, self.network)
-        for batch in loader:
-            rgb, _ = renderer.render(batch)
-            evaluator.evaluate((rgb, None), batch)
-        result = evaluator.summarize()
+        if hasattr(self.wrapper, "render_eval"):
+            result = self._val_render_eval(loader, evaluator)
+        else:
+            from ...run import build_renderer
+
+            renderer = build_renderer(self.cfg, self.network)
+            for batch in loader:
+                rgb, _ = renderer.render(batch)
+                evaluator.evaluate((rgb, None), batch)
+            result = evaluator.summarize()
         print("val:", {k: round(v, 4) for k, v in result.items()})
+        self.evals.append(result)
         if recorder is not None:
             recorder.record("val", recorder.step, loss_stats=result)
+        return result
+
+    def _val_render_eval(self, loader, evaluator) -> dict:
+        sums, n = {}, 0
+        for batch in loader:
+            out = self.wrapper.render_eval(
+                host_batch_to_device(batch, self.device))
+            pred = out["rgb"].detach().cpu().numpy().reshape(-1, 3)
+            gt = np.asarray(batch.get("colors", batch.get("rgb")))
+            mse = float(np.mean((pred - gt.reshape(-1, 3)) ** 2))
+            for k, v in (("loss", mse), ("color_mse", mse),
+                         ("psnr", -10.0 * np.log10(max(mse, 1e-10)))):
+                sums[k] = sums.get(k, 0.0) + v
+            evaluator.evaluate(out, batch)
+            n += 1
+        result = {k: v / max(n, 1) for k, v in sums.items()}
+        result.update(evaluator.summarize())
         return result
 
 

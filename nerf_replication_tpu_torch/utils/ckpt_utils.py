@@ -18,6 +18,7 @@ import os
 import pickle
 import re
 import shutil
+import sys
 
 import numpy as np
 import torch
@@ -44,7 +45,9 @@ def _load_net(path: str) -> dict:
 
 
 def load_pretrain(directory: str) -> dict:
-    """The params tree of ``<directory>/pretrain.ckpt``."""
+    """The params tree of ``<directory>/pretrain.ckpt``. Raises when it is
+    missing, where the JAX package returns None and trains from init: a
+    pretrain the config names is not silently dropped."""
     path = os.path.join(directory, "pretrain.ckpt")
     if not os.path.exists(path):
         raise FileNotFoundError(f"no pretrain.ckpt under {directory}")
@@ -74,9 +77,43 @@ def _pick(model_dir: str, epoch: int = -1) -> str:
     return os.path.join(model_dir, name)
 
 
+def _candidates(model_dir: str, epoch: int = -1) -> list[str]:
+    """:func:`_pick`'s choice first, then (with ``epoch`` -1) the numbered
+    checkpoints newest first, as fallbacks for a corrupt one: the atomic
+    rename protects one file, not a half-written disk. Empty when there
+    is no checkpoint."""
+    try:
+        first = _pick(model_dir, epoch)
+    except FileNotFoundError:
+        return []
+    if epoch != -1:
+        return [first]
+    numbered = (os.path.join(model_dir, f"{e}.ckpt")
+                for e in reversed(_numbered(os.listdir(model_dir))))
+    return [first, *(p for p in numbered if p != first)]
+
+
+def _load_first_valid(model_dir: str, epoch: int = -1):
+    """(path, payload) of the first readable of :func:`_candidates`, or
+    (None, None). A truncated file, a foreign pickle or a newer
+    ``CKPT_VERSION`` counts as unreadable."""
+    for path in _candidates(model_dir, epoch):
+        try:
+            return path, _load_payload(path)
+        except Exception as e:   # noqa: BLE001 - any unreadable file
+            print(f"checkpoint {path} unreadable ({e}); trying previous",
+                  file=sys.stderr)
+    return None, None
+
+
 def load_network(model_dir: str, epoch: int = -1) -> dict:
-    """The params tree of the checkpoint :func:`_pick` chooses."""
-    return _load_net(_pick(model_dir, epoch))
+    """The params tree of the first readable checkpoint of
+    :func:`_candidates`; raises FileNotFoundError when there is none."""
+    path, payload = _load_first_valid(model_dir, epoch)
+    if payload is None:
+        raise FileNotFoundError(f"no readable checkpoint under {model_dir}")
+    print(f"load network: {path}")
+    return payload["net"]
 
 
 def _to_numpy(tree):
@@ -127,17 +164,17 @@ def save_model(network, optim_state: dict, scheduler_state: dict,
 
 def load_model(model_dir: str, resume: bool = True, epoch: int = -1):
     """The checkpoint payload to resume from (``optim`` back as tensors),
-    or None for a fresh start; ``resume`` False wipes ``model_dir``."""
+    or None for a fresh start; ``resume`` False wipes ``model_dir``. A
+    corrupt ``latest.ckpt`` falls back to the newest readable numbered
+    checkpoint, as in the JAX package (:func:`_load_first_valid`)."""
     if not resume:
         if os.path.exists(model_dir):
             print(f"remove contents of directory {model_dir}")
             shutil.rmtree(model_dir, ignore_errors=True)
         return None
-    try:
-        path = _pick(model_dir, epoch)
-    except FileNotFoundError:
+    path, payload = _load_first_valid(model_dir, epoch)
+    if payload is None:
         return None
-    payload = _load_payload(path)
     print(f"load model: {path}")
     payload["optim"] = _to_torch(payload["optim"])
     return payload

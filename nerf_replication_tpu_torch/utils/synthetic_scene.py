@@ -10,9 +10,15 @@ writes it and the Blender loader reads it: the same poses
 uint8 and composited onto white. These are the views the JAX package's
 test PSNRs were measured on. :func:`train_views` does the same for the
 train split (``rng(seed + 1)``, 100 views, as the hard scene was made).
+:func:`generate_scene` writes a whole scene in the NeRF-synthetic layout
+(``transforms_{split}.json``, RGBA PNGs, and the test split's depth and
+normal PNGs, :func:`normal_field`), as the JAX writer (:246-306) does.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -79,6 +85,22 @@ def _tex_mod(pts: torch.Tensor, amp, freq, phase) -> torch.Tensor:
              * torch.sin(freq[2] * pts[..., 2] + phase[2] + 1.9 * c))
         out.append(1.0 + amp * s)
     return torch.stack(out, dim=-1)
+
+
+def normal_field(pts: np.ndarray, spheres=DEFAULT_SPHERES) -> np.ndarray:
+    """The unit normal of the primitive whose surface is nearest each
+    point (..., 3), for the test split's normal PNGs."""
+    best = np.full(pts.shape[:-1], np.inf, dtype=np.float32)
+    normal = np.zeros_like(pts)
+    for sphere in spheres:
+        center, radius = _sphere_fields(sphere)[:2]
+        d = pts - np.array(center, dtype=np.float32)
+        dist = np.abs(np.linalg.norm(d, axis=-1) - radius)
+        closer = dist < best
+        best = np.where(closer, dist, best)
+        n = d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-8)
+        normal = np.where(closer[..., None], n, normal)
+    return normal
 
 
 def look_at_pose(eye: np.ndarray) -> np.ndarray:
@@ -228,3 +250,63 @@ def test_views(scene: str, H: int, W: int, idx, device="cpu") -> list[dict]:
             "pose": pose.astype(np.float32), "focal": np.float32(focal),
         })
     return batches
+
+
+def generate_scene(out_root: str, scene: str = "probe", H: int = 200,
+                   W: int = 200, n_train: int = 30, n_val: int = 4,
+                   n_test: int = 8, radius: float = 4.0, seed: int = 0,
+                   spheres=None, device="cpu") -> str:
+    """Write a NeRF-synthetic-format scene under ``<out_root>/<scene>``:
+    per split the poses drawn from ``rng(seed + 1, 2, 3)``, RGBA uint8
+    PNGs of :func:`render_gt` (on ``device``) and
+    ``transforms_<split>.json``; the test split also gets
+    ``<name>_depth_0001.png`` (depth / 8 as uint8) and
+    ``<name>_normal_0001.png`` (of :data:`DEFAULT_SPHERES`, as the JAX
+    writer makes them for every scene). Returns the scene's directory."""
+    from PIL import Image
+
+    if spheres is None:
+        spheres = SCENES.get(scene, DEFAULT_SPHERES)
+    scene_dir = os.path.join(out_root, scene)
+    focal = W / (2.0 * np.tan(CAMERA_ANGLE_X / 2.0))
+
+    def poses_for(n, split_seed):
+        g = np.random.default_rng(seed + split_seed)
+        phis = g.uniform(0, 2 * np.pi, n)
+        thetas = np.arccos(g.uniform(0.15, 0.85, n))  # avoid the poles
+        eyes = np.stack([radius * np.sin(thetas) * np.cos(phis),
+                         radius * np.sin(thetas) * np.sin(phis),
+                         radius * np.cos(thetas)], -1)
+        return [look_at_pose(e) for e in eyes]
+
+    for split, n, split_seed in (("train", n_train, 1), ("val", n_val, 2),
+                                 ("test", n_test, 3)):
+        split_dir = os.path.join(scene_dir, split)
+        os.makedirs(split_dir, exist_ok=True)
+        frames = []
+        for i, pose in enumerate(poses_for(n, split_seed)):
+            rgb, alpha, depth = render_gt(pose, H, W, focal, spheres,
+                                          device=device)
+            rgba = np.concatenate([rgb, alpha[..., None]], -1)
+            name = f"r_{i}"
+            Image.fromarray((np.clip(rgba, 0, 1) * 255).astype(np.uint8),
+                            "RGBA").save(os.path.join(split_dir,
+                                                      name + ".png"))
+            if split == "test":
+                d8 = (np.clip(depth / 8.0, 0, 1) * 255).astype(np.uint8)
+                Image.fromarray(d8, "L").save(
+                    os.path.join(split_dir, name + "_depth_0001.png"))
+                rays_o, rays_d = camera_rays(pose, H, W, focal)
+                # the JAX writer takes the default spheres' normals
+                # whatever the scene; kept, so both write the same files
+                nrm = normal_field(rays_o + rays_d * depth[..., None])
+                n8 = ((nrm * 0.5 + 0.5) * 255).astype(np.uint8)
+                Image.fromarray(n8, "RGB").save(
+                    os.path.join(split_dir, name + "_normal_0001.png"))
+            frames.append({"file_path": f"./{split}/{name}",
+                           "rotation": 0.0,
+                           "transform_matrix": pose.tolist()})
+        with open(os.path.join(scene_dir, f"transforms_{split}.json"),
+                  "w") as f:
+            json.dump({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames}, f)
+    return scene_dir

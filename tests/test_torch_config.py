@@ -21,10 +21,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, ROOT) for p in
                  glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"),
                            recursive=True))
-# what the port reads from a config
+# what the port reads from a config, training and the host loader too
 PORT_KEYS = ("task", "scene", "task_arg", "network",
              "test_dataset", "test_dataset_module", "network_module",
-             "renderer_module", "evaluator_module")
+             "renderer_module", "evaluator_module", "train", "test",
+             "train_dataset", "train_dataset_module", "loss_module",
+             "ep_iter", "save_ep", "save_latest_ep", "eval_ep",
+             "log_interval", "seed", "distributed")
 
 
 @pytest.mark.parametrize("cfg_file", CONFIGS)
@@ -34,7 +37,7 @@ def test_config_tree_matches_jax(cfg_file, monkeypatch):
     theirs = jax_config.load_cfg_tree(cfg_file, jax_config.default_cfg())
     for key in PORT_KEYS:
         if key in theirs:
-            assert ours[key] == theirs[key], key
+            assert key in ours and ours[key] == theirs[key], key
 
 
 def test_cli_overrides_and_output_dirs_match_jax(monkeypatch):

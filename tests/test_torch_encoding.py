@@ -71,9 +71,8 @@ OTHER_TYPES = [
 
 
 @pytest.mark.parametrize("name", OTHER_TYPES)
-def test_unported_encoders_name_their_roadmap_item(name):
-    """Every encoder name builds its module and encodes: none is left
-    unported (the test's name dates from when these raised). Each builds
+def test_every_encoder_name_builds_and_encodes(name):
+    """Every encoder name builds its module and encodes. Each builds
     at a small size here and encodes points of its input width; their
     parity with the JAX package is in tests/test_torch_hashgrid_xla.py and
     tests/test_torch_composite_encoders.py."""

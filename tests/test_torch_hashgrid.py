@@ -168,20 +168,23 @@ def test_eval_encode_counts_plain_calls_on_cpu():
 
 
 def test_normalize_to_unit_matches_jax():
-    """float32 clamp and scale by the largest side plus 1e-6: bit equal."""
+    """float32 clamp and scale by the largest side plus 1e-6: bit equal to
+    the jitted JAX function, as the JAX package runs it."""
     x = np.random.default_rng(7).uniform(-1.5, 1.5, (100, 3)).astype(
         np.float32)
     bounds = (-1.2, -1.2, -1.2, 1.2, 1.2, 1.2)
     np.testing.assert_array_equal(
         normalize_to_unit(torch.from_numpy(x), bounds).numpy(),
-        np.asarray(jax_normalize(jnp.asarray(x), bounds)))
+        np.asarray(jax.jit(lambda p: jax_normalize(p, bounds))(
+            jnp.asarray(x))))
 
 
 def test_to_unit_takes_a_gradient_after_inference_mode():
     """The encoder's box corners do not depend on the mode of their first
     use: an eval under inference_mode, then a gradient with respect to the
     points through the same encoder; both bit-equal to normalize_to_unit,
-    the gradient 1 / side inside the box and 0 outside."""
+    the gradient the float32 reciprocal of the side inside the box and 0
+    outside."""
     bounds = (-1.2, -1.2, -1.2, 1.2, 1.2, 1.2)
     enc = HashGridEncoder(n_levels=3, base_resolution=8, finest_resolution=32,
                           log2_bricks=9, bounds=bounds, backend="brick",
@@ -196,7 +199,7 @@ def test_to_unit_takes_a_gradient_after_inference_mode():
     expect = torch.clamp(normalize_to_unit(x, bounds), 0.0, 1.0)
     assert torch.equal(evaluated, expect) and torch.equal(out.detach(), expect)
     inside = (x.abs() < 1.2).float()
-    assert torch.equal(xg.grad, inside / enc.box_side)
+    assert torch.equal(xg.grad, inside * enc.box_inv_side)
 
 
 def test_hashgrid_encoder_from_cfg():
@@ -225,7 +228,8 @@ def test_hashgrid_encoder_from_cfg():
 
 def test_hashgrid_encoder_matches_flax_module():
     """The nn.Module encode against the Flax HashGridEncoder (brick) on the
-    same table, world-space points: atol 1e-6."""
+    same table, world-space points, the Flax module jitted as the JAX
+    package runs it: atol 1e-6."""
     from nerf_replication_tpu.models.encoding.hashgrid import (
         HashGridEncoder as JaxHashGrid,
     )
@@ -242,9 +246,9 @@ def test_hashgrid_encoder_matches_flax_module():
         enc.table.copy_(torch.from_numpy(table))
     x = np.random.default_rng(9).uniform(-1.3, 1.3, (6, 7, 3)).astype(
         np.float32)
-    expect = jax_enc.apply({"params": {"table": jnp.asarray(table,
-                                                            jnp.float32)}},
-                           jnp.asarray(x))
+    expect = jax.jit(jax_enc.apply)(
+        {"params": {"table": jnp.asarray(table, jnp.float32)}},
+        jnp.asarray(x))
     np.testing.assert_allclose(enc(torch.from_numpy(x)).detach().numpy(),
                                np.asarray(expect), atol=1e-6, rtol=0)
     assert jax.tree.leaves(expect)   # the Flax module ran

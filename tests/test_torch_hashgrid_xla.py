@@ -239,7 +239,8 @@ def test_encoder_module_matches_flax():
     Flax module on the same table, world-space points clipped outside the
     bounds, and its gradients: the table's, and the points' with
     ``input_grad`` set (normalised, so the box's 1 / side and the clip's
-    zero outside apply)."""
+    zero outside apply). The Flax side is jitted, as the JAX package runs
+    it."""
     section = {"type": "cuda_hashgrid", "input_dim": 3, "num_levels": 4,
                "level_dim": 2, "base_resolution": 16,
                "desired_resolution": 128, "log2_hashmap_size": 12,
@@ -258,10 +259,10 @@ def test_encoder_module_matches_flax():
     def jloss(t, xx):
         return jnp.sum(jenc.apply({"params": {"table": t}}, xx) * cot)
 
-    expect = jenc.apply({"params": {"table": jnp.asarray(table)}},
-                        jnp.asarray(x))
-    jdt, jdx = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(table),
-                                               jnp.asarray(x))
+    expect = jax.jit(jenc.apply)({"params": {"table": jnp.asarray(table)}},
+                                 jnp.asarray(x))
+    jdt, jdx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(table),
+                                                        jnp.asarray(x))
     for e in (enc, enc_g):
         with torch.no_grad():
             e.table.copy_(torch.from_numpy(table))

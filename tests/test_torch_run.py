@@ -35,6 +35,18 @@ SLICE_MODULES = [
     "nerf_replication_tpu_torch.ops._build",
     "nerf_replication_tpu_torch.datasets.nerf.blender",
     "nerf_replication_tpu_torch.evaluators.nerf",
+    "nerf_replication_tpu_torch.evaluators.img_fit",
+    "nerf_replication_tpu_torch.datasets",
+    "nerf_replication_tpu_torch.datasets.make_dataset",
+    "nerf_replication_tpu_torch.datasets.samplers",
+    "nerf_replication_tpu_torch.datasets.collate",
+    "nerf_replication_tpu_torch.datasets.dataset_catalog",
+    "nerf_replication_tpu_torch.datasets.latent",
+    "nerf_replication_tpu_torch.datasets.light_stage",
+    "nerf_replication_tpu_torch.datasets.img_fit.synthetic",
+    "nerf_replication_tpu_torch.models.img_fit.network",
+    "nerf_replication_tpu_torch.train.trainers.img_fit",
+    "nerf_replication_tpu_torch.train.cli",
     "chip_smoke",
 ]
 

@@ -36,6 +36,7 @@ from nerf_replication_tpu_torch.datasets.nerf.blender import Dataset
 from nerf_replication_tpu_torch.evaluators import make_evaluator
 from nerf_replication_tpu_torch.models import make_network
 from nerf_replication_tpu_torch.models.nerf.renderer import volume_renderer
+from nerf_replication_tpu_torch.train import cli as train_cli
 from nerf_replication_tpu_torch.train import make_optimizer, make_trainer
 from nerf_replication_tpu_torch.train.cli import main as train_main
 from nerf_replication_tpu_torch.train.scheduler import make_lr_schedule
@@ -235,6 +236,31 @@ def test_optimizer_matches_optax(monkeypatch, optim):
     assert topt.count == 5
 
 
+@pytest.mark.parametrize("wd", ["0.0", "0.01"])
+def test_adam_updates_take_optax_float32_bias_corrections(monkeypatch, wd):
+    """Each of 100 Adam updates, taken from zero parameters so that the
+    update is the parameter, within 1e-6 of optax's largest. optax's bias
+    corrections 1 - b**t are float32 (1.3e-5 low at b 0.999); with
+    float64 ones the updates would be ~6e-6 larger."""
+    cfg, jcfg = _cfgs(monkeypatch, "train.weight_decay", wd)
+    g = np.random.default_rng(1)
+    grads = [g.normal(size=(64,)).astype(np.float32) for _ in range(100)]
+    opt = jax_optim(jcfg)
+    zero = jnp.zeros(64, jnp.float32)
+    state = opt.init(zero)
+    tp = torch.nn.Parameter(torch.zeros(64))
+    topt = make_optimizer(cfg, [tp])
+    for gr in grads:
+        upd, state = opt.update(jnp.asarray(gr), state, zero)
+        with torch.no_grad():
+            tp.zero_()
+        tp.grad = torch.from_numpy(gr.copy())
+        topt.step()
+        expect = np.asarray(upd)
+        np.testing.assert_allclose(tp.detach().numpy(), expect, rtol=0,
+                                   atol=1e-6 * np.abs(expect).max())
+
+
 @pytest.mark.parametrize("sched", [
     ["train.scheduler.type", "exponential"],
     ["train.scheduler.type", "multi_step", "train.scheduler.milestones",
@@ -387,6 +413,53 @@ def test_cli_trains_resumes_and_tests(tmp_path, monkeypatch):
     assert [s["epoch"] for s in resumed.summaries] == [2]
     result = train_main(["--test"] + argv)
     assert set(result) == {"mse", "psnr", "ssim"}
+
+
+def test_cli_trains_a_split_without_arrays_through_the_host_loader(
+        tmp_path, monkeypatch):
+    """A train split with no ``as_arrays`` (here a Blender split seen only
+    through ``__getitem__``) trains through ``Trainer.train`` over that
+    same dataset, built once, where the JAX package's train.py takes its
+    host loader."""
+    monkeypatch.setattr(jax_scene, "render_gt", scene.render_gt)
+    jax_scene.generate_scene(str(tmp_path), "probe", H=32, W=32, n_train=4,
+                             n_val=0, n_test=0)
+    monkeypatch.chdir(ROOT)
+
+    class ItemsOnly:
+        reads = 0
+
+        def __init__(self, dataset):
+            self.dataset = dataset
+
+        def __len__(self):
+            return len(self.dataset)
+
+        def __getitem__(self, index):
+            ItemsOnly.reads += 1
+            return self.dataset[index]
+
+    built = []
+    make_split = train_cli.make_train_dataset
+
+    def make_items_only(cfg):
+        built.append(cfg.train_dataset.split)
+        return ItemsOnly(make_split(cfg))
+
+    monkeypatch.setattr(train_cli, "make_train_dataset", make_items_only)
+    trainer = train_main([
+        "--cfg_file", "configs/nerf/probe.yaml", "device", "cpu",
+        *TINY[:8], "task_arg.N_rays", "64",
+        "train_dataset.data_root", str(tmp_path),
+        "train_dataset.H", "32", "train_dataset.W", "32",
+        "trained_model_dir", str(tmp_path / "model"),
+        "record_dir", str(tmp_path / "record"), "ep_iter", "6",
+        "save_ep", "100", "save_latest_ep", "100", "eval_ep", "100",
+        "train.epoch", "1", "resume", "False"])
+    assert built == ["train"] and ItemsOnly.reads == 6 == trainer.step
+    summary = trainer.summaries[-1]
+    assert summary["data_time"].shape == (6,) and summary["rows"] == 64
+    assert np.isfinite(summary["loss"]).all()
 
 
 NGP_TINY = ["network.xyz_encoder.num_levels", "4",
