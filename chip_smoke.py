@@ -204,6 +204,28 @@ Phases (any failure exits non-zero):
    steps/s and the data time's share. (c) With ``--profile``, 20 more
    host-loader steps of each under torch.profiler
    (build/profile_host_loader_{img_fit,nerf}.txt).
+13. data parallel (``parallel.mesh``). (a) One rank over nccl in this
+   process against no group: 20 steps of configs/nerf/hard.yaml at full
+   width on phase 5's views through #3-#5, losses and parameters bit for
+   bit. (b) ``chip_smoke.py --dp_rank`` as N ranks (2 sharing one card over
+   gloo, else nccl over min(count, 4) cards; every rank killed if one
+   fails or the group outlives its limit): the same 20 steps at the same
+   global batch of 1024 rays against the one-process run (per-step losses
+   within 1e-4 over the first 2 steps and DP_LOSS_RTOL over the 20, the
+   largest parameter difference), two faulty controls that must miss
+   (a sum without the division, ranks that draw their own rays);
+   hard_ngp.yaml as committed for 20 steps through #6/#7, the first step's
+   table gradient after the all-reduce against one process within
+   BRICK_BWD_TOL of each level's max; the dense eval of hard view 0
+   through #1 (``run_evaluate``) against phase 3's render, the compacted
+   ERT frame (#1) and the NGP frame-path frame (#10) of orbit pose 0
+   against one rank's, with the JAX tests' bounds and the share of
+   bit-equal pixels; each kernel's launches a rank (the training kernels
+   as one process's, the render kernels summing to one rank's); the step
+   time of one process and of N ranks (with one card, two processes
+   time-sharing it: not a scaling figure). (c) ``parallel.dryrun`` on 2
+   ranks under ``torch.distributed.run``: its f32 and bf16 arms and
+   controls.
 Every CUDA-event time is the median of five rounds after one warm-up
 call (``cuda_times``). The last three lines are the card's name and power
 limit, the kernel summary (each kernel's launches on its path, error,
@@ -211,8 +233,9 @@ times and bound; ``frame_launches`` for the frame path's kernels: their
 launches in one frame, ``compact_frame_launches`` #1's in one compacted
 frame; under ``plain_pytorch`` the xla encode, which is no kernel: its
 calls in phase 11's training, errors, times and bounds; #3/#4 and #5
-also under ``host_loader_launches``, their launches in phase 12 (b)) and
-the device, the last two as JSON.
+also under ``host_loader_launches``, their launches in phase 12 (b); the
+kernels of phase 13 under ``dp_launches_by_rank``) and the device, the
+last two as JSON.
 """
 
 from __future__ import annotations
@@ -222,6 +245,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
@@ -2138,6 +2162,10 @@ def phase_frame(family: str, argv, views, dense: dict, bounds: Bounds,
           f"{peak_gb:.2f} GB")
     out["busy_ms"] = profile_runs(lambda: fn(pose), 1, "frame",
                                   f"frame_{family}", warm=1)
+    # what phase 13 renders again, sharded
+    out["spec"] = {"occupancy": occupancy, "select": select,
+                   "settings": settings, "step": chosen["step"],
+                   "caps": dataclasses.asdict(caps), "probe": chosen["probe"]}
     out.update(step=chosen["step"], psnr=info["psnr"], drop=info["drop"],
                stats=stats, **times)
 
@@ -2387,6 +2415,7 @@ def phase_compact(argv, views, dense: dict, arrays) -> dict:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     out["busy_ms"] = profile_runs(lambda: fns["ERT"](poses[0]), 1, "frame",
                                   "frame_compact", warm=1)
+    out["spec"] = {"occupancy": occupancy, "caps": caps}  # for phase 13
     out.update(checks=checks, frame_launches=counts["enc"], stats=stats,
                caps=caps, gate=frame["q_vs_dense_db"], drops=drops,
                fast_psnr=fast["psnr"], times=times)
@@ -2430,11 +2459,13 @@ COMPOSITE_POINTS = 65_536
 # The composites on the card against the CPU in float64, on points
 # rounded to float32 (so the float32 run sees the same points): the same
 # arithmetic in another order. Where a coordinate comes out of a warp
-# (Motion2D, the D-NeRF family), the two may round it one f64 ulp apart,
-# which the defaults' finest level (16 x 2^15 cells a side) magnifies
-# ~5e5-fold: those read up to ~4.4e-10 of a leaf's max, the others
-# ~2e-15 (PERF.md section 6). Every output and gradient
-# element within COMPOSITE_F64_TOL of its leaf's max |value|. The card's
+# (Motion2D, the D-NeRF family: COMPOSITE_WARPS), the two may round it one
+# f64 ulp apart, which the defaults' finest level (16 x 2^15 cells a side)
+# magnifies ~5e5-fold: those read up to 4.36e-10 of a leaf's max on the
+# H100, the others <= ~2e-15 (PERF.md section 6). Every
+# output and gradient element within COMPOSITE_F64_TOL of its leaf's max
+# |value| where no point is moved, COMPOSITE_F64_WARP_TOL where one is
+# (each bound ~5x above its encoders' readings). The card's
 # float32 run against the CPU's float32 run on the same points and
 # weights, each leaf by its relative Frobenius norm: within
 # COMPOSITE_F32_TOL where no point is moved (the same arithmetic but for
@@ -2449,7 +2480,8 @@ COMPOSITE_POINTS = 65_536
 # float32 run against its float64 one is reported, not gated: the
 # normalisation's f32 rounding alone moves a coordinate by hundredths of
 # a finest cell.
-COMPOSITE_F64_TOL = 1e-8
+COMPOSITE_F64_TOL = 1e-14
+COMPOSITE_F64_WARP_TOL = 2e-9
 COMPOSITE_F32_TOL = 5e-5
 COMPOSITE_F32_WARP_TOL = 2.0
 COMPOSITE_WARPS = ("cuda_motion2d", "dnerf", "dnerf_mlp_tensorf",
@@ -2765,6 +2797,8 @@ def composites_against_cpu() -> dict:
             f32_rel[key] = rel_norm(f32[key], on_card[key])
             cpu_rel[key] = rel_norm(cpu32[key], ref)
         key = max(worst, key=worst.get)
+        tol64 = (COMPOSITE_F64_WARP_TOL if name in COMPOSITE_WARPS
+                 else COMPOSITE_F64_TOL)
         if name in COMPOSITE_WARPS:
             # each leaf's f32 gap, card to CPU, against the CPU's own
             # f32 error
@@ -2774,7 +2808,7 @@ def composites_against_cpu() -> dict:
         else:
             scaled, tol32 = f32_cpu, COMPOSITE_F32_TOL
         key32 = max(scaled, key=scaled.get)
-        ok = (max(worst.values()) <= COMPOSITE_F64_TOL
+        ok = (max(worst.values()) <= tol64
               and scaled[key32] <= tol32 and all(
                   bool(torch.isfinite(v).all()) for v in f32.values()))
         res[name] = dict(worst=worst[key], ms=ms, leaves=len(worst),
@@ -2786,7 +2820,7 @@ def composites_against_cpu() -> dict:
               f" parameters, output {tuple(on_cpu['out'].shape)}; card vs CPU "
               f"in f64, worst of {len(worst)} (output, points, parameter "
               f"gradients) max err / its max {worst[key]:.2e} ({key}; <= "
-              f"{COMPOSITE_F64_TOL}) | card vs CPU in f32, rel-norm: output "
+              f"{tol64}) | card vs CPU in f32, rel-norm: output "
               f"{f32_cpu['out']:.2e}, worst leaf {gate} {scaled[key32]:.2e} "
               f"({key32}: {f32_cpu[key32]:.2e}, the CPU's f32 error "
               f"{cpu_rel[key32]:.2e}; <= {tol32}) | f32 vs f64 (not "
@@ -3035,6 +3069,470 @@ def phase_host_loader(arrays, profile: bool) -> dict:
     return {"img_fit": img_fit, "nerf": nerf}
 
 
+# -- phase 13: data parallel on the card ---------------------------------
+
+# Phase 13's bounds. (a) One rank over nccl must be bit-equal to a process
+# without a group. (b) N ranks against one process: the per-step losses of
+# the first DP_FIRST_STEPS steps within the dry run's rtol 1e-4 and all
+# DP_STEPS within DP_LOSS_RTOL (stated in PERF.md section 6 from this
+# phase's readings); the faulty ranks of DP_CONTROLS must miss them. The
+# NGP table gradient after the all-reduce within #7's own atomic-order
+# bound, BRICK_BWD_TOL of a level's max |gradient|; the dense eval within
+# the JAX test's floor (> 90% of pixels bit-equal, atol 5e-4); the frames
+# within the JAX tests' bounds (compacted: < 5% of pixels off by more than
+# 1e-3, max < 2e-2; NGP: atol 1e-5).
+DP_STEPS = 20
+DP_FIRST_STEPS = 2
+DP_FIRST_RTOL = 1e-4
+DP_LOSS_RTOL = 2e-4     # read 1.80e-5 (2 ranks on the H100); controls >= 2.4e-2
+# hard.yaml's first-step gradients after the all-reduce against one
+# process's: the worst tensor's largest difference over its largest
+# magnitude (parallel.dryrun.grad_rel); read 4.65e-7 (2 ranks on the H100),
+# controls 1.00 (sum without division) and 0.190 (own draws)
+DP_GRAD_TOL = 1e-5
+DP_CONTROLS = ("sum without division", "own draws")
+DP_EVAL_ATOL = 5e-4
+DP_EVAL_BIT_EQUAL = 0.9
+DP_COMPACT_OFF, DP_COMPACT_MAX = (1e-3, 0.05), 2e-2
+DP_NGP_ATOL = 1e-5
+DP_RANKS_TIMEOUT_S = 420       # a group's whole run, or every rank is killed
+DP_COLLECTIVE_TIMEOUT_S = 180
+DP_DIR = os.path.join(ROOT, "build", "dp")
+DP_EVAL_ARGV = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard.yaml",
+                "pretrain_path", "data/pretrain/hard", "save_result",
+                "False", "device", "cuda"]
+
+
+def dp_train(argv, arrays, mesh, steps: int,
+             control: str | None = None) -> dict:
+    """``steps`` training steps of ``argv``'s config from its seed-0 init on
+    ``arrays``, data-parallel over ``mesh`` (or in this process alone),
+    through ``Trainer.train_device``: one step, then the rest timed.
+    ``control`` names a faulty rank of ``parallel.dryrun.CONTROLS``.
+    Returns the per-step losses, the parameters (on the host), the first
+    step's gradients as the optimizer takes them (after the all-reduce,
+    before the clip) and, for a hash grid, its table's (after the clip),
+    the seconds a step after the first and the launch counts."""
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.parallel.dryrun import (
+        control_mesh,
+        record_first_grads,
+    )
+    from nerf_replication_tpu_torch.train import make_trainer
+    from nerf_replication_tpu_torch.train.cli import make_pipeline
+
+    cfg = make_cfg(parse_args(argv))
+    net = make_network(cfg).cuda()
+    if control is not None:
+        mesh = control_mesh(mesh, control)
+    trainer = make_trainer(cfg, net, mesh=mesh)
+    grads = record_first_grads(trainer)
+    trainer.wrapper.renderer.train_apply   # builds the kernels now
+    pipeline = make_pipeline(cfg, arrays, "cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        reset_counts()
+        first = trainer.train_device(0, pipeline, n_steps=1)
+        table = getattr(net.xyz_encoder, "table", None)
+        grad = None if table is None else table.grad.detach().clone()
+        rest = trainer.train_device(1, pipeline, n_steps=steps - 1)
+        counts = read_counts()
+    return {"losses": np.concatenate([first["loss"], rest["loss"]]),
+            "params": {k: v.detach().cpu() for k, v in
+                       net.state_dict().items()},
+            "grads": [g.cpu() for g in grads], "grad": grad,
+            "step_s": rest["wall"] / (steps - 1),
+            "counts": counts,
+            "layout": getattr(net.xyz_encoder, "layout", None)}
+
+
+def dp_frames(spec: dict, mesh) -> dict:
+    """The compacted ERT frame (data/pretrain/hard through #1, phase 10's
+    grid and budgets, 2 segments) and the NGP frame-path frame
+    (data/pretrain/hard_ngp_b9 through #10's f32 arm, phase 9's grids,
+    step, budgets and probe) of orbit pose 0, float32, sharded over
+    ``mesh`` or rendered alone, with each one's launch counts."""
+    from nerf_replication_tpu_torch import raymarch_bench as rb
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.models.nerf.renderer import (
+        Renderer,
+        ngp_renderer,
+    )
+    from nerf_replication_tpu_torch.run import build_renderer, load_model
+
+    H, W, focal = spec["H"], spec["W"], spec["focal"]
+    pose = torch.as_tensor(rb.orbit_poses(FRAME_WINDOW)[0], device="cuda")
+    out = {}
+    cfg = make_cfg(parse_args(DP_EVAL_ARGV))
+    base = build_renderer(cfg, load_model(cfg, torch.device("cuda")))
+    c = spec["compact"]
+    fn = Renderer(base.net, settings=dataclasses.replace(
+        base.settings, ert_segments=2), mesh=mesh).use_apply(
+            base.apply_fn).make_frame_renderer(
+        H, W, focal, capacity=c["caps"][0], coarse_capacity=c["caps"][1],
+        occupancy=c["occupancy"], out_dtype=torch.float32)
+    reset_counts()
+    out["compact"] = fn(pose)
+    out["compact_counts"] = read_counts()
+    n = spec["ngp"]
+    cfg = make_cfg(parse_args(NGP_ARGV))
+    apply_fn = ngp_renderer.make_ngp_eval_apply(
+        load_model(cfg, torch.device("cuda")))
+    C, M, F = n["step"]
+    fn = ngp_renderer.make_ngp_frame_renderer(
+        apply_fn, H, W, focal, n["occupancy"], n["settings"],
+        n_candidates=C, n_coarse=M, n_fine=F, capacity=n["caps"]["capacity"],
+        fine_capacity=n["caps"]["fine"], occ_capacity=n["caps"]["occ"],
+        select_occupancy=n["select"], probe_sub=n["probe"][0],
+        probe_stride=n["probe"][1], out_dtype=torch.float32, mesh=mesh)
+    reset_counts()
+    out["ngp"] = fn(pose)
+    out["ngp_counts"] = read_counts()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_env(rank: int, size: int, port: int) -> dict:
+    return {"RANK": str(rank), "LOCAL_RANK": str(rank),
+            "WORLD_SIZE": str(size), "LOCAL_WORLD_SIZE": str(size),
+            "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+
+def run_ranks(n: int, args: list, tag: str, per_rank_env: bool = True
+              ) -> list[str]:
+    """``python3 *args`` as ``n`` ranks (or, without ``per_rank_env``, one
+    launcher process), all started together; every one is killed if one
+    fails or the group outlives DP_RANKS_TIMEOUT_S, and the phase fails.
+    Returns each process's output."""
+    port = _free_port()
+    base = {"OMP_NUM_THREADS": "1", **os.environ}   # as torchrun sets it
+    envs = ([{**base, **_dp_env(r, n, port)} for r in range(n)]
+            if per_rank_env else [base])
+    procs = [subprocess.Popen([sys.executable, *args], env=env, cwd=ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for env in envs]
+    deadline = time.monotonic() + DP_RANKS_TIMEOUT_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        logs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if logs is None:
+        fail(f"{tag}: the ranks outlived {DP_RANKS_TIMEOUT_S} s")
+    bad = [(r, p.returncode, log) for r, (p, log) in
+           enumerate(zip(procs, logs)) if p.returncode]
+    for r, rc, log in bad:
+        print(f"{tag}: process {r} exited {rc}; its output ends:\n"
+              f"{log[-3000:]}")
+    if bad:
+        fail(f"{tag}: {len(bad)} of {len(procs)} processes failed")
+    return logs
+
+
+def dp_rank_main(plan_dir: str):
+    """One rank of phase 13 (``chip_smoke.py --dp_rank DIR``, its
+    ``RANK`` / ``WORLD_SIZE`` / ``MASTER_*`` set by the parent): the
+    data-parallel training runs, the sharded dense eval through ``run
+    --type evaluate``'s ``run_evaluate`` and the sharded frames, with each
+    one's launches on this rank; writes ``rank<r>.json`` and rank 0 the
+    tensors the parent compares."""
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.parallel.mesh import make_mesh
+    from nerf_replication_tpu_torch.run import run_evaluate
+
+    os.chdir(ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # make_mesh's rule gives the parent's backend: gloo where the ranks
+    # outnumber the cards, else nccl
+    mesh = make_mesh(device="cuda", timeout_s=DP_COLLECTIVE_TIMEOUT_S)
+    plan = torch.load(os.path.join(plan_dir, "plan.pt"),
+                      map_location=mesh.device, weights_only=False)
+    arrays = tuple(np.load(os.path.join(plan_dir, f"{k}.npy"))
+                   for k in ("images", "poses", "K", "alphas"))
+    out, tensors = {"rank": mesh.rank, "size": mesh.size,
+                    "backend": mesh.backend}, {}
+    for name, argv in (("hard", TRAIN_ARGV), ("ngp", NGP_TRAIN_ARGV)):
+        run = dp_train(argv, arrays, mesh, DP_STEPS)
+        out[name] = {"losses": run["losses"].tolist(),
+                     "step_s": run["step_s"], "counts": run["counts"]}
+        tensors[f"{name}_params"] = run["params"]
+        if run["grad"] is not None:
+            tensors[f"{name}_grad"] = run["grad"].cpu()
+        else:
+            tensors[f"{name}_grads"] = dict(enumerate(run["grads"]))
+    out["controls"] = {}
+    for c in DP_CONTROLS:
+        run = dp_train(TRAIN_ARGV, arrays, mesh, DP_STEPS, control=c)
+        out["controls"][c] = run["losses"].tolist()
+        tensors[f"control {c} grads"] = dict(enumerate(run["grads"]))
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = run_evaluate(make_cfg(parse_args(DP_EVAL_ARGV)),
+                           loader=[plan["view0"]])
+    out["eval"] = {"counts": read_counts(), "net_time": res["net_time"]}
+    tensors["eval"] = torch.from_numpy(res["rgb"][0])
+    frames = dp_frames(plan["frames"], mesh)
+    for key in ("compact", "ngp"):
+        tensors[key] = frames[key].cpu()
+        out[f"{key}_counts"] = frames[f"{key}_counts"]
+    if mesh.is_main:
+        torch.save(tensors, os.path.join(plan_dir, "rank0.pt"))
+    # every rank's own checksum of what rank 0 saved: all ranks hold the
+    # same parameters, gradient, image and frames
+    out["sums"] = {k: float(sum(t.double().abs().sum() for t in v.values())
+                            if isinstance(v, dict) else v.double().abs().sum())
+                   for k, v in tensors.items()}
+    with open(os.path.join(plan_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _loss_rel(losses, ref) -> np.ndarray:
+    return np.abs(np.asarray(losses) - ref) / np.abs(ref)
+
+
+def _params_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in b
+               if b[k].is_floating_point())
+
+
+def _dp_losses_ok(losses, ref) -> tuple[bool, float, float]:
+    rel = _loss_rel(losses, ref)
+    first, whole = float(rel[:DP_FIRST_STEPS].max()), float(rel.max())
+    return (first <= DP_FIRST_RTOL and whole <= DP_LOSS_RTOL), first, whole
+
+
+def phase_dp(arrays, views, dense: dict, frame_specs: dict) -> dict:
+    """Phase 13: data parallel on the card. (a) One rank over nccl in this
+    process, bit-equal to no group. (b) N ranks as processes: 2 sharing the
+    one card over gloo, or nccl over min(count, 4) cards; the frequency
+    and NGP training against one process, two faulty controls, the dense
+    eval of view 0 against phase 3's, the frames against one rank's, each
+    kernel's launches a rank. (c) The dry run on 2 ranks. Returns the
+    readings."""
+    import torch.distributed as dist
+
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.models.nerf.renderer import (
+        RenderSettings,
+    )
+    from nerf_replication_tpu_torch.parallel.dryrun import grad_rel
+    from nerf_replication_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    ref = dp_train(TRAIN_ARGV, arrays, None, DP_STEPS)
+    saved = {k: os.environ.get(k) for k in _dp_env(0, 1, 0)}
+    os.environ.update(_dp_env(0, 1, _free_port()))
+    try:
+        one = dp_train(TRAIN_ARGV, arrays, make_mesh(
+            device="cuda", backend="nccl",
+            timeout_s=DP_COLLECTIVE_TIMEOUT_S), DP_STEPS)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    same = bool(np.array_equal(one["losses"], ref["losses"])) and all(
+        torch.equal(one["params"][k], v) for k, v in ref["params"].items())
+    print(f"data parallel (a): 1 rank over nccl against no group, "
+          f"{DP_STEPS} steps of hard.yaml through #3-#5: losses and "
+          f"parameters {'bit-equal' if same else 'DIFFER'} (max loss diff "
+          f"{float(np.abs(one['losses'] - ref['losses']).max()):.2e}, "
+          f"parameters {_params_diff(one['params'], ref['params']):.2e}); "
+          f"{ref['step_s'] * 1e3:.2f} / {one['step_s'] * 1e3:.2f} ms a step; "
+          f"counts {one['counts']}")
+    if not same:
+        fail("one rank over nccl is not bit-equal to a process without a "
+             "group")
+    ref_ngp = dp_train(NGP_TRAIN_ARGV, arrays, None, DP_STEPS)
+    ref_frames = dp_frames(frame_specs, None)
+
+    count = torch.cuda.device_count()
+    n = 2 if count == 1 else min(count, 4)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    print(f"data parallel: {count} card(s): {' | '.join(cards)}")
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    for k, a in zip(("images", "poses", "K", "alphas"), arrays):
+        a = np.asarray(a)
+        if k in ("images", "alphas"):   # as the pipeline stores them
+            a = np.round(np.clip(a, 0.0, 1.0) * 255.0).astype(np.uint8)
+        np.save(os.path.join(DP_DIR, f"{k}.npy"), a)
+    torch.save({"view0": views[0], "frames": frame_specs},
+               os.path.join(DP_DIR, "plan.pt"))
+    t1 = time.perf_counter()
+    run_ranks(n, [os.path.join(ROOT, "chip_smoke.py"), "--dp_rank", DP_DIR],
+              "data parallel (b)")
+    ranks_s = time.perf_counter() - t1
+    res = []
+    for r in range(n):
+        with open(os.path.join(DP_DIR, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    got = torch.load(os.path.join(DP_DIR, "rank0.pt"), weights_only=False)
+    r0 = res[0]
+    print(f"data parallel (b): {n} ranks over {r0['backend']} "
+          f"({'sharing the one card' if count == 1 else f'{n} cards'}), "
+          f"{ranks_s:.1f} s for the group's run")
+    if any(r["sums"] != r0["sums"] for r in res):
+        fail("the ranks do not hold the same parameters, gradient and "
+             "images")
+    readings = {"ranks": n, "backend": r0["backend"]}
+    if r0["backend"] != ("gloo" if count == 1 else "nccl"):
+        fail(f"data parallel (b): {n} ranks on {count} cards took "
+             f"{r0['backend']}")
+    bad = []
+
+    # training: the frequency model, the controls, NGP
+    ok, first, whole = _dp_losses_ok(r0["hard"]["losses"], ref["losses"])
+    gdiff = grad_rel(list(got["hard_grads"].values()), ref["grads"])
+    pdiff = _params_diff(got["hard_params"], ref["params"])
+    print(f"data parallel (b) hard.yaml, {DP_STEPS} steps at 1024 rays: "
+          f"the first step's gradients after the all-reduce against one "
+          f"process, worst tensor {gdiff:.2e} of its max (<= {DP_GRAD_TOL});"
+          f" per-step losses max rel {first:.2e} over "
+          f"the first {DP_FIRST_STEPS} (<= {DP_FIRST_RTOL}), {whole:.2e} "
+          f"over {DP_STEPS} (<= {DP_LOSS_RTOL}); max parameter diff "
+          f"{pdiff:.2e}; counts a rank {[r['hard']['counts'] for r in res]}")
+    bad += [] if ok else ["hard.yaml's per-step losses"]
+    bad += [] if gdiff <= DP_GRAD_TOL else ["hard.yaml's first-step gradients"]
+    # a control must miss both gates: the gradient one on its own merits
+    # (the loss stats ride in the gradients' buffer, so a sum without
+    # division misses the loss gate through the doubled stats alone)
+    for c, losses in r0["controls"].items():
+        c_ok, c_first, c_whole = _dp_losses_ok(losses, ref["losses"])
+        c_grad = grad_rel(list(got[f"control {c} grads"].values()),
+                          ref["grads"])
+        print(f"data parallel (b) control, {c}: first-step gradients "
+              f"{c_grad:.2e} of a tensor's max: "
+              f"{'ACCEPTED' if c_grad <= DP_GRAD_TOL else 'refused'}; "
+              f"losses max rel {c_first:.2e} over the first "
+              f"{DP_FIRST_STEPS}, {c_whole:.2e} over {DP_STEPS}: "
+              f"{'ACCEPTED' if c_ok else 'refused'}")
+        bad += [f"the control {c} passes the loss bounds"] if c_ok else []
+        bad += ([f"the control {c} passes the gradient bound"]
+                if c_grad <= DP_GRAD_TOL else [])
+    ok, first, whole = _dp_losses_ok(r0["ngp"]["losses"], ref_ngp["losses"])
+    grad = brick_bwd_agreement(
+        ref_ngp["layout"], got["ngp_grad"].cuda(), ref_ngp["grad"].double(),
+        torch.ones(ref_ngp["grad"].shape[0], dtype=torch.bool,
+                   device="cuda"))
+    gerr = grad["levels"]
+    print(f"data parallel (b) hard_ngp.yaml, {DP_STEPS} steps through "
+          f"#6/#7: the first step's table gradient after the all-reduce "
+          f"against one process, worst level {max(gerr):.2e} of its max "
+          f"(<= {BRICK_BWD_TOL}); per-step losses max rel {first:.2e} over "
+          f"the first {DP_FIRST_STEPS} (<= {DP_FIRST_RTOL}), {whole:.2e} "
+          f"over {DP_STEPS} (<= {DP_LOSS_RTOL}; #7's atomics sum in a "
+          f"run-dependent order); max parameter diff "
+          f"{_params_diff(got['ngp_params'], ref_ngp['params']):.2e}; "
+          f"counts a rank {[r['ngp']['counts'] for r in res]}")
+    bad += [] if grad["ok"] else ["the NGP table gradient"]
+    bad += [] if ok else ["hard_ngp.yaml's per-step losses"]
+
+    # the dense eval, the frames
+    img, ref_img = got["eval"].numpy(), np.asarray(dense["rgb"][0])
+    bit = float(np.mean(np.all(img == ref_img, axis=-1)))
+    ediff = float(np.abs(img - ref_img).max())
+    print(f"data parallel (b) dense eval of hard view 0 at "
+          f"{views[0]['H']}x{views[0]['W']} (run_evaluate, sharded): "
+          f"{100 * bit:.4f}% of pixels bit-equal to phase 3's one-process "
+          f"render (> {100 * DP_EVAL_BIT_EQUAL:.0f}%),"
+          f" max diff {ediff:.2e} (<= {DP_EVAL_ATOL}); frame "
+          f"{r0['eval']['net_time'][0]:.3f} s against "
+          f"{dense['net_time'][0]:.3f} s alone; counts a rank "
+          f"{[r['eval']['counts'] for r in res]}")
+    bad += [] if bit > DP_EVAL_BIT_EQUAL and ediff <= DP_EVAL_ATOL \
+        else ["the dense eval"]
+    cdiff = (got["compact"] - ref_frames["compact"].cpu()).abs()
+    off = float((cdiff > DP_COMPACT_OFF[0]).float().mean())
+    gdiff = float((got["ngp"] - ref_frames["ngp"].cpu()).abs().max())
+    print(f"data parallel (b) frames of orbit pose 0 against one rank: "
+          f"compacted ERT frame max diff {float(cdiff.max()):.2e}, "
+          f"{100 * off:.4f}% of pixels off by > {DP_COMPACT_OFF[0]} (< "
+          f"{100 * DP_COMPACT_OFF[1]:.0f}%, max < {DP_COMPACT_MAX}); NGP "
+          f"frame max diff {gdiff:.2e} (<= {DP_NGP_ATOL})")
+    bad += [] if (off < DP_COMPACT_OFF[1] and float(cdiff.max())
+                  < DP_COMPACT_MAX) else ["the compacted frame"]
+    bad += [] if gdiff <= DP_NGP_ATOL else ["the NGP frame"]
+
+    # each kernel's launches a rank: non-zero on every rank; the training
+    # kernels' equal to one process's (2 a step each), the render kernels'
+    # summing to one rank's (every chunk rendered once, by one rank)
+    chunk = RenderSettings.from_cfg(make_cfg(parse_args(
+        DP_EVAL_ARGV))).ray_chunk
+    one = {"fused_nerf_mlp_enc": 2 * math.ceil(
+               views[0]["H"] * views[0]["W"] / chunk)
+           + ref_frames["compact_counts"]["enc"],
+           "fused_nerf_mlp": ref["counts"]["fwd"],
+           "fused_nerf_mlp_bwd": ref["counts"]["bwd"],
+           "brick_hash_encode": ref_ngp["counts"]["brick_fwd"],
+           "brick_hash_encode_bwd": ref_ngp["counts"]["brick_bwd"],
+           "fused_ngp_eval": ref_frames["ngp_counts"]["ngp"]}
+    launches = {
+        "fused_nerf_mlp_enc": [r["eval"]["counts"]["enc"]
+                               + r["compact_counts"]["enc"] for r in res],
+        "fused_nerf_mlp": [r["hard"]["counts"]["fwd"] for r in res],
+        "fused_nerf_mlp_bwd": [r["hard"]["counts"]["bwd"] for r in res],
+        "brick_hash_encode": [r["ngp"]["counts"]["brick_fwd"] for r in res],
+        "brick_hash_encode_bwd": [r["ngp"]["counts"]["brick_bwd"]
+                                  for r in res],
+        "fused_ngp_eval": [r["ngp_counts"]["ngp"] for r in res]}
+    plain = [r[k]["counts"]["plain"] for r in res for k in ("hard", "ngp",
+                                                            "eval")]
+    print(f"data parallel (b): launches a rank {launches} (one process "
+          f"{one}), plain calls {sum(plain)}")
+    for name, per_rank in launches.items():
+        trains = name in ("fused_nerf_mlp", "fused_nerf_mlp_bwd",
+                          "brick_hash_encode", "brick_hash_encode_bwd")
+        if min(per_rank) == 0 or (set(per_rank) != {one[name]} if trains
+                                  else sum(per_rank) != one[name]):
+            bad.append(f"{name}'s launches a rank {per_rank}")
+    if sum(plain):
+        bad.append(f"{sum(plain)} plain calls on the ranks")
+    step = [ref["step_s"], r0["hard"]["step_s"]]
+    print(f"data parallel (b) step time, hard.yaml: one process "
+          f"{step[0] * 1e3:.2f} ms, {n} ranks {step[1] * 1e3:.2f} ms a step"
+          + (" (two processes time-sharing one card: not a scaling figure)"
+             if count == 1 else ""))
+
+    # (c) the dry run
+    logs = run_ranks(1, ["-m", "torch.distributed.run", "--standalone",
+                         "--nproc_per_node=2", "-m",
+                         "nerf_replication_tpu_torch.parallel.dryrun"],
+                     "data parallel (c)", per_rank_env=False)
+    lines = [ln for ln in logs[0].splitlines() if "dryrun_multichip(" in ln]
+    print("data parallel (c) dry run on 2 ranks: " + " | ".join(lines))
+    if len(lines) != 2:
+        bad.append("the dry run's lines")
+    if bad:
+        fail("data parallel: " + "; ".join(bad))
+    print(f"phase 13 took {time.perf_counter() - t0:.0f} s")
+    readings.update(launches=launches, step_ms=[s * 1e3 for s in step])
+    return readings
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=TRAIN_STEPS,
@@ -3046,9 +3544,14 @@ def main(argv=None):
     parser.add_argument("--first", metavar="DIR",
                         help="csrc directory of the brick gather kernels' "
                              "first designs, timed beside the present ones")
+    parser.add_argument("--dp_rank", metavar="DIR",
+                        help="run as one rank of phase 13 (started by "
+                             "phase 13 itself, with the plan in DIR)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    if opts.dp_rank:
+        return dp_rank_main(opts.dp_rank)
     from nerf_replication_tpu_torch.config import make_cfg, parse_args
     from nerf_replication_tpu_torch.evaluators import psnr_uint8
     from nerf_replication_tpu_torch.models.nerf.network import Network
@@ -3245,6 +3748,11 @@ def main(argv=None):
 
     # -- 12. the host loader: img_fit, and the NeRF model ------------------
     host = phase_host_loader(arrays, opts.profile > 0)
+
+    # -- 13. data parallel ----------------------------------------------
+    dp = phase_dp(arrays, views, res, {
+        "H": H, "W": W, "focal": float(views[0]["focal"]),
+        "compact": compact["spec"], "ngp": frame["ngp"]["spec"]})
     del arrays
 
     def entry(name, source, replaces, launches, readings, frame=None,
@@ -3295,7 +3803,7 @@ def main(argv=None):
     # #3/#4 and #5 (host_loader_launches)
     host_counts = host["nerf"]["counts"]
     print(smi)
-    print(json.dumps({"kernels": [
+    summary = {"kernels": [
         entry("fused_nerf_mlp_enc", "fused_nerf_mlp.cu", "mlp_kernel.py:366",
               launches, list(checks.values()), frame["freq_rm"], compact),
         {**entry("fused_nerf_mlp", "fused_nerf_mlp.cu", "mlp_train.py:168",
@@ -3338,7 +3846,13 @@ def main(argv=None):
             "bwd_bound_ms": train_fine["bwd_bound_ms"],
             "library_ms": train_fine["library_ms"],
             "eval_n": eval_fine["n"], "eval_ms": eval_fine["ms"],
-            "eval_bound_ms": eval_fine["bound_ms"]}]}))
+            "eval_bound_ms": eval_fine["bound_ms"]}]}
+    # phase 13: each kernel's launches on each rank of the data-parallel
+    # runs
+    for k in summary["kernels"]:
+        if k["name"] in dp["launches"]:
+            k["dp_launches_by_rank"] = dp["launches"][k["name"]]
+    print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,10 @@ Port-only keys: ``device`` (default ``cuda``) and ``pretrain_path`` (a
 ``trained_model_dir``). The training and host-loader keys (``train``,
 ``test``, ``distributed``, ``log_interval``, the cadence) and their
 defaults are the JAX package's; ``train.num_workers`` is read by no code
-(the loader reads in-process).
+(the loader reads in-process). So are the data-parallel keys: ``mesh.data``
+(-1, the whole process group; any other value must equal the group's size,
+``parallel.mesh.make_mesh``) and ``local_rank`` (``--local_rank``, else the
+``LOCAL_RANK`` that ``torchrun`` sets, else 0).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ def default_cfg() -> CN:
     c.resume = True
     c.seed = 0
     c.distributed = False
+    c.mesh = CN({"data": -1})     # -1: every rank of the process group
+    c.local_rank = 0
 
     # pluggable modules: registry names (see registry.py)
     c.train_dataset_module = "src.datasets.nerf.blender"
@@ -85,14 +90,17 @@ def default_cfg() -> CN:
     return c
 
 
-def parse_cfg(cfg: CN) -> None:
-    """Post-merge output-directory derivation."""
+def parse_cfg(cfg: CN, args=None) -> None:
+    """Post-merge output-directory derivation and ``local_rank``."""
     if not cfg.task:
         raise ValueError("task must be specified")
     sub = os.path.join(cfg.task, cfg.scene, cfg.exp_name)
     cfg.trained_model_dir = os.path.join(cfg.trained_model_dir, sub)
     cfg.record_dir = os.path.join(cfg.record_dir, sub)
     cfg.result_dir = os.path.join(cfg.result_dir, sub, cfg.save_tag)
+    local_rank = getattr(args, "local_rank", None)
+    cfg.local_rank = int(local_rank if local_rank is not None
+                         else os.environ.get("LOCAL_RANK", 0))
 
 
 def load_cfg_tree(cfg_file: str, base: CN) -> CN:
@@ -117,7 +125,7 @@ def make_cfg(args) -> CN:
     if "other_opts" in opts:
         opts = opts[: opts.index("other_opts")]
     cfg.merge_from_list(opts)
-    parse_cfg(cfg)
+    parse_cfg(cfg, args)
     return cfg
 
 
@@ -126,6 +134,7 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cfg_file", default="configs/nerf/hard.yaml", type=str)
     parser.add_argument("--test", action="store_true", default=False)
     parser.add_argument("--type", type=str, default="")
+    parser.add_argument("--local_rank", type=int, default=None)
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return parser
 

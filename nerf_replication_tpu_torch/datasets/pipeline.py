@@ -10,6 +10,10 @@ steps draw from the centre crop (``precrop_frac`` of each side).
 ``alphas`` (the coverage of RGBA sources, uint8 on the device too) a batch
 also holds ``alpha``, which random-background training needs.
 
+A data-parallel rank samples with its ``parallel.mesh.RowGenerator``: the
+global batch's pixels are drawn and the rank keeps its rows, so the ranks
+together train on the batch one process draws.
+
 Ray geometry stays in float32 and never runs as a TF32 matmul: the camera
 rotation is applied as an elementwise product and sum.
 """
@@ -18,6 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops.ray_ops import draw, local_rows
 
 
 def _to_uint8(a) -> np.ndarray:
@@ -61,6 +67,16 @@ class DeviceRayPipeline:
         rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         return pose[..., :3, 3].expand(rays_d.shape), rays_d
 
+    def rays_for_pose(self, pose: torch.Tensor):
+        """All H*W rays of one camera ``pose`` (4, 4), row after row (the
+        deterministic eval grid)."""
+        us, vs = torch.meshgrid(
+            torch.arange(self.W, dtype=torch.float32, device=self.device),
+            torch.arange(self.H, dtype=torch.float32, device=self.device),
+            indexing="xy")
+        return self._pixel_rays(torch.as_tensor(pose, device=self.device),
+                                us.reshape(-1), vs.reshape(-1))
+
     def bounds(self, step: int):
         """Pixel bounds ``(u_lo, u_hi, v_lo, v_hi)`` (high exclusive) at
         global step ``step``: the centre crop during precrop."""
@@ -74,13 +90,20 @@ class DeviceRayPipeline:
     def sample(self, generator: torch.Generator, step: int = 1 << 30) -> dict:
         """One training batch {rays_o, rays_d, colors}, each (n_rays, 3)
         float32 on the device, and {alpha} (n_rays,) when the pipeline
-        holds alphas."""
+        holds alphas; a data-parallel rank's ``generator`` gives its rows
+        of that batch."""
         u_lo, u_hi, v_lo, v_hi = self.bounds(step)
-        kw = dict(generator=generator, device=self.device)
-        shape = () if not self.sample_across_images else (self.n_rays,)
-        img = torch.randint(0, self.n_images, shape, **kw)
-        u = torch.randint(u_lo, u_hi, (self.n_rays,), **kw)
-        v = torch.randint(v_lo, v_hi, (self.n_rays,), **kw)
+        n = local_rows(generator, self.n_rays)
+
+        def randint(lo, hi, shape):
+            return draw(lambda sh, g: torch.randint(
+                lo, hi, sh, generator=g, device=self.device), shape,
+                generator)
+
+        img = randint(0, self.n_images,
+                      (n,) if self.sample_across_images else ())
+        u = randint(u_lo, u_hi, (n,))
+        v = randint(v_lo, v_hi, (n,))
         colors = self.images[img, v, u].float() / 255.0
         rays_o, rays_d = self._pixel_rays(self.poses[img], u.float(),
                                           v.float())

@@ -29,6 +29,7 @@ import torch
 from ....ops import eval_encode, fused_ngp
 from ....ops.occupancy import box_scale, points_occupied, ray_spans
 from ....ops.ray_ops import density_activation, sample_pdf
+from ....parallel.mesh import make_dp_eval_render
 from ...encoding.hashgrid import HashGridEncoder
 
 
@@ -208,14 +209,6 @@ def _grid_on(grid, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(grid, np.uint8)).to(device)
 
 
-def _chunks(fn, chunk: int, *xs):
-    """``fn`` on ``chunk`` rows of every ``xs`` at a time (the JAX
-    package's ``lax.map``), its outputs concatenated."""
-    outs = [fn(*(x[i:i + chunk] for x in xs))
-            for i in range(0, xs[0].shape[0], chunk)]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
-
-
 def partition(keep: torch.Tensor, count: int,
               idx: torch.Tensor) -> torch.Tensor:
     """The stable partition of ``keep`` (n,) bool (kept first, index order
@@ -265,14 +258,16 @@ def make_ngp_frame_renderer(
     Shapes are fixed by the arguments, capacities rounded up to whole ray
     chunks (``s.ray_chunk``; ``fn.budget`` holds the ray counts): a frame
     reads nothing back to the host, and its ``stats`` (active, occupied
-    and non-trivial ray counts, overflows) are 0-d tensors. ``mesh``
-    (sharding a frame over devices) is not ported (ROADMAP.md item 9,
-    multi-GPU) and raises.
+    and non-trivial ray counts, overflows) are 0-d tensors. ``mesh`` (a
+    ``parallel.mesh.Mesh``, :200-306) shards the frame over its ranks:
+    every rank makes the frame's selections itself (the probe, the
+    partitions, the candidate selection, the top-k), the coarse and fine
+    chunks are dealt out whole over the ranks and gathered before the next
+    selection, and every rank returns the whole frame, the one-device frame
+    bit for bit. The JAX package splits each chunk by rows and so needs a
+    ``ray_chunk`` that divides by the mesh's size (:294-302); whole chunks
+    need none.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a frame sharded over a device mesh is not ported yet: "
-            "ROADMAP.md item 9 (multi-GPU)")
     if n_coarse > n_candidates:
         # the rank selection would find no candidate for some samples
         raise ValueError(
@@ -462,8 +457,8 @@ def make_ngp_frame_renderer(
             ro1b, rd1b, sp1b, t_c1b, live1b = ro1, rd1, span1, t_c1, live1
 
         # --- coarse field eval and composite (:443-466) -----------------
-        rgb1, depth1, acc1, raw_c1 = _chunks(coarse_chunk, chunk, ro1b, rd1b,
-                                             sp1b, t_c1b)
+        rgb1, depth1, acc1, raw_c1 = make_dp_eval_render(
+            coarse_chunk, mesh, chunk)(ro1b, rd1b, sp1b, t_c1b)
         g1b = sel1[sel1b]
         rgb1 = torch.where(live1b[:, None], rgb1, bg)
         if stage == "coarse":
@@ -480,9 +475,8 @@ def make_ngp_frame_renderer(
         stats["fine_overflow"] = torch.clamp(n_nontrivial - k2, min=0)
 
         # --- inverse-CDF fine rounds, sorted merge (:487-527) -----------
-        fine_rgb, fine_depth = _chunks(
-            fine_chunk, chunk, ro1b[sel2], rd1b[sel2], sp1b[sel2],
-            t_c1b[sel2], raw_c1[sel2])
+        fine_rgb, fine_depth = make_dp_eval_render(fine_chunk, mesh, chunk)(
+            ro1b[sel2], rd1b[sel2], sp1b[sel2], t_c1b[sel2], raw_c1[sel2])
 
         # --- scatter back (:529-560): grid-proven empty rays are
         # background even where capacity slack took them in

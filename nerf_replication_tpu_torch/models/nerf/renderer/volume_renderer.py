@@ -32,6 +32,14 @@ Empty-space skipping and early ray termination, three forms:
   opacity) and no host read; with ``ert_segments`` > 1 its fine pass is
   :func:`fine_stage_ert`, which stops marching the rays whose
   transmittance is spent between segments.
+
+On a rank of a data-parallel group (``parallel.mesh``) the eval ray chunks
+are dealt out whole over the ranks (``Renderer``'s ``mesh``, by default the
+group's when it has more than one rank) and gathered back on every rank,
+and the compacted frame's chunks likewise, between selections that every
+rank makes itself on the whole frame; each chunk is the one-device
+render's, so the image is too. In training a rank's generator draws the
+global batch's values and keeps its rays' (``ops.ray_ops.draw``).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 from ....config import as_bool
 from ....ops import hashgrid_kernel, mlp_kernel, mlp_train
 from ....ops.occupancy import box_scale, rays_active
+from ....parallel.mesh import default_mesh, make_dp_eval_render
 from ....ops.ray_ops import (
     composite,
     compute_weights,
@@ -350,10 +359,16 @@ class Renderer:
     """``Renderer(net).render(batch) -> (rgb, depth)``. ``net`` is a port
     Network holding its weights; rays go to the device of its parameters.
     ``settings`` (a :class:`RenderSettings`) takes the place of ``cfg``'s
-    renderer keys."""
+    renderer keys. ``mesh`` (a ``parallel.mesh.Mesh``) shards the eval ray
+    chunks over its ranks; ``"auto"`` (the default, JAX :447-457) takes the
+    process group's when it has more than one rank (on the network's
+    device), None renders alone."""
 
-    def __init__(self, net, cfg=None, settings: RenderSettings | None = None):
+    def __init__(self, net, cfg=None, settings: RenderSettings | None = None,
+                 mesh="auto"):
         self.net = net
+        self.mesh = (default_mesh(cfg, self.device.type) if mesh == "auto"
+                     else mesh)
         self.settings = settings or (
             RenderSettings.from_cfg(cfg) if cfg is not None
             else RenderSettings())
@@ -437,18 +452,21 @@ class Renderer:
                 torch.as_tensor(rays_d, dtype=torch.float32, device=device))
 
     def _render_chunks(self, rays_o, rays_d, s: RenderSettings) -> dict:
-        """``render_rays`` over (N, 3) rays ``ray_chunk`` at a time. The
-        last chunk is padded to full size with rays whose direction is
-        (1, 1, 1), so padding never divides by zero."""
+        """``render_rays`` over (N, 3) rays ``ray_chunk`` at a time, with a
+        mesh the chunks dealt out whole over its ranks (the JAX package
+        splits each by rows instead, rounding ``ray_chunk`` up to a
+        multiple of the mesh's size, :481-488). The last chunk is padded to
+        full size with rays whose direction is (1, 1, 1), so padding never
+        divides by zero."""
         n = rays_o.shape[0]
         chunk = min(s.ray_chunk, n)
         n_pad = (-n) % chunk
         ro = torch.nn.functional.pad(rays_o, (0, 0, 0, n_pad))
         rd = torch.nn.functional.pad(rays_d, (0, 0, 0, n_pad), value=1.0)
-        parts = [render_rays(self.apply_fn, ro[i:i + chunk], rd[i:i + chunk],
-                             s)
-                 for i in range(0, n + n_pad, chunk)]
-        return {k: torch.cat([p[k] for p in parts])[:n] for k in parts[0]}
+        out = make_dp_eval_render(
+            lambda o, d: render_rays(self.apply_fn, o, d, s), self.mesh,
+            chunk)(ro, rd)
+        return {k: v[:n] for k, v in out.items()}
 
     @torch.inference_mode()
     def render_rays_batch(self, rays_o, rays_d) -> dict:
@@ -488,7 +506,7 @@ class Renderer:
                             capacity: float = 0.5, out_dtype=torch.float32,
                             occupancy=None,
                             coarse_capacity: float | None = None,
-                            return_stats: bool = False, mesh=None):
+                            return_stats: bool = False, mesh="auto"):
         """``fn(c2w) -> rgb (H*W, 3)[, stats]``: a whole frame from a
         camera-to-world pose (4, 4) on the renderer's device, with static
         ray budgets (reference :607-836).
@@ -512,12 +530,15 @@ class Renderer:
         ``occupancy`` ``active_rays`` and ``coarse_overflow`` (active rays
         beyond the coarse budget, rendered as background), then
         ``fine_overflow`` (rays with coarse opacity > 1e-3 beyond the fine
-        budget, left coarse-only). ``mesh`` (a frame sharded over devices)
-        is not ported (ROADMAP.md item 9, multi-GPU) and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a frame sharded over a device mesh is not ported yet: "
-                "ROADMAP.md item 9 (multi-GPU)")
+        budget, left coarse-only). ``mesh`` (a ``parallel.mesh.Mesh``, JAX
+        :630-669; by default the renderer's) shards the frame over its
+        ranks: every rank makes the
+        probe, the partition and the top-k itself, the chunks of the coarse
+        and of the fine pass are dealt out whole over the ranks and
+        gathered before the next selection, and every rank returns the
+        whole frame, the one-device frame bit for bit."""
+        if mesh == "auto":
+            mesh = self.mesh
         s = self.eval_settings
         coarse_s = dataclasses.replace(s, N_importance=0)
         apply_fn = self.apply_fn
@@ -576,6 +597,9 @@ class Renderer:
                                        s)["rgb"],)
             return (fine_stage(apply_fn, ro, rd, vd, t_coarse, w, s)["rgb"],)
 
+        coarse_run = make_dp_eval_render(coarse_chunk, mesh, chunk)
+        fine_run = make_dp_eval_render(fine_chunk, mesh, chunk)
+
         @torch.inference_mode()
         def fn(c2w):
             c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
@@ -585,8 +609,7 @@ class Renderer:
             stats = dict(counts)
             if occupancy is None:
                 sel1 = None
-                rgb1, acc1, w1 = ngp_renderer._chunks(coarse_chunk, chunk,
-                                                      ro, rd)
+                rgb1, acc1, w1 = coarse_run(ro, rd)
                 live1 = live_all
             else:
                 if sub > 1:
@@ -603,8 +626,7 @@ class Renderer:
                     active = rays_active(ro, rd, t_probe, grid, bbox,
                                          scale) & live_all
                 sel1 = ngp_renderer.partition(active, k1, n_idx)
-                rgb1, acc1, w1 = ngp_renderer._chunks(coarse_chunk, chunk,
-                                                      ro[sel1], rd[sel1])
+                rgb1, acc1, w1 = coarse_run(ro[sel1], rd[sel1])
                 n_active = active.sum()
                 stats["active_rays"] = n_active
                 stats["coarse_overflow"] = torch.clamp(n_active - k1, min=0)
@@ -618,8 +640,7 @@ class Renderer:
             stats["fine_overflow"] = torch.clamp(
                 (acc1 > 1e-3).sum() - k_eff, min=0)
             sel_full = sel2 if sel1 is None else sel1[sel2]
-            fine, = ngp_renderer._chunks(fine_chunk, chunk, ro[sel_full],
-                                         rd[sel_full], w1[sel2])
+            fine, = fine_run(ro[sel_full], rd[sel_full], w1[sel2])
             if sel1 is None:
                 rgb = rgb1
             else:

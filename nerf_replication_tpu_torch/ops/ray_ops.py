@@ -6,12 +6,38 @@ same conventions and numerics in float32: :func:`get_rays`,
 :func:`compute_weights` (1e10 far tail or ``finite_tail``, +1e-10 in the
 transmittance product), :func:`sample_pdf`, :func:`composite` and
 :func:`ray_aabb_intersect`.
+
+Every random draw of a training batch goes through :func:`draw`, so that a
+data-parallel rank, whose generator is a ``parallel.mesh.RowGenerator``,
+draws at the global batch's shape and keeps its own rays' values; with a
+``torch.Generator`` a draw is what it was.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def draw(sample, shape, generator) -> torch.Tensor:
+    """``sample(shape, generator)``: a random draw of ``shape`` (rays first)
+    from a ``torch.Generator`` (or None: the default one), or, from a
+    data-parallel rank's ``parallel.mesh.RowGenerator``, this rank's rows
+    of the draw at the global batch's shape."""
+    if generator is None or isinstance(generator, torch.Generator):
+        return sample(tuple(shape), generator)
+    return generator.draw(sample, tuple(shape))
+
+
+def local_rows(generator, n: int) -> int:
+    """The rows of an ``n``-ray batch that ``generator`` draws for: ``n``,
+    or a data-parallel rank's share of a global batch of ``n``."""
+    if generator is None or isinstance(generator, torch.Generator):
+        return n
+    if generator.total != n:
+        raise ValueError(f"a rank's generator for a batch of "
+                         f"{generator.total} rays, not {n}")
+    return generator.rows
 
 
 def get_rays(uv: torch.Tensor, K_inv: torch.Tensor, c2w: torch.Tensor):
@@ -47,7 +73,8 @@ def stratified_sample(n_rays: int, n_samples: int, near: float, far: float,
         mids = 0.5 * (t[..., 1:] + t[..., :-1])
         upper = torch.cat([mids, t[..., -1:]], dim=-1)
         lower = torch.cat([t[..., :1], mids], dim=-1)
-        r = torch.rand(t.shape, generator=generator, device=device)
+        r = draw(lambda sh, g: torch.rand(sh, generator=g, device=device),
+                 t.shape, generator)
         t = lower + (upper - lower) * r
     return t
 
@@ -77,8 +104,9 @@ def compute_weights(sigma: torch.Tensor, t: torch.Tensor,
             else torch.full_like(delta[..., :1], 1e10))
     delta = torch.cat([delta, tail], dim=-1)
     if raw_noise_std > 0.0 and generator is not None:
-        sigma = sigma + raw_noise_std * torch.randn(
-            sigma.shape, generator=generator, device=sigma.device)
+        sigma = sigma + raw_noise_std * draw(
+            lambda sh, g: torch.randn(sh, generator=g, device=sigma.device),
+            sigma.shape, generator)
     alpha = 1.0 - torch.exp(-activation(sigma) * delta)
     trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]],
@@ -106,7 +134,8 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
     shape = (*cdf.shape[:-1], n_importance)
     if generator is not None:
-        u = torch.rand(shape, generator=generator, device=cdf.device)
+        u = draw(lambda sh, g: torch.rand(sh, generator=g, device=cdf.device),
+                 shape, generator)
     else:
         u = torch.linspace(0.0, 1.0, n_importance, device=cdf.device)
         u = u.expand(shape).contiguous()

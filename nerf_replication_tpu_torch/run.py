@@ -35,6 +35,12 @@ dilated 2 cells for the span probe, 128^3 dilated 1 for the candidate
 selection; ``occ_resolution``, ``occ_sel_resolution``, ``occ_threshold``),
 then one frame renderer per (H, W, focal) with the ``fast_*`` keys.
 ``--type input/mesh`` are not ported yet (ROADMAP.md item 10).
+
+Under ``torchrun --nproc_per_node=N -m nerf_replication_tpu_torch.run
+--type evaluate ...`` each rank takes its device (``make_run_mesh``) and
+the renderer deals the ray chunks out whole over the ranks (``Renderer``'s
+``mesh="auto"``), the frame path's too; every rank gets the whole image,
+and only rank 0 evaluates, prints and writes images.
 """
 
 from __future__ import annotations
@@ -53,10 +59,20 @@ from .models.nerf.renderer import make_renderer, ngp_renderer
 from .ops import mlp_kernel
 from .ops.occupancy import build_occupancy_grid
 from .ops.ray_ops import density_activation
+from .parallel.mesh import make_mesh, rank, world_size
 from .utils.ckpt_utils import load_network, load_pretrain, params_from_jax
 
 
-def resolve_device(cfg) -> torch.device:
+def make_run_mesh(cfg):
+    """The data mesh when this process is one rank of a group of more than
+    one (``torchrun``; JAX train.py:47-52), else None."""
+    return make_mesh(cfg) if world_size() > 1 else None
+
+
+def resolve_device(cfg, mesh=None) -> torch.device:
+    """The config's device, or the rank's device of ``mesh``."""
+    if mesh is not None:
+        return mesh.device
     device = torch.device(str(cfg.get("device", "cuda")))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -172,7 +188,7 @@ def make_frame_fn(cfg, renderer):
                 out_dtype=torch.float32, return_depth=True,
                 select_occupancy=select,
                 occ_capacity=float(ta.get("fast_occ_capacity", 0.0)) or None,
-                probe_sub=probe_sub,
+                probe_sub=probe_sub, mesh=renderer.mesh,
                 probe_stride=int(ta.get("fast_probe_stride", 1)))
         return cache[key](np.asarray(batch["pose"]).reshape(4, 4))
 
@@ -189,13 +205,16 @@ def run_evaluate(cfg, loader=None) -> dict:
     split); a loader is any iterable of test batches. Returns the mean
     metrics plus ``net_time`` (seconds per view) and ``rgb`` (the
     rendered (N, 3) images, numpy). With ``task_arg.fast_render`` a batch
-    with a ``pose`` goes through the frame path (:func:`make_frame_fn`)."""
-    device = resolve_device(cfg)
+    with a ``pose`` goes through the frame path (:func:`make_frame_fn`).
+    On a rank of a group every image is rendered sharded and returned
+    whole; the metrics are rank 0's alone."""
+    device = resolve_device(cfg, make_run_mesh(cfg))
     network = load_model(cfg, device)
     renderer = build_renderer(cfg, network)
     frame = make_frame_fn(cfg, renderer)
     loader = make_test_dataset(cfg) if loader is None else loader
     evaluator = make_evaluator(cfg)
+    main = rank() == 0
     net_time, images = [], []
     for batch in loader:
         _sync(device)
@@ -207,7 +226,10 @@ def run_evaluate(cfg, loader=None) -> dict:
         _sync(device)
         net_time.append(time.perf_counter() - t0)
         images.append(rgb.cpu().numpy())
-        evaluator.evaluate((rgb, None), batch)
+        if main:
+            evaluator.evaluate((rgb, None), batch)
+    if not main:
+        return {"net_time": net_time, "rgb": images}
     result = evaluator.summarize()
     print(result)
     times = net_time[1:] if len(net_time) > 1 else net_time
@@ -218,27 +240,32 @@ def run_evaluate(cfg, loader=None) -> dict:
 
 def run_network(cfg, loader=None) -> None:
     """Render up to 4 views: per-view PSNR, PNGs under
-    ``result_dir/network_debug``."""
+    ``result_dir/network_debug`` (rank 0's, on a rank of a group)."""
     from PIL import Image
 
-    device = resolve_device(cfg)
+    device = resolve_device(cfg, make_run_mesh(cfg))
     renderer = build_renderer(cfg, load_model(cfg, device))
     loader = make_test_dataset(cfg) if loader is None else loader
     out_dir = os.path.join(cfg.result_dir, "network_debug")
-    os.makedirs(out_dir, exist_ok=True)
+    main = rank() == 0
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
     total = 0.0
     for count, batch in enumerate(loader):
         t0 = time.perf_counter()
         rgb = renderer.render(batch)[0].cpu().numpy()
         total += time.perf_counter() - t0
-        H, W = int(batch["H"]), int(batch["W"])
-        print(f"view {count}: psnr {psnr_uint8(rgb, batch['colors']):.2f}")
-        Image.fromarray(
-            (np.clip(rgb.reshape(H, W, 3), 0, 1) * 255).astype(np.uint8)
-        ).save(os.path.join(out_dir, f"view{count:03d}.png"))
+        if main:
+            H, W = int(batch["H"]), int(batch["W"])
+            print(f"view {count}: psnr "
+                  f"{psnr_uint8(rgb, batch['colors']):.2f}")
+            Image.fromarray(
+                (np.clip(rgb.reshape(H, W, 3), 0, 1) * 255).astype(np.uint8)
+            ).save(os.path.join(out_dir, f"view{count:03d}.png"))
         if count == 3:
             break
-    print("total_time:", total)
+    if main:
+        print("total_time:", total)
 
 
 def run_dataset(cfg) -> int:

@@ -27,6 +27,22 @@ through the fused CUDA kernels, ``False`` through the ``nn.Module`` with
 autograd. A brick hash-grid NGP network (``configs/nerf/hard_ngp.yaml``)
 trains through its encoder's CUDA kernels and the f32 ``nn.Module`` MLP
 whatever that flag says; ``task_arg.random_bkgd`` needs RGBA sources.
+
+Data-parallel training, one process a device (JAX train.py:47-52)::
+
+    torchrun --standalone --nproc_per_node=N \
+        -m nerf_replication_tpu_torch.train --cfg_file configs/nerf/hard.yaml
+
+When the process group has more than one rank, each rank builds the mesh
+(``parallel.mesh.make_mesh``: ``nccl`` when each rank has a card of its
+own, ``gloo`` when ranks share one or run with ``device cpu``), puts the
+network on its device and trains its share of every global batch with the
+gradients averaged over the ranks (``Trainer``). Every rank reads the same
+checkpoint on resume; only rank 0 writes checkpoints (then all wait at a
+barrier), logs and records; every rank renders the val views sharded and
+rank 0 evaluates them. With ``distributed True`` the host loader's sampler
+gives each rank its own items (``num_replicas`` and ``rank`` from the
+group).
 """
 
 from __future__ import annotations
@@ -45,7 +61,7 @@ from ..datasets import (
 from ..evaluators import make_evaluator
 from ..models import make_network
 from ..run import load_model as load_eval_model
-from ..run import resolve_device
+from ..run import make_run_mesh, resolve_device
 from ..utils.ckpt_utils import (
     load_model,
     load_pretrain,
@@ -80,9 +96,10 @@ def train(cfg, train_arrays=None, val_loader=None):
     (images, poses, K and, for ``random_bkgd``, alphas) replace the
     config's split on the device-resident path, and ``val_loader``
     replaces the config's test loader."""
-    device = resolve_device(cfg)
+    mesh = make_run_mesh(cfg)
+    device = resolve_device(cfg, mesh)
     network = make_network(cfg).to(device)
-    trainer = make_trainer(cfg, network)
+    trainer = make_trainer(cfg, network, mesh=mesh)
     recorder = make_recorder(cfg)
     evaluator = make_evaluator(cfg)
 
@@ -100,7 +117,9 @@ def train(cfg, train_arrays=None, val_loader=None):
     # the host loader where the JAX package's train.py takes it
     host = dict(is_train=True,
                 is_distributed=as_bool(cfg.distributed, "distributed"),
-                max_iter=cfg.ep_iter)
+                max_iter=cfg.ep_iter,
+                num_replicas=1 if mesh is None else mesh.size,
+                rank=0 if mesh is None else mesh.rank)
     loader = None
     if train_arrays is None and cfg.task == "img_fit":
         loader = make_data_loader(cfg, **host)
@@ -120,10 +139,14 @@ def train(cfg, train_arrays=None, val_loader=None):
         ckpt = (network, trainer.optimizer.state_dict(),
                 {"step": trainer.step}, recorder.state_dict(), epoch,
                 cfg.trained_model_dir)
-        if (epoch + 1) % cfg.save_ep == 0:
-            save_model(*ckpt)
-        if (epoch + 1) % cfg.save_latest_ep == 0:
-            save_model(*ckpt, latest=True)
+        saves = [latest for latest, every in ((False, cfg.save_ep),
+                                              (True, cfg.save_latest_ep))
+                 if (epoch + 1) % every == 0]
+        if saves and trainer.is_main:
+            for latest in saves:
+                save_model(*ckpt, latest=latest)
+        if saves and mesh is not None:
+            mesh.barrier()
         if (epoch + 1) % cfg.eval_ep == 0:
             if val_loader is None:
                 val_loader = make_data_loader(cfg, is_train=False)
@@ -133,9 +156,10 @@ def train(cfg, train_arrays=None, val_loader=None):
 
 def test(cfg, val_loader=None) -> dict:
     """Evaluate the trained weights on the test split through
-    ``Trainer.val``."""
-    network = load_eval_model(cfg, resolve_device(cfg))
-    trainer = make_trainer(cfg, network)
+    ``Trainer.val`` (sharded over the ranks of a group)."""
+    mesh = make_run_mesh(cfg)
+    network = load_eval_model(cfg, resolve_device(cfg, mesh))
+    trainer = make_trainer(cfg, network, mesh=mesh)
     loader = (make_data_loader(cfg, is_train=False) if val_loader is None
               else val_loader)
     return trainer.val(-1, loader, make_evaluator(cfg))

@@ -18,6 +18,8 @@ from collections import deque
 
 import numpy as np
 
+from ..parallel.mesh import rank
+
 
 class SmoothedValue:
     """Window-smoothed scalar (reference recorder.py:10-37)."""
@@ -134,5 +136,10 @@ class Recorder:
                 f"data: {self.data_time.avg:.4f}")
 
 
-def make_recorder(cfg, process_index: int = 0) -> Recorder:
+def make_recorder(cfg, process_index: int | None = None) -> Recorder:
+    """The Recorder of this process: ``process_index`` defaults to the rank
+    in the process group (0 without one), so that only rank 0's
+    ``record_dir`` comes into existence (JAX recorder.py:138-146)."""
+    if process_index is None:
+        process_index = rank()
     return Recorder(cfg, process_index)

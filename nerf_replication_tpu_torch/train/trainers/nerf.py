@@ -20,6 +20,7 @@ import torch
 
 from ...config import as_bool
 from ...models.nerf.renderer.volume_renderer import Renderer, render_rays
+from ...ops.ray_ops import draw
 from ...registry import register
 
 
@@ -43,9 +44,12 @@ class NetworkWrapper:
     def draw_background(colors: torch.Tensor,
                         generator: torch.Generator) -> torch.Tensor:
         """One uniform random background colour a ray, shaped as
-        ``colors``."""
-        return torch.rand(colors.shape, generator=generator,
-                          device=colors.device, dtype=colors.dtype)
+        ``colors`` (a data-parallel rank's: its rays' of the global
+        batch's draw, ``ops.ray_ops.draw``)."""
+        return draw(lambda sh, g: torch.rand(sh, generator=g,
+                                             device=colors.device,
+                                             dtype=colors.dtype),
+                    colors.shape, generator)
 
     def loss_fn(self, batch: dict, generator: torch.Generator | None = None,
                 train: bool = True):

@@ -17,6 +17,16 @@ JAX ``fold_in``), so a resumed run draws what an unbroken one draws.
 ``val`` drives the evaluator through the wrapper's ``render_eval`` where
 it has one (img_fit), else through the eval renderer, with the fused
 kernel's weights packed from the current parameters.
+
+With a ``mesh`` (``parallel.mesh.Mesh``, JAX :57-66, :101-121, :155-161)
+the Trainer is one rank of a data-parallel group: the parameters are
+broadcast from rank 0 before the first step, each rank draws its rows of
+the global batch (the device sampler's, or its share of each host batch:
+``shard_host_batch``, or with ``cfg.distributed`` its own items of the
+rank-sharded sampler), and after ``backward`` the gradients and the loss
+stats are averaged over the ranks before the optimizer's clip, so the logged
+loss and PSNR are the global batch's. Only rank 0 prints and evaluates;
+``val`` renders on every rank (the renderer deals its chunks out).
 """
 
 from __future__ import annotations
@@ -26,9 +36,18 @@ import time
 import numpy as np
 import torch
 
+from ...config import as_bool
+from ...parallel.mesh import (
+    RowGenerator,
+    all_reduce_mean_grads,
+    host_batch_rows,
+    replicate_tree,
+    shard_host_batch,
+)
 from ...registry import resolve
 from ..optimizer import make_optimizer
 from ..scheduler import make_lr_schedule
+from .nerf import psnr_from_mse
 
 
 def host_batch_to_device(batch, device: torch.device):
@@ -68,9 +87,12 @@ def _device_mem_mb(device: torch.device) -> float:
 
 
 class Trainer:
-    def __init__(self, wrapper, cfg):
+    def __init__(self, wrapper, cfg, mesh=None):
         self.wrapper = wrapper
         self.cfg = cfg
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        self._replicated = mesh is None
         self.network = wrapper.net
         self.lr_schedule = make_lr_schedule(cfg)
         self.optimizer = make_optimizer(cfg, self.network.parameters(),
@@ -91,14 +113,50 @@ class Trainer:
         """Global step: the number of optimizer updates so far."""
         return self.optimizer.count
 
-    def train_step(self, batch: dict, generator: torch.Generator) -> dict:
-        """One update; returns the step's loss stats as device tensors."""
+    def _replicate(self):
+        """Rank 0's parameters on every rank, once, before the first step
+        (after any resume or pretrain load)."""
+        if not self._replicated:
+            replicate_tree(self.network, self.mesh)
+            self._replicated = True
+
+    def train_step(self, batch: dict, generator) -> dict:
+        """One update; returns the step's loss stats as device tensors. On
+        a rank, ``batch`` is its rows and ``generator`` its
+        ``RowGenerator``; the gradients and stats are averaged over the
+        ranks before the clip (the PSNR from the averaged MSE)."""
+        self._replicate()
         loss, (_, stats, _) = self.wrapper.loss_fn(batch, generator,
                                                    train=True)
         self.optimizer.zero_grad()
         loss.backward()
+        if self.mesh is not None:
+            keys = [k for k in stats if k != "psnr"]
+            mean = all_reduce_mean_grads(
+                self.optimizer.params, self.mesh,
+                torch.stack([stats[k] for k in keys]))
+            stats = dict(zip(keys, mean.unbind()))
+            if "color_mse" in stats:
+                stats["psnr"] = psnr_from_mse(stats["color_mse"])
         self.optimizer.step()
         return stats
+
+    def _host_batch(self, batch: dict, generator: torch.Generator):
+        """A host batch on a rank: ``(its share, its generator, the global
+        batch's rays)``; without a mesh the batch as it is."""
+        rows = _rows(batch)
+        if self.mesh is None:
+            return batch, generator, rows
+        if as_bool(self.cfg.get("distributed", False), "distributed"):
+            # the rank's own items: its rays are the rank-th share of the
+            # global batch
+            n, size = rows, self.mesh.size
+            index = slice(self.mesh.rank * n, (self.mesh.rank + 1) * n)
+            return batch, RowGenerator(generator, index, n * size), n * size
+        index, total = host_batch_rows(batch, self.mesh)
+        if index is not None:
+            generator = RowGenerator(generator, index, total)
+        return shard_host_batch(batch, self.mesh), generator, rows
 
     def train(self, epoch: int, loader, recorder) -> dict:
         """One epoch over a host loader. Synchronises with the card only
@@ -111,6 +169,7 @@ class Trainer:
         device = self.device
         gen = torch.Generator(device=device).manual_seed(
             epoch_seed(self.seed, epoch))
+        self._replicate()
         self.network.train()
         recorder.epoch = epoch
         max_iter = len(loader)
@@ -121,8 +180,8 @@ class Trainer:
         t0 = end = time.perf_counter()
         for iteration, batch in enumerate(loader):
             data_time = time.perf_counter() - end
-            rows = _rows(batch)
-            s = self.train_step(host_batch_to_device(batch, device), gen)
+            batch, step_gen, rows = self._host_batch(batch, gen)
+            s = self.train_step(host_batch_to_device(batch, device), step_gen)
             pending.append(torch.stack([s["loss"], s["color_mse"],
                                         s["psnr"]]))
             log = ((iteration + 1) % self.log_interval == 0
@@ -144,9 +203,10 @@ class Trainer:
                         {"loss": loss, "color_mse": mse, "psnr": psnr})
                 eta = recorder.batch_time.global_avg * (
                     (self.max_epoch - epoch) * max_iter - iteration)
-                print(f"eta: {int(eta)}s  {recorder}  lr: "
-                      f"{self.optimizer.lr():.6f}  mem: "
-                      f"{_device_mem_mb(device):.0f}MB")
+                if self.is_main:
+                    print(f"eta: {int(eta)}s  {recorder}  lr: "
+                          f"{self.optimizer.lr():.6f}  mem: "
+                          f"{_device_mem_mb(device):.0f}MB")
                 recorder.record("train")
         wall = time.perf_counter() - t0
         stats = np.concatenate(stats) if stats else np.zeros((0, 3))
@@ -161,14 +221,21 @@ class Trainer:
         self.summaries.append(summary)
         return summary
 
-    def train_device(self, epoch: int, pipeline, recorder=None) -> dict:
-        """One epoch of ``ep_iter`` steps (500 if unset) drawn from
-        ``pipeline``. Returns the epoch's summary: steps, wall seconds,
-        rays/s, per-step loss and psnr (numpy), lr, peak device memory."""
-        n_steps = self.ep_iter if self.ep_iter > 0 else 500
+    def train_device(self, epoch: int, pipeline, recorder=None,
+                     n_steps: int | None = None) -> dict:
+        """One epoch of ``n_steps`` steps (default ``ep_iter``, 500 if
+        unset) drawn from ``pipeline``; on a rank, its rows of each global
+        batch (``make_dp_epoch_runner``). Returns the epoch's summary:
+        steps, wall seconds, rays/s (of the global batch), per-step loss
+        and psnr (numpy), lr, peak device memory."""
+        if n_steps is None:
+            n_steps = self.ep_iter if self.ep_iter > 0 else 500
         device = self.device
         gen = torch.Generator(device=device).manual_seed(
             epoch_seed(self.seed, epoch))
+        if self.mesh is not None:
+            gen = self.mesh.row_generator(gen, pipeline.n_rays)
+        self._replicate()
         self.network.train()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -193,14 +260,17 @@ class Trainer:
             for loss, psnr in stats:
                 recorder.update_loss_stats({"loss": loss, "psnr": psnr})
             recorder.record("train")
-            smoothed = (f"loss: {recorder.loss_stats['loss'].median:.5f}  "
-                        f"psnr: {recorder.loss_stats['psnr'].median:.2f}")
-        else:
-            smoothed = (f"loss: {float(np.median(stats[-20:, 0])):.5f}  "
-                        f"psnr: {float(np.median(stats[-20:, 1])):.2f}")
-        print(f"epoch {epoch}: {n_steps} steps in {wall:.2f}s "
-              f"({summary['rays_per_s']:,.0f} rays/s)  {smoothed}  "
-              f"lr: {summary['lr']:.6f}  mem: {peak / 2 ** 20:.0f}MB")
+        if self.is_main:
+            if recorder is not None and recorder.loss_stats:
+                ls = recorder.loss_stats
+                smoothed = (f"loss: {ls['loss'].median:.5f}  "
+                            f"psnr: {ls['psnr'].median:.2f}")
+            else:
+                smoothed = (f"loss: {float(np.median(stats[-20:, 0])):.5f}  "
+                            f"psnr: {float(np.median(stats[-20:, 1])):.2f}")
+            print(f"epoch {epoch}: {n_steps} steps in {wall:.2f}s "
+                  f"({summary['rays_per_s']:,.0f} rays/s)  {smoothed}  "
+                  f"lr: {summary['lr']:.6f}  mem: {peak / 2 ** 20:.0f}MB")
         return summary
 
     def val(self, epoch: int, loader, evaluator, recorder=None) -> dict:
@@ -208,7 +278,9 @@ class Trainer:
         return the mean metrics. A wrapper with ``render_eval`` (img_fit)
         renders through it on the device, with the batch's MSE and PSNR
         beside the evaluator's (JAX :231-272); a NeRF renders through the
-        eval renderer (the fused kernel per ``network.use_pallas_mlp``)."""
+        eval renderer (the fused kernel per ``network.use_pallas_mlp``),
+        sharded over the ranks of a group. Every rank renders; rank 0 alone
+        evaluates, prints and records (the others return {})."""
         self.network.eval()
         if hasattr(self.wrapper, "render_eval"):
             result = self._val_render_eval(loader, evaluator)
@@ -218,8 +290,11 @@ class Trainer:
             renderer = build_renderer(self.cfg, self.network)
             for batch in loader:
                 rgb, _ = renderer.render(batch)
-                evaluator.evaluate((rgb, None), batch)
-            result = evaluator.summarize()
+                if self.is_main:
+                    evaluator.evaluate((rgb, None), batch)
+            result = evaluator.summarize() if self.is_main else {}
+        if not self.is_main:
+            return result
         print("val:", {k: round(v, 4) for k, v in result.items()})
         self.evals.append(result)
         if recorder is not None:
@@ -231,6 +306,8 @@ class Trainer:
         for batch in loader:
             out = self.wrapper.render_eval(
                 host_batch_to_device(batch, self.device))
+            if not self.is_main:
+                continue
             pred = out["rgb"].detach().cpu().numpy().reshape(-1, 3)
             gt = np.asarray(batch.get("colors", batch.get("rgb")))
             mse = float(np.mean((pred - gt.reshape(-1, 3)) ** 2))
@@ -239,12 +316,15 @@ class Trainer:
                 sums[k] = sums.get(k, 0.0) + v
             evaluator.evaluate(out, batch)
             n += 1
+        if not self.is_main:
+            return {}
         result = {k: v / max(n, 1) for k, v in sums.items()}
         result.update(evaluator.summarize())
         return result
 
 
-def make_trainer(cfg, network) -> Trainer:
-    """Wrap ``network`` in the config's loss module, then the Trainer."""
+def make_trainer(cfg, network, mesh=None) -> Trainer:
+    """Wrap ``network`` in the config's loss module, then the Trainer (one
+    rank of ``mesh``'s group, or alone)."""
     wrapper = resolve("loss", cfg.loss_module)(cfg, network=network)
-    return Trainer(wrapper, cfg)
+    return Trainer(wrapper, cfg, mesh)

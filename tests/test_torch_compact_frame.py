@@ -43,6 +43,7 @@ from nerf_replication_tpu_torch.models.nerf.renderer import (
 from nerf_replication_tpu_torch.models.nerf.renderer import volume_renderer \
     as tv
 from nerf_replication_tpu_torch.ops import mlp_kernel
+from nerf_replication_tpu_torch.parallel.mesh import Mesh
 from nerf_replication_tpu_torch.utils import synthetic_scene
 from test_torch_fast_render import small_network
 
@@ -281,8 +282,10 @@ def test_frame_at_full_capacity_is_the_dense_render(fields, case):
 def test_frame_budgets_and_refusals(fields):
     """The static budgets of the JAX record's 800x800 frames (bench_freq
     log: 280,000 coarse rays at capacity 0.35 / coarse 0.4, 240,000 after
-    autocap), the fine segments' count, and the device mesh (not ported:
-    multi-GPU) raising."""
+    autocap), the fine segments' count, and a device mesh of a size that
+    does not divide the ray chunk taken with the same budgets (the ranks
+    take whole chunks; the JAX package, which splits a chunk by rows,
+    raises, volume_renderer.py:641-645)."""
     _, r = renderers(fields, "sphere", **{**BASE, "ray_chunk": 40000,
                                           "N_samples": 64,
                                           "N_importance": 128})
@@ -299,8 +302,9 @@ def test_frame_budgets_and_refusals(fields):
     assert fn.budget == {"chunk": 40000, "coarse_rays": 240000,
                          "fine_rays": 240000, "fine_segments": 2}
     assert tv.ert_capacity(40000, 0.5) == 20096
-    with pytest.raises(NotImplementedError, match="item 9"):
-        r.make_frame_renderer(8, 8, 8.0, mesh=object())
+    mesh = Mesh(rank=0, size=3, device=torch.device("cpu"), backend="gloo")
+    assert r.make_frame_renderer(8, 8, 8.0, mesh=mesh).budget == \
+        r.make_frame_renderer(8, 8, 8.0).budget
 
 
 # --- run_evaluate with task_arg.fast_sampling ----------------------------------

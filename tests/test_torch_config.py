@@ -27,7 +27,7 @@ PORT_KEYS = ("task", "scene", "task_arg", "network",
              "renderer_module", "evaluator_module", "train", "test",
              "train_dataset", "train_dataset_module", "loss_module",
              "ep_iter", "save_ep", "save_latest_ep", "eval_ep",
-             "log_interval", "seed", "distributed")
+             "log_interval", "seed", "distributed", "mesh", "local_rank")
 
 
 @pytest.mark.parametrize("cfg_file", CONFIGS)
@@ -51,6 +51,7 @@ def test_cli_overrides_and_output_dirs_match_jax(monkeypatch):
     assert ours.task_arg.N_samples == 16 and ours.network.nerf.D == 4
     assert ours.trained_model_dir == theirs.trained_model_dir
     assert ours.result_dir == theirs.result_dir
+    assert ours.mesh == theirs.mesh and ours.local_rank == theirs.local_rank
     with pytest.raises(ValueError):
         config.make_cfg(config.parse_args(argv[:4] + ["task_arg.near", "x"]))
 

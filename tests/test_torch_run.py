@@ -47,6 +47,13 @@ SLICE_MODULES = [
     "nerf_replication_tpu_torch.models.img_fit.network",
     "nerf_replication_tpu_torch.train.trainers.img_fit",
     "nerf_replication_tpu_torch.train.cli",
+    "nerf_replication_tpu_torch.train.trainers.trainer",
+    "nerf_replication_tpu_torch.train.trainers.nerf",
+    "nerf_replication_tpu_torch.train.recorder",
+    "nerf_replication_tpu_torch.datasets.pipeline",
+    "nerf_replication_tpu_torch.parallel",
+    "nerf_replication_tpu_torch.parallel.mesh",
+    "nerf_replication_tpu_torch.parallel.dryrun",
     "chip_smoke",
 ]
 
