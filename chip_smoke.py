@@ -775,55 +775,45 @@ def ray_points(n: int, gen: torch.Generator):
 
 
 def _counters():
-    """(object, attribute) of every wrapper's launch count and every plain
-    version's and nn.Module's call count."""
-    from nerf_replication_tpu_torch.models.encoding import hashgrid
-    from nerf_replication_tpu_torch.models.nerf.network import NeRFMLP, Network
-    from nerf_replication_tpu_torch.ops import (
-        eval_encode,
-        fused_ngp,
-        hashgrid_kernel,
-        mlp_kernel,
-        mlp_train,
-    )
-
+    """The ``tracing.counts`` keys of every wrapper's launches and every
+    plain version's and nn.Module's calls, by reading."""
+    plain = ("fused_nerf_mlp_enc_reference", "fused_nerf_mlp_reference",
+             "fused_nerf_mlp_bwd_reference", "brick_encode_eval_reference",
+             "brick_encode_cells_reference", "fused_ngp_eval_reference",
+             "brick_encode_reference", "brick_encode_bwd_reference")
     return {
-        "brick_fwd": [(hashgrid_kernel.brick_hash_encode, "launches")],
-        "brick_bwd": [(hashgrid_kernel.brick_hash_encode_bwd, "launches")],
-        "enc": [(mlp_kernel.fused_nerf_mlp_enc, "launches")],
-        "fwd": [(mlp_kernel.fused_nerf_mlp, "launches")],
-        "bwd": [(mlp_train.fused_nerf_mlp_bwd, "launches")],
-        "ngp_enc": [(eval_encode.brick_encode_eval, "launches")],
-        "ngp": [(fused_ngp.fused_ngp_eval, "launches")],
-        "ngp_bf16": [(fused_ngp.fused_ngp_eval, "bf16_launches")],
-        "plain": [(f, "calls") for f in (
-            mlp_kernel.fused_nerf_mlp_enc_reference,
-            mlp_kernel.fused_nerf_mlp_reference,
-            mlp_train.fused_nerf_mlp_bwd_reference,
-            eval_encode.brick_encode_eval_reference,
-            eval_encode.brick_encode_cells_reference,
-            fused_ngp.fused_ngp_eval_reference,
-            hashgrid_kernel.brick_encode_reference,
-            hashgrid_kernel.brick_encode_bwd_reference)],
-        "module": [(Network, "calls")],
-        "mlp": [(NeRFMLP, "calls")],
-        "xla_encode": [(hashgrid.hash_encode, "calls")],
+        "brick_fwd": ["brick_hash_encode.launches"],
+        "brick_bwd": ["brick_hash_encode_bwd.launches"],
+        "enc": ["fused_nerf_mlp_enc.launches"],
+        "fwd": ["fused_nerf_mlp.launches"],
+        "bwd": ["fused_nerf_mlp_bwd.launches"],
+        "ngp_enc": ["brick_encode_eval.launches"],
+        "ngp": ["fused_ngp_eval.launches"],
+        "ngp_bf16": ["fused_ngp_eval.bf16_launches"],
+        "plain": [f"{name}.calls" for name in plain],
+        "module": ["Network.calls"],
+        "mlp": ["NeRFMLP.calls"],
+        "xla_encode": ["hash_encode.calls"],
     }
 
 
 def reset_counts():
     """Every wrapper's launch count and every plain version's call count."""
-    for counter in _counters().values():
-        for obj, attr in counter:
-            setattr(obj, attr, 0)
+    from nerf_replication_tpu_torch.utils import tracing
+
+    for keys in _counters().values():
+        for key in keys:
+            tracing.counts.pop(key, None)
 
 
 def read_counts() -> dict:
     """Launches of each kernel; calls of the plain versions (summed), of
     ``Network.forward`` (module), of ``NeRFMLP.forward`` (mlp) and of the
     xla hash grid's encode (xla_encode, plain PyTorch: no kernel)."""
-    return {name: sum(getattr(obj, attr) for obj, attr in counter)
-            for name, counter in _counters().items()}
+    from nerf_replication_tpu_torch.utils import tracing
+
+    return {name: sum(tracing.counts[key] for key in keys)
+            for name, keys in _counters().items()}
 
 
 def real_batch(cfg, net, arrays) -> dict:
@@ -1861,16 +1851,20 @@ def phase_probes() -> list[dict]:
     readings, each with the launches its run made."""
     import importlib.util
 
+    from nerf_replication_tpu_torch.utils import tracing
+
     spec = importlib.util.spec_from_file_location(
         "probe_cuda_gather", os.path.join(ROOT, "scripts",
                                           "probe_cuda_gather.py"))
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    for wrapper in probe.PROBES:
-        wrapper.launches = 0
+    keys = {f"probe_{w.__name__}": f"{w.__name__}.launches"
+            for w in probe.PROBES}
+    for key in keys.values():
+        tracing.counts.pop(key, None)
     readings = probe.run()
     torch.cuda.synchronize()
-    launches = {f"probe_{w.__name__}": w.launches for w in probe.PROBES}
+    launches = {name: tracing.counts[key] for name, key in keys.items()}
     for r in readings:
         r["launches"] = launches[r["name"]]
         if not r["ok"] or not r["launches"]:
@@ -3554,7 +3548,6 @@ def main(argv=None):
         return dp_rank_main(opts.dp_rank)
     from nerf_replication_tpu_torch.config import make_cfg, parse_args
     from nerf_replication_tpu_torch.evaluators import psnr_uint8
-    from nerf_replication_tpu_torch.models.nerf.network import Network
     from nerf_replication_tpu_torch.models.nerf.renderer import RenderSettings
     from nerf_replication_tpu_torch.ops import (
         _build,
@@ -3563,13 +3556,16 @@ def main(argv=None):
         mlp_train,
     )
     from nerf_replication_tpu_torch.run import load_model, run_evaluate
-    from nerf_replication_tpu_torch.utils import synthetic_scene
+    from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
 
     os.chdir(ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernel = mlp_kernel.fused_nerf_mlp_enc
     plain = mlp_kernel.fused_nerf_mlp_enc_reference
+    # their tracing.counts keys
+    kernel_key, plain_key = (f"{kernel.__name__}.launches",
+                             f"{plain.__name__}.calls")
 
     # -- 1. device and build -------------------------------------------
     smi = subprocess.run(
@@ -3658,7 +3654,8 @@ def main(argv=None):
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     res = run_evaluate(cfg, loader=views)
-    launches, plain_calls = kernel.launches, plain.calls + Network.calls
+    launches = tracing.counts[kernel_key]
+    plain_calls = tracing.counts[plain_key] + tracing.counts["Network.calls"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for rgb in res["rgb"]:
         if rgb.shape != (H * W, 3) or not np.isfinite(rgb).all():
@@ -3671,7 +3668,7 @@ def main(argv=None):
 
     cfg_plain = make_cfg(parse_args(argv + ["network.use_pallas_mlp",
                                             "False"]))
-    Network.calls = 0
+    tracing.counts.pop("Network.calls", None)
     res_plain = run_evaluate(cfg_plain, loader=views[:1])
     vs_plain = psnr_uint8(res["rgb"][0], res_plain["rgb"][0])
     frame_k = res["net_time"][0]
@@ -3683,15 +3680,17 @@ def main(argv=None):
           f" kernel render vs plain render {vs_plain:.2f} dB, frame "
           f"{frame_p:.3f} s against {frame_k:.3f} s with the kernel "
           f"(kernel time per frame ~{mlp_ms / 1000:.3f} s), plain MLP calls "
-          f"{Network.calls} (expected {2 * chunks}), kernel launches "
-          f"{kernel.launches - launches}")
+          f"{tracing.counts['Network.calls']} (expected {2 * chunks}), "
+          f"kernel launches {tracing.counts[kernel_key] - launches}")
 
     if launches != 2 * chunks * len(views) or plain_calls != 0:
         fail(f"the slice did not run through the kernel alone (launches "
              f"{launches}, plain calls {plain_calls})")
-    if Network.calls != 2 * chunks or kernel.launches != launches:
+    if tracing.counts["Network.calls"] != 2 * chunks \
+            or tracing.counts[kernel_key] != launches:
         fail(f"the plain render did not run the plain MLP alone (plain "
-             f"calls {Network.calls}, launches {kernel.launches - launches})")
+             f"calls {tracing.counts['Network.calls']}, launches "
+             f"{tracing.counts[kernel_key] - launches})")
     if abs(res["psnr"] - JAX_PSNR_DB) > PSNR_BUDGET_DB:
         fail(f"PSNR {res['psnr']:.4f} dB is not within {PSNR_BUDGET_DB} dB "
              f"of {JAX_PSNR_DB} dB")

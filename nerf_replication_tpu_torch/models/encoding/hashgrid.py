@@ -51,6 +51,7 @@ from torch import nn
 
 from ...config import as_bool
 from ...ops import hashgrid_kernel as hk
+from ...utils import tracing
 from ..flax_init import dense, uniform_parameter
 
 EPS = 1e-6
@@ -278,12 +279,9 @@ class HashEncodeFn(torch.autograd.Function):
 def hash_encode(layout: HashLayout, table: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
     """The fused multi-level encode of the JAX package's ``hash_encode``;
-    ``hash_encode.calls`` counts its calls."""
-    hash_encode.calls += 1
+    ``tracing.counts["hash_encode.calls"]`` counts its calls."""
+    tracing.counts["hash_encode.calls"] += 1
     return HashEncodeFn.apply(layout, table, x)
-
-
-hash_encode.calls = 0
 
 
 # -- the encoder ------------------------------------------------------------

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...config import as_bool
+from ...utils import tracing
 from ..encoding import get_encoder
 from ..flax_init import lecun_normal_
 
@@ -42,9 +43,8 @@ def _dense(layer: nn.Linear, h: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class NeRFMLP(nn.Module):
-    """``NeRFMLP.calls`` counts forward calls of every instance."""
-
-    calls = 0
+    """``tracing.counts["NeRFMLP.calls"]`` counts forward calls of every
+    instance."""
 
     def __init__(self, in_dim: int, view_dim: int, depth: int = 8,
                  width: int = 256, view_depth: int = 1,
@@ -81,7 +81,7 @@ class NeRFMLP(nn.Module):
     def forward(self, pts_feat: torch.Tensor,
                 view_feat: torch.Tensor | None = None) -> torch.Tensor:
         """(N, C_pts), (N, C_dir) -> raw (N, 4) = [rgb, sigma], float32."""
-        NeRFMLP.calls += 1
+        tracing.counts["NeRFMLP.calls"] += 1
         dt = self.dtype
         x = pts_feat.to(dt)
         h = x
@@ -100,11 +100,10 @@ class NeRFMLP(nn.Module):
 
 class Network(nn.Module):
     """Coarse + fine NeRF with config-selected encoders. ``model`` picks
-    the head: "" or "coarse" for coarse, "fine" for fine. ``Network.calls``
-    counts forward calls of every instance: the plain MLP path's count,
-    beside the fused kernel's ``launches``."""
-
-    calls = 0
+    the head: "" or "coarse" for coarse, "fine" for fine.
+    ``tracing.counts["Network.calls"]`` counts forward calls of every
+    instance: the plain MLP path's count, beside the fused kernel's
+    launches."""
 
     def __init__(self, coarse: NeRFMLP, fine: NeRFMLP, xyz_encoder,
                  dir_encoder, use_viewdirs: bool = True):
@@ -116,7 +115,7 @@ class Network(nn.Module):
     def forward(self, pts: torch.Tensor, viewdirs: torch.Tensor | None = None,
                 model: str = "") -> torch.Tensor:
         """pts (..., 3), viewdirs broadcastable to (..., 3) -> raw (..., 4)."""
-        Network.calls += 1
+        tracing.counts["Network.calls"] += 1
         shape = pts.shape[:-1]
         pts_feat = self.xyz_encoder(pts.reshape(-1, pts.shape[-1]))
         view_feat = None

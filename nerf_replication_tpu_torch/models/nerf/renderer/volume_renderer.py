@@ -40,6 +40,11 @@ and the compacted frame's chunks likewise, between selections that every
 rank makes itself on the whole frame; each chunk is the one-device
 render's, so the image is too. In training a rank's generator draws the
 global batch's values and keeps its rays' (``ops.ray_ops.draw``).
+
+Under a torch profiler the stages are ``utils.tracing`` spans:
+``render.coarse`` (:func:`render_rays`), ``render.resample`` and
+``render.fine`` (:func:`fine_stage`), inside ``render.frame``
+(:meth:`Renderer.render`) or the trainer's ``train.forward``.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from ....ops.ray_ops import (
     sample_pdf,
     stratified_sample,
 )
+from ....utils import tracing
 from . import ngp_renderer
 
 
@@ -178,43 +184,46 @@ def fine_stage(apply_fn, rays_o, rays_d, viewdirs, t_coarse, w_c,
     gets no gradient. With ``ess_verbose`` the output holds
     ``ess_stats``."""
     gen = generator if train else None
-    bins = 0.5 * (t_coarse[..., 1:] + t_coarse[..., :-1])
-    t_fine = sample_pdf(bins, w_c[..., 1:-1].detach(), s.N_importance,
-                        generator=gen)
-    t_cat = torch.cat([t_coarse, t_fine], dim=-1)
-    valid = None
-    if density_coarse is None:
-        t_all = torch.sort(t_cat, dim=-1).values
-    else:
-        # the validity flags follow the depths through the sort; stable,
-        # as jnp.argsort, so a tie of a coarse and a fine depth keeps the
-        # coarse one first
-        t_all, order = torch.sort(t_cat, dim=-1, stable=True)
-        below = torch.searchsorted(bins.contiguous(), t_fine.contiguous(),
-                                   right=True) - 1
-        valid_f = _ess_ert_mask(density_coarse.detach(), t_coarse.detach(),
-                                below, s)
-        valid = torch.cat([torch.ones_like(valid_f[..., :1]).expand(
-            t_coarse.shape), valid_f], dim=-1).gather(-1, order)
-    pts = rays_o[:, None] + rays_d[:, None] * t_all[..., None]
-    raw = apply_fn(pts, viewdirs[:, None], "fine")
-    if valid is not None:
-        raw = torch.where(valid[..., None], raw, 0.0)
-    w_f, _, _ = compute_weights(
-        raw[..., 3], t_all, activation=density_activation(s.density_activation),
-        finite_tail=s.finite_tail, raw_noise_std=s.raw_noise_std,
-        generator=gen)
-    rgb, depth, acc = composite(torch.sigmoid(raw[..., :3]), w_f, t_all,
-                                s.white_bkgd)
-    out = {"rgb": rgb, "depth": depth, "acc": acc}
-    if valid is not None and s.ess_verbose:
-        # the reference's ESS/ERT debug statistics (:198-244)
-        out["ess_stats"] = {
-            "empty_rays": (density_coarse.sum(dim=-1) < 1e-3).sum(),
-            "total_rays": t_all.shape[0],
-            "valid_fine_frac": valid.float().mean(),
-            "skipped_points": (~valid).sum(),
-        }
+    with tracing.span("render.resample"):
+        bins = 0.5 * (t_coarse[..., 1:] + t_coarse[..., :-1])
+        t_fine = sample_pdf(bins, w_c[..., 1:-1].detach(), s.N_importance,
+                            generator=gen)
+        t_cat = torch.cat([t_coarse, t_fine], dim=-1)
+        valid = None
+        if density_coarse is None:
+            t_all = torch.sort(t_cat, dim=-1).values
+        else:
+            # the validity flags follow the depths through the sort;
+            # stable, as jnp.argsort, so a tie of a coarse and a fine depth
+            # keeps the coarse one first
+            t_all, order = torch.sort(t_cat, dim=-1, stable=True)
+            below = torch.searchsorted(bins.contiguous(),
+                                       t_fine.contiguous(), right=True) - 1
+            valid_f = _ess_ert_mask(density_coarse.detach(),
+                                    t_coarse.detach(), below, s)
+            valid = torch.cat([torch.ones_like(valid_f[..., :1]).expand(
+                t_coarse.shape), valid_f], dim=-1).gather(-1, order)
+    with tracing.span("render.fine"):
+        pts = rays_o[:, None] + rays_d[:, None] * t_all[..., None]
+        raw = apply_fn(pts, viewdirs[:, None], "fine")
+        if valid is not None:
+            raw = torch.where(valid[..., None], raw, 0.0)
+        w_f, _, _ = compute_weights(
+            raw[..., 3], t_all,
+            activation=density_activation(s.density_activation),
+            finite_tail=s.finite_tail, raw_noise_std=s.raw_noise_std,
+            generator=gen)
+        rgb, depth, acc = composite(torch.sigmoid(raw[..., :3]), w_f, t_all,
+                                    s.white_bkgd)
+        out = {"rgb": rgb, "depth": depth, "acc": acc}
+        if valid is not None and s.ess_verbose:
+            # the reference's ESS/ERT debug statistics (:198-244)
+            out["ess_stats"] = {
+                "empty_rays": (density_coarse.sum(dim=-1) < 1e-3).sum(),
+                "total_rays": t_all.shape[0],
+                "valid_fine_frac": valid.float().mean(),
+                "skipped_points": (~valid).sum(),
+            }
     return out
 
 
@@ -333,18 +342,20 @@ def render_rays(apply_fn, rays_o: torch.Tensor, rays_d: torch.Tensor,
     pass reuses. With ``fast_sampling`` the fine pass is masked
     (:func:`fine_stage`), in training and in eval."""
     gen = generator if train else None
-    t_coarse = stratified_sample(rays_o.shape[0], s.N_samples, s.near, s.far,
-                                 generator=gen if s.perturb else None,
-                                 lindisp=s.lindisp, device=rays_o.device)
-    pts = rays_o[:, None] + rays_d[:, None] * t_coarse[..., None]
-    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    raw = apply_fn(pts, viewdirs[:, None], "")
-    act = density_activation(s.density_activation)
-    w_c, _, _ = compute_weights(
-        raw[..., 3], t_coarse, activation=act, finite_tail=s.finite_tail,
-        raw_noise_std=s.raw_noise_std, generator=gen)
-    rgb_c, depth_c, acc_c = composite(torch.sigmoid(raw[..., :3]), w_c,
-                                      t_coarse, s.white_bkgd)
+    with tracing.span("render.coarse"):
+        t_coarse = stratified_sample(
+            rays_o.shape[0], s.N_samples, s.near, s.far,
+            generator=gen if s.perturb else None, lindisp=s.lindisp,
+            device=rays_o.device)
+        pts = rays_o[:, None] + rays_d[:, None] * t_coarse[..., None]
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        raw = apply_fn(pts, viewdirs[:, None], "")
+        act = density_activation(s.density_activation)
+        w_c, _, _ = compute_weights(
+            raw[..., 3], t_coarse, activation=act, finite_tail=s.finite_tail,
+            raw_noise_std=s.raw_noise_std, generator=gen)
+        rgb_c, depth_c, acc_c = composite(torch.sigmoid(raw[..., :3]), w_c,
+                                          t_coarse, s.white_bkgd)
     if s.N_importance <= 0:
         return {"rgb": rgb_c, "depth": depth_c, "acc": acc_c, "weights": w_c}
     # the masks read the coarse densities without noise
@@ -378,6 +389,7 @@ class Renderer:
             network_cfg.get("use_pallas_mlp_train", True),
             "network.use_pallas_mlp_train")
         self._train_apply = None
+        self.frames = 0            # render() calls: the render.frame span ids
 
     @property
     def device(self) -> torch.device:
@@ -669,8 +681,10 @@ class Renderer:
         :meth:`render_image_fast`."""
         rays_o = torch.as_tensor(batch["rays_o"]).reshape(-1, 3)
         rays_d = torch.as_tensor(batch["rays_d"]).reshape(-1, 3)
-        if self.settings.fast_sampling and self.settings.N_importance > 0:
-            out = self.render_image_fast(rays_o, rays_d)
-        else:
-            out = self.render_rays_batch(rays_o, rays_d)
+        with tracing.span("render.frame", root=self.frames):
+            if self.settings.fast_sampling and self.settings.N_importance > 0:
+                out = self.render_image_fast(rays_o, rays_d)
+            else:
+                out = self.render_rays_batch(rays_o, rays_d)
+        self.frames += 1
         return out["rgb"], out["depth"]

@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from ..utils import tracing
 from . import _build
 from .hashgrid_kernel import (
     BrickLayout,
@@ -108,22 +109,16 @@ def brick_encode_eval_reference(layout: BrickLayout, packed_table: torch.Tensor,
     """The function in plain PyTorch from the packed table, the oracle of
     the kernel and of :func:`pack_cell_table`. x (N, 3) in [0,1] -> (N,
     2L)."""
-    brick_encode_eval_reference.calls += 1
+    tracing.counts["brick_encode_eval_reference.calls"] += 1
     return _encode_plain(layout, packed_table, x.float())
-
-
-brick_encode_eval_reference.calls = 0
 
 
 def brick_encode_cells_reference(layout: BrickLayout, cells: torch.Tensor,
                                  x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same function read from the
     cell-corner table, word for word as the kernel reads it."""
-    brick_encode_cells_reference.calls += 1
+    tracing.counts["brick_encode_cells_reference.calls"] += 1
     return _encode_plain(layout, cells, x.float(), cells=True)
-
-
-brick_encode_cells_reference.calls = 0
 
 
 def check_table(layout: BrickLayout, packed: torch.Tensor,
@@ -187,11 +182,8 @@ def brick_encode_eval(layout: BrickLayout, cells: torch.Tensor,
             ctypes.byref(levels), len(layout.scales),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(lib, err, "brick_encode_eval")
-    brick_encode_eval.launches += 1
+    tracing.counts["brick_encode_eval.launches"] += 1
     return out
-
-
-brick_encode_eval.launches = 0
 
 
 __all__ = ["pack_eval_table", "pack_cell_table", "unpack_f0_f1",

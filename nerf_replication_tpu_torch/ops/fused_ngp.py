@@ -46,6 +46,7 @@ import functools
 
 import torch
 
+from ..utils import tracing
 from . import _build
 from .eval_encode import _bf16_bits, _encode_plain, check_table
 from .hashgrid_kernel import (
@@ -343,12 +344,9 @@ def fused_ngp_eval_reference(layout: BrickLayout, meta, packed_table,
                              mlp_bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the eval encode's plain
     arithmetic, then the MLP on the pack, in f32 or on bf16 operands."""
-    fused_ngp_eval_reference.calls += 1
+    tracing.counts["fused_ngp_eval_reference.calls"] += 1
     feat = _encode_plain(layout, packed_table, x.float())
     return _mlp_plain(weight_ops, meta, feat, sh.float(), mlp_bf16)
-
-
-fused_ngp_eval_reference.calls = 0
 
 
 def unsupported_mlp(width: int, n_feat: int, n_sh: int, depth: int,
@@ -402,8 +400,10 @@ def fused_ngp_eval(layout: BrickLayout, meta, packed_table: torch.Tensor,
     :func:`extract_mlp_weights` -> raw (N, 4) f32 ``[rgb, sigma]``; with
     ``mlp_bf16`` the MLP on bf16 operands (the TPU kernel's second arm).
 
-    CUDA tensors launch the kernel (``launches`` counts the f32 arm's,
-    ``bf16_launches`` the bf16 arm's); CPU tensors take the plain version.
+    CUDA tensors launch the kernel (``tracing.counts`` keeps the f32 arm's
+    under ``"fused_ngp_eval.launches"``, the bf16 arm's under
+    ``"fused_ngp_eval.bf16_launches"``); CPU tensors take the plain
+    version.
     """
     if x.device.type == "cpu":
         return fused_ngp_eval_reference(layout, meta, packed_table,
@@ -448,14 +448,10 @@ def fused_ngp_eval(layout: BrickLayout, meta, packed_table: torch.Tensor,
             int(mlp_bf16), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(lib, err, "fused_ngp_eval")
     if mlp_bf16:
-        fused_ngp_eval.bf16_launches += 1
+        tracing.counts["fused_ngp_eval.bf16_launches"] += 1
     else:
-        fused_ngp_eval.launches += 1
+        tracing.counts["fused_ngp_eval.launches"] += 1
     return out
-
-
-fused_ngp_eval.launches = 0
-fused_ngp_eval.bf16_launches = 0
 
 
 def flops_per_point(layout: BrickLayout, weight_ops: MLPOps) -> int:

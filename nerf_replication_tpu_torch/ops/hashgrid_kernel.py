@@ -37,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import _build
 
 BRICK = 4           # cells per brick side
@@ -157,7 +158,7 @@ def brick_encode_reference(layout: BrickLayout, table: torch.Tensor,
     most ``MXU_MAX_ROWS`` rows read the table rounded to bf16, as the TPU
     kernel's one-hot fetch does (:196-201); larger levels read it in f32.
     Trilinear weights and sums are f32, the corners summed in order."""
-    brick_encode_reference.calls += 1
+    tracing.counts["brick_encode_reference.calls"] += 1
     bid = compute_brick_ids(layout, x)
     feats = []
     for level, (res, bf16) in enumerate(zip(layout.scales,
@@ -173,9 +174,6 @@ def brick_encode_reference(layout: BrickLayout, table: torch.Tensor,
             f1 = f1 + w * rows.gather(1, (128 + v)[:, None])[:, 0]
         feats += [f0, f1]
     return torch.stack(feats, dim=-1)
-
-
-brick_encode_reference.calls = 0
 
 
 def _corner_updates(layout: BrickLayout, x: torch.Tensor, g: torch.Tensor):
@@ -207,16 +205,13 @@ def brick_encode_bwd_reference(layout: BrickLayout, x: torch.Tensor,
     corner is the same); the contributions are summed with ``index_add_``
     in ``sum_dtype`` (f32 as the TPU kernel; f64 for an order-free
     yardstick). Padding lanes and rows stay exactly zero."""
-    brick_encode_bwd_reference.calls += 1
+    tracing.counts["brick_encode_bwd_reference.calls"] += 1
     g = g.float()
     dtable = torch.zeros(layout.n_rows * ROW, dtype=sum_dtype,
                          device=x.device)
     for index, c in _corner_updates(layout, x, g):
         dtable.index_add_(0, index, c.to(sum_dtype))
     return dtable.view(layout.n_rows, ROW)
-
-
-brick_encode_bwd_reference.calls = 0
 
 
 def live_entries(layout: BrickLayout) -> torch.Tensor:
@@ -338,11 +333,8 @@ def brick_hash_encode(layout: BrickLayout, table: torch.Tensor,
             ctypes.byref(levels), len(layout.scales), _bf16_mask(layout),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(lib, err, "brick_hash_encode")
-    brick_hash_encode.launches += 1
+    tracing.counts["brick_hash_encode.launches"] += 1
     return out
-
-
-brick_hash_encode.launches = 0
 
 
 def brick_hash_encode_bwd(layout: BrickLayout, x: torch.Tensor,
@@ -374,11 +366,8 @@ def brick_hash_encode_bwd(layout: BrickLayout, x: torch.Tensor,
             len(layout.scales), _bf16_mask(layout),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(lib, err, "brick_hash_encode_bwd")
-    brick_hash_encode_bwd.launches += 1
+    tracing.counts["brick_hash_encode_bwd.launches"] += 1
     return dtable
-
-
-brick_hash_encode_bwd.launches = 0
 
 
 class BrickHashEncodeFn(torch.autograd.Function):

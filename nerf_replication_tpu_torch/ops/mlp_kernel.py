@@ -25,9 +25,10 @@ skip, one 128-wide view layer, frequency encoders with at most 10 point
 and 4 direction bands (63 -> 64 and 27 -> 32 encoded columns).
 
 Each wrapper launches its kernel for CUDA tensors and uses its plain
-version only for tensors on the CPU. Both count their calls
-(``.launches`` / ``.calls``), and so does the plain ``nn.Module`` MLP
-(``Network.calls``), so a run can show which path it went through.
+version only for tensors on the CPU. Both count their calls in
+``utils.tracing.counts`` (``"<name>.launches"`` / ``"<name>.calls"``), and
+so does the plain ``nn.Module`` MLP (``"Network.calls"``), so a run can
+show which path it went through.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.encoding.freq import FrequencyEncoder, freq_encode
+from ..utils import tracing
 from . import _build
 
 WIDTH = 256
@@ -246,12 +248,9 @@ def fused_nerf_mlp_enc_reference(packed: PackedMLP, pts: torch.Tensor,
     """Plain PyTorch version of the encode+MLP kernel with the same
     rounding points (see :func:`_mlp_body`).
     (N, 3), (N, 3) -> raw (N, 4) float32."""
-    fused_nerf_mlp_enc_reference.calls += 1
+    tracing.counts["fused_nerf_mlp_enc_reference.calls"] += 1
     return _mlp_body(packed, _encode(pts, xyz_freqs, X_DIM),
                      _encode(dirs, view_freqs, V_DIM))
-
-
-fused_nerf_mlp_enc_reference.calls = 0
 
 
 def encode_features(pts: torch.Tensor, dirs: torch.Tensor, xyz_freqs: int,
@@ -267,11 +266,8 @@ def fused_nerf_mlp_reference(packed: PackedMLP, x: torch.Tensor,
     """Plain PyTorch version of the features-in kernel with the same
     rounding points (see :func:`_mlp_body`). bf16 x (N, 64), v (N, 32) ->
     raw (N, 4) float32."""
-    fused_nerf_mlp_reference.calls += 1
+    tracing.counts["fused_nerf_mlp_reference.calls"] += 1
     return _mlp_body(packed, x.float(), v.float())
-
-
-fused_nerf_mlp_reference.calls = 0
 
 
 @functools.cache
@@ -355,11 +351,8 @@ def fused_nerf_mlp_enc(packed: PackedMLP, pts: torch.Tensor,
             packed.skip, xyz_freqs, view_freqs,
             torch.cuda.current_stream(pts.device).cuda_stream)
     check_launch(err, "fused_nerf_mlp_enc")
-    fused_nerf_mlp_enc.launches += 1
+    tracing.counts["fused_nerf_mlp_enc.launches"] += 1
     return out
-
-
-fused_nerf_mlp_enc.launches = 0
 
 
 def check_features(x: torch.Tensor, v: torch.Tensor) -> int:
@@ -399,11 +392,8 @@ def fused_nerf_mlp(packed: PackedMLP, x: torch.Tensor,
             packed.img.data_ptr(), packed.b.data_ptr(), packed.depth,
             packed.skip, torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "fused_nerf_mlp")
-    fused_nerf_mlp.launches += 1
+    tracing.counts["fused_nerf_mlp.launches"] += 1
     return out
-
-
-fused_nerf_mlp.launches = 0
 
 
 def flops_per_point(packed: PackedMLP) -> int:

@@ -32,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import _build, mlp_kernel
 from .mlp_kernel import (
     ALPHA_PAD,
@@ -163,15 +164,12 @@ def fused_nerf_mlp_bwd_reference(packed: PackedMLP, x: torch.Tensor,
     :func:`backward_planes`): bf16 x (N, 64), v (N, 32), f32 g (N, 4) ->
     (f32 weight-pack gradient, f32 bias-pack gradient). With ``keep``,
     stores the planes there as ``keep["planes"]``."""
-    fused_nerf_mlp_bwd_reference.calls += 1
+    tracing.counts["fused_nerf_mlp_bwd_reference.calls"] += 1
     planes, grad_b = backward_planes(packed, x, v, g)
     if keep is not None:
         keep["planes"] = planes
     dt = planes["d_rgb"].dtype
     return weight_grads(planes, x.to(dt), v.to(dt), packed), grad_b
-
-
-fused_nerf_mlp_bwd_reference.calls = 0
 
 
 @functools.cache
@@ -273,13 +271,10 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
             grad_w.data_ptr(), grad_b.data_ptr(), e_w, e_b, CHUNK, group_w,
             group_b, torch.cuda.current_stream(x.device).cuda_stream)
     mlp_kernel.check_launch(err, "fused_nerf_mlp_bwd")
-    fused_nerf_mlp_bwd.launches += 1
+    tracing.counts["fused_nerf_mlp_bwd.launches"] += 1
     if keep is not None:
         keep["planes"] = workspace_planes(act, dlt, n, n_pad, d)
     return grad_w, grad_b
-
-
-fused_nerf_mlp_bwd.launches = 0
 
 
 class FusedNeRFMLPFn(torch.autograd.Function):

@@ -18,6 +18,12 @@ JAX ``fold_in``), so a resumed run draws what an unbroken one draws.
 it has one (img_fit), else through the eval renderer, with the fused
 kernel's weights packed from the current parameters.
 
+Under a torch profiler each loop iteration is a ``train.step`` span
+(``utils.tracing``, its id the global step) holding ``train.sample``,
+``train.forward``, ``train.backward``, ``train.allreduce`` (with a mesh)
+and ``train.optimizer``; ``train_device``'s end of epoch is
+``train.epoch_end``.
+
 With a ``mesh`` (``parallel.mesh.Mesh``, JAX :57-66, :101-121, :155-161)
 the Trainer is one rank of a data-parallel group: the parameters are
 broadcast from rank 0 before the first step, each rank draws its rows of
@@ -45,6 +51,7 @@ from ...parallel.mesh import (
     shard_host_batch,
 )
 from ...registry import resolve
+from ...utils import tracing
 from ..optimizer import make_optimizer
 from ..scheduler import make_lr_schedule
 from .nerf import psnr_from_mse
@@ -126,19 +133,23 @@ class Trainer:
         ``RowGenerator``; the gradients and stats are averaged over the
         ranks before the clip (the PSNR from the averaged MSE)."""
         self._replicate()
-        loss, (_, stats, _) = self.wrapper.loss_fn(batch, generator,
-                                                   train=True)
+        with tracing.span("train.forward"):
+            loss, (_, stats, _) = self.wrapper.loss_fn(batch, generator,
+                                                       train=True)
         self.optimizer.zero_grad()
-        loss.backward()
+        with tracing.span("train.backward"):
+            loss.backward()
         if self.mesh is not None:
-            keys = [k for k in stats if k != "psnr"]
-            mean = all_reduce_mean_grads(
-                self.optimizer.params, self.mesh,
-                torch.stack([stats[k] for k in keys]))
-            stats = dict(zip(keys, mean.unbind()))
-            if "color_mse" in stats:
-                stats["psnr"] = psnr_from_mse(stats["color_mse"])
-        self.optimizer.step()
+            with tracing.span("train.allreduce"):
+                keys = [k for k in stats if k != "psnr"]
+                mean = all_reduce_mean_grads(
+                    self.optimizer.params, self.mesh,
+                    torch.stack([stats[k] for k in keys]))
+                stats = dict(zip(keys, mean.unbind()))
+                if "color_mse" in stats:
+                    stats["psnr"] = psnr_from_mse(stats["color_mse"])
+        with tracing.span("train.optimizer"):
+            self.optimizer.step()
         return stats
 
     def _host_batch(self, batch: dict, generator: torch.Generator):
@@ -180,10 +191,13 @@ class Trainer:
         t0 = end = time.perf_counter()
         for iteration, batch in enumerate(loader):
             data_time = time.perf_counter() - end
-            batch, step_gen, rows = self._host_batch(batch, gen)
-            s = self.train_step(host_batch_to_device(batch, device), step_gen)
-            pending.append(torch.stack([s["loss"], s["color_mse"],
-                                        s["psnr"]]))
+            with tracing.span("train.step", root=self.step):
+                with tracing.span("train.sample"):
+                    batch, step_gen, rows = self._host_batch(batch, gen)
+                    batch = host_batch_to_device(batch, device)
+                s = self.train_step(batch, step_gen)
+                pending.append(torch.stack([s["loss"], s["color_mse"],
+                                            s["psnr"]]))
             log = ((iteration + 1) % self.log_interval == 0
                    or iteration == max_iter - 1)
             if log:   # the epoch's only synchronisations
@@ -242,35 +256,38 @@ class Trainer:
         t0 = time.perf_counter()
         stats = []
         for _ in range(n_steps):
-            batch = pipeline.sample(gen, self.step)
-            s = self.train_step(batch, gen)
-            stats.append(torch.stack([s["loss"], s["psnr"]]))
-        stats = torch.stack(stats).cpu().numpy()   # the epoch's one sync
-        wall = time.perf_counter() - t0
-        peak = (torch.cuda.max_memory_allocated(device)
-                if device.type == "cuda" else 0)
-        summary = {"epoch": epoch, "steps": n_steps, "wall": wall,
-                   "rays_per_s": n_steps * pipeline.n_rays / wall,
-                   "loss": stats[:, 0], "psnr": stats[:, 1],
-                   "lr": self.optimizer.lr(), "peak_bytes": peak}
-        self.summaries.append(summary)
-        if recorder is not None:
-            recorder.epoch = epoch
-            recorder.step += n_steps
-            for loss, psnr in stats:
-                recorder.update_loss_stats({"loss": loss, "psnr": psnr})
-            recorder.record("train")
-        if self.is_main:
-            if recorder is not None and recorder.loss_stats:
-                ls = recorder.loss_stats
-                smoothed = (f"loss: {ls['loss'].median:.5f}  "
-                            f"psnr: {ls['psnr'].median:.2f}")
-            else:
-                smoothed = (f"loss: {float(np.median(stats[-20:, 0])):.5f}  "
-                            f"psnr: {float(np.median(stats[-20:, 1])):.2f}")
-            print(f"epoch {epoch}: {n_steps} steps in {wall:.2f}s "
-                  f"({summary['rays_per_s']:,.0f} rays/s)  {smoothed}  "
-                  f"lr: {summary['lr']:.6f}  mem: {peak / 2 ** 20:.0f}MB")
+            with tracing.span("train.step", root=self.step):
+                with tracing.span("train.sample"):
+                    batch = pipeline.sample(gen, self.step)
+                s = self.train_step(batch, gen)
+                stats.append(torch.stack([s["loss"], s["psnr"]]))
+        with tracing.span("train.epoch_end", root=epoch):
+            stats = torch.stack(stats).cpu().numpy()   # the epoch's one sync
+            wall = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated(device)
+                    if device.type == "cuda" else 0)
+            summary = {"epoch": epoch, "steps": n_steps, "wall": wall,
+                       "rays_per_s": n_steps * pipeline.n_rays / wall,
+                       "loss": stats[:, 0], "psnr": stats[:, 1],
+                       "lr": self.optimizer.lr(), "peak_bytes": peak}
+            self.summaries.append(summary)
+            if recorder is not None:
+                recorder.epoch = epoch
+                recorder.step += n_steps
+                for loss, psnr in stats:
+                    recorder.update_loss_stats({"loss": loss, "psnr": psnr})
+                recorder.record("train")
+            if self.is_main:
+                if recorder is not None and recorder.loss_stats:
+                    ls = recorder.loss_stats
+                    smoothed = (f"loss: {ls['loss'].median:.5f}  "
+                                f"psnr: {ls['psnr'].median:.2f}")
+                else:
+                    loss, psnr = np.median(stats[-20:], axis=0)
+                    smoothed = f"loss: {loss:.5f}  psnr: {psnr:.2f}"
+                print(f"epoch {epoch}: {n_steps} steps in {wall:.2f}s "
+                      f"({summary['rays_per_s']:,.0f} rays/s)  {smoothed}  "
+                      f"lr: {summary['lr']:.6f}  mem: {peak / 2 ** 20:.0f}MB")
         return summary
 
     def val(self, epoch: int, loader, evaluator, recorder=None) -> dict:

@@ -41,6 +41,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from nerf_replication_tpu_torch.ops import _build  # noqa: E402
+from nerf_replication_tpu_torch.utils import tracing  # noqa: E402
 
 R = 4096           # table rows
 W = 256            # lanes per row
@@ -83,7 +84,7 @@ def _launch(wrapper, name: str, n: int, *tensors):
         err = getattr(lib, name)(*[t.data_ptr() for t in tensors], n,
                                  torch.cuda.current_stream(device).cuda_stream)
     _build.check_launch(lib, err, name)
-    wrapper.launches += 1
+    tracing.counts[f"{wrapper.__name__}.launches"] += 1
 
 
 def row_gather(table, idx):
@@ -143,8 +144,6 @@ def atomic_add(table, idx, lanes, val):
 
 
 PROBES = (row_gather, elem_gather, lane_gather, atomic_add)
-for _probe in PROBES:
-    _probe.launches = 0
 
 
 def _ms(fn, device, reps: int) -> float:

@@ -24,7 +24,7 @@ from nerf_replication_tpu_torch.ops import (
     mlp_train,
 )
 from nerf_replication_tpu_torch.run import build_renderer, load_model
-from nerf_replication_tpu_torch.utils import synthetic_scene
+from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGV = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard.yaml",
@@ -70,10 +70,10 @@ def test_kernel_matches_plain_version(cuda, monkeypatch, n):
     for mlp in (net.coarse, net.fine):
         packed = mlp_kernel.pack_nerf_params(mlp.state_dict(), 63, 27, 8, 4)
         pts, dirs = _ray_points(n, seed=n, device=cuda)
-        launches = mlp_kernel.fused_nerf_mlp_enc.launches
+        launches = tracing.counts["fused_nerf_mlp_enc.launches"]
         out = mlp_kernel.fused_nerf_mlp_enc(packed, pts, dirs, 10, 4)
         torch.cuda.synchronize()
-        assert mlp_kernel.fused_nerf_mlp_enc.launches == launches + 1
+        assert tracing.counts["fused_nerf_mlp_enc.launches"] == launches + 1
         ref = mlp_kernel.fused_nerf_mlp_enc_reference(packed, pts, dirs, 10, 4)
         scale = ref.abs().amax(dim=0).clamp_min(1.0)
         assert out.shape == (n, 4) and bool(torch.isfinite(out).all())
@@ -171,14 +171,14 @@ def test_training_kernels_match_plain_versions(cuda, monkeypatch, n):
         x, v = mlp_kernel.encode_features(pts, dirs, 10, 4)
         cot = torch.randn(n, 4, device=cuda, generator=g) * torch.tensor(
             [1e-4, 1e-4, 1e-4, 1e-3], device=cuda)
-        counts = (mlp_kernel.fused_nerf_mlp.launches,
-                  mlp_train.fused_nerf_mlp_bwd.launches)
+        counts = (tracing.counts["fused_nerf_mlp.launches"],
+                  tracing.counts["fused_nerf_mlp_bwd.launches"])
         out = mlp_kernel.fused_nerf_mlp(packed, x, v)
         keep_k, keep_p = {}, {}
         grads = mlp_train.fused_nerf_mlp_bwd(packed, x, v, cot, keep_k)
         torch.cuda.synchronize()
-        assert (mlp_kernel.fused_nerf_mlp.launches,
-                mlp_train.fused_nerf_mlp_bwd.launches) == (
+        assert (tracing.counts["fused_nerf_mlp.launches"],
+                tracing.counts["fused_nerf_mlp_bwd.launches"]) == (
             counts[0] + 1, counts[1] + 1)
         ref = mlp_kernel.fused_nerf_mlp_reference(packed, x, v)
         scale = ref.abs().amax(dim=0).clamp_min(1.0)
@@ -280,11 +280,11 @@ def test_ngp_kernels_match_plain_versions(cuda, monkeypatch, n):
     layout = net.xyz_encoder.layout
     packed = eval_encode.pack_eval_table(net.xyz_encoder.table.detach())
     x, sh = _ngp_inputs(net, n, seed=n, device=cuda)
-    launches = eval_encode.brick_encode_eval.launches
+    launches = tracing.counts["brick_encode_eval.launches"]
     feats = eval_encode.brick_encode_eval(
         layout, eval_encode.pack_cell_table(packed), x)
     torch.cuda.synchronize()
-    assert eval_encode.brick_encode_eval.launches == launches + 1
+    assert tracing.counts["brick_encode_eval.launches"] == launches + 1
     assert feats.shape == (n, 24)
     assert torch.equal(
         feats, eval_encode.brick_encode_eval_reference(layout, packed, x))
@@ -303,10 +303,10 @@ def test_ngp_kernels_match_plain_versions(cuda, monkeypatch, n):
             mlp.state_dict(), model.xyz_encoder.output_dim, mlp.depth,
             mlp.skips, mlp.view_depth)
         count = "bf16_launches" if mlp_bf16 else "launches"
-        launches = getattr(fused_ngp.fused_ngp_eval, count)
+        launches = tracing.counts[f"fused_ngp_eval.{count}"]
         out = fused_ngp.fused_ngp_eval(lay, meta, table, ops, x, sh, mlp_bf16)
         torch.cuda.synchronize()
-        assert getattr(fused_ngp.fused_ngp_eval, count) == launches + 1
+        assert tracing.counts[f"fused_ngp_eval.{count}"] == launches + 1
         ref = fused_ngp.fused_ngp_eval_reference(lay, meta, table, ops, x,
                                                  sh, mlp_bf16)
         scale = ref.abs().amax(dim=0).clamp_min(1.0)
@@ -394,15 +394,15 @@ def test_brick_training_kernels_match_plain_versions(cuda, monkeypatch, n,
             -1, 1, generator=torch.Generator(device=cuda).manual_seed(n))
     g = torch.randn(n, 24, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(n))
-    counts = (hashgrid_kernel.brick_hash_encode.launches,
-              hashgrid_kernel.brick_hash_encode_bwd.launches)
+    counts = (tracing.counts["brick_hash_encode.launches"],
+              tracing.counts["brick_hash_encode_bwd.launches"])
     out = hashgrid_kernel.brick_hash_encode(layout, table, x)
     dtable = hashgrid_kernel.brick_hash_encode_bwd(layout, x, g)
     strided = hashgrid_kernel.brick_hash_encode_bwd(
         layout, x, g.t().contiguous().t())
     torch.cuda.synchronize()
-    assert (hashgrid_kernel.brick_hash_encode.launches,
-            hashgrid_kernel.brick_hash_encode_bwd.launches) == (
+    assert (tracing.counts["brick_hash_encode.launches"],
+            tracing.counts["brick_hash_encode_bwd.launches"]) == (
         counts[0] + 1, counts[1] + 2)
     assert out.shape == (n, 24)
     assert torch.equal(out, hashgrid_kernel.brick_encode_reference(
@@ -451,14 +451,14 @@ def test_ngp_train_step_on_gpu_matches_cpu(cuda, monkeypatch):
     res = {}
     for device in (torch.device("cpu"), cuda):
         cfg, net = _ngp(monkeypatch, device)
-        counts = (hashgrid_kernel.brick_hash_encode.launches,
-                  hashgrid_kernel.brick_hash_encode_bwd.launches)
+        counts = (tracing.counts["brick_hash_encode.launches"],
+                  tracing.counts["brick_hash_encode_bwd.launches"])
         wrap = NetworkWrapper(net.train(), cfg)
         loss, _ = wrap.loss_fn({k: t.to(device) for k, t in batch.items()},
                                None, train=True)
         loss.backward()
-        made = (hashgrid_kernel.brick_hash_encode.launches - counts[0],
-                hashgrid_kernel.brick_hash_encode_bwd.launches - counts[1])
+        made = (tracing.counts["brick_hash_encode.launches"] - counts[0],
+                tracing.counts["brick_hash_encode_bwd.launches"] - counts[1])
         assert made == ((2, 2) if device.type == "cuda" else (0, 0))
         res[device.type] = (float(loss.detach()),
                             {k: p.grad.cpu() for k, p in
@@ -482,7 +482,8 @@ def test_gather_probes_on_gpu(cuda):
     spec.loader.exec_module(probe)
     readings = probe.run(cuda, reps=3)
     assert len(readings) == 5 and all(r["ok"] for r in readings)
-    assert all(w.launches > 0 for w in probe.PROBES)
+    assert all(tracing.counts[f"{w.__name__}.launches"] > 0
+               for w in probe.PROBES)
     with pytest.raises(ValueError):
         probe.row_gather(torch.zeros(4, 256, device=cuda),
                          torch.zeros(2, dtype=torch.int64, device=cuda))

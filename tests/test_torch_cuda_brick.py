@@ -15,6 +15,7 @@ import torch
 
 from nerf_replication_tpu_torch.ops import eval_encode
 from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
+from nerf_replication_tpu_torch.utils import tracing
 
 # hard_ngp at the b9 checkpoint's and the yaml's brick caps (every level
 # bf16 on the training forward), lego_ngp's 16 levels, and a 12-level
@@ -67,15 +68,15 @@ def test_brick_gathers_match_plain_versions(cuda, layout_name):
     layout, table, packed, cells = tables(LAYOUTS[layout_name], 0, cuda)
     for n in SIZES:
         x = ray_points(n, n, cuda)
-        counts = (eval_encode.brick_encode_eval.launches,
-                  hk.brick_hash_encode.launches)
+        counts = (tracing.counts["brick_encode_eval.launches"],
+                  tracing.counts["brick_hash_encode.launches"])
         feats = eval_encode.brick_encode_eval(layout, cells, x)
         out = hk.brick_hash_encode(layout, table, x)
         torch.cuda.synchronize()
         launched = int(n > 0)
-        assert (eval_encode.brick_encode_eval.launches,
-                hk.brick_hash_encode.launches) == (counts[0] + launched,
-                                                   counts[1] + launched)
+        assert (tracing.counts["brick_encode_eval.launches"],
+                tracing.counts["brick_hash_encode.launches"]) == (
+                    counts[0] + launched, counts[1] + launched)
         assert feats.shape == out.shape == (n, 2 * len(layout.scales))
         assert torch.equal(feats, eval_encode.brick_encode_cells_reference(
             layout, cells, x))

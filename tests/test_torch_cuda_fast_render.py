@@ -21,10 +21,9 @@ import chip_smoke
 from nerf_replication_tpu_torch.config import make_cfg, parse_args
 from nerf_replication_tpu_torch.evaluators import psnr_uint8
 from nerf_replication_tpu_torch.models.nerf.renderer import Renderer
-from nerf_replication_tpu_torch.ops import mlp_kernel
 from nerf_replication_tpu_torch.run import build_grids, build_renderer, \
     load_model
-from nerf_replication_tpu_torch.utils import synthetic_scene
+from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGV = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard.yaml",
@@ -79,11 +78,11 @@ def test_kernel_at_compacted_shapes(renderer, rays, samples):
     pts = ro[:, None] + rd[:, None] * t[..., None]
     plain = chip_smoke.plain_twin(renderer.net)
     for model in ("", "fine"):
-        launches = mlp_kernel.fused_nerf_mlp_enc.launches
+        launches = tracing.counts["fused_nerf_mlp_enc.launches"]
         with torch.inference_mode():
             out = renderer.apply_fn(pts, rd[:, None], model).reshape(-1, 4)
             ref = plain(pts, rd[:, None], model).reshape(-1, 4)
-        assert mlp_kernel.fused_nerf_mlp_enc.launches == launches + 1
+        assert tracing.counts["fused_nerf_mlp_enc.launches"] == launches + 1
         a = chip_smoke.agreement(out, ref, BOUNDS)
         assert a["ok"], chip_smoke.describe(a)
 
@@ -120,7 +119,7 @@ def test_compacted_frame_matches_plain(renderer, segments):
                         {k: int(v) for k, v in stats.items()})
         if name == "kernel":
             torch.cuda.synchronize()
-            launches = mlp_kernel.fused_nerf_mlp_enc.launches
+            launches = tracing.counts["fused_nerf_mlp_enc.launches"]
             torch.cuda.set_sync_debug_mode("error")
             try:
                 fn(pose)
@@ -128,9 +127,9 @@ def test_compacted_frame_matches_plain(renderer, segments):
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
             b = fn.budget
-            assert mlp_kernel.fused_nerf_mlp_enc.launches - launches == (
-                b["coarse_rays"] + b["fine_rays"] * b["fine_segments"]) \
-                // b["chunk"]
+            made = tracing.counts["fused_nerf_mlp_enc.launches"] - launches
+            assert made == (b["coarse_rays"] + b["fine_rays"]
+                            * b["fine_segments"]) // b["chunk"]
     (k_img, k_stats), (p_img, p_stats) = images["kernel"], images["plain"]
     assert k_stats == p_stats and k_stats["active_rays"] > 0
     assert psnr_uint8(k_img / 255.0, p_img / 255.0) >= 45.0

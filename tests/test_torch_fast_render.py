@@ -28,8 +28,8 @@ from nerf_replication_tpu_torch import config
 from nerf_replication_tpu_torch.models import make_network
 from nerf_replication_tpu_torch.models.nerf.renderer import volume_renderer \
     as tv
-from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
 from nerf_replication_tpu_torch.train.trainers.nerf import NetworkWrapper
+from nerf_replication_tpu_torch.utils import tracing
 from nerf_replication_tpu_torch.utils.ckpt_utils import params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -401,12 +401,12 @@ def trained_arms():
                               str(fused))
             net = make_network(cfg)
             net.load_state_dict(params_from_jax(tree))
-            calls = mlp_train.fused_nerf_mlp_bwd_reference.calls
+            calls = tracing.counts["fused_nerf_mlp_bwd_reference.calls"]
             loss, _ = NetworkWrapper(net, cfg).loss_fn(
                 {k: torch.from_numpy(v) for k, v in batch.items()}, None,
                 train=True)
             loss.backward()
-            assert (mlp_train.fused_nerf_mlp_bwd_reference.calls
+            assert (tracing.counts["fused_nerf_mlp_bwd_reference.calls"]
                     > calls) == fused
             arms[("port", fused)] = (float(loss.detach()), {
                 k: p.grad.clone() for k, p in net.named_parameters()})
@@ -457,4 +457,4 @@ def test_masked_training_fused_arm_against_module_arm(trained_arms):
     assert _rel(grads, ref) < 5e-2
     assert _rel(trained_arms[("jax", True)][1],
                 trained_arms[("jax", False)][1]) < 5e-2
-    assert mlp_kernel.fused_nerf_mlp.launches == 0
+    assert tracing.counts["fused_nerf_mlp.launches"] == 0

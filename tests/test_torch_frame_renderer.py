@@ -31,7 +31,7 @@ from nerf_replication_tpu_torch.models.nerf.renderer import RenderSettings
 from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer as tr
 from nerf_replication_tpu_torch.ops import fused_ngp, mlp_kernel
 from nerf_replication_tpu_torch.parallel.mesh import Mesh
-from nerf_replication_tpu_torch.utils import synthetic_scene
+from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
 from nerf_replication_tpu_torch.utils.ckpt_utils import params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -320,7 +320,7 @@ def test_trained_network_frames_match_jax(trained_net, fine_capacity,
     focal = w / (2.0 * np.tan(synthetic_scene.CAMERA_ANGLE_X / 2.0))
     plain = (fused_ngp.fused_ngp_eval_reference if name == "ngp"
              else mlp_kernel.fused_nerf_mlp_enc_reference)
-    calls = plain.calls
+    calls = tracing.counts[f"{plain.__name__}.calls"]
     (ref, ref_stats), (out, stats) = render_both(
         jax_apply, port_apply, (occupancy[0].numpy(),) + occupancy[1:],
         (select[0].numpy(), select[1]), H=h, W=w, focal=focal,
@@ -330,7 +330,7 @@ def test_trained_network_frames_match_jax(trained_net, fine_capacity,
         fine_capacity=fine_capacity, probe_sub=1)
     assert stats == ref_stats
     assert 0 < stats["nontrivial_rays"] < stats["active_rays"] < h * w
-    assert plain.calls > calls
+    assert tracing.counts[f"{plain.__name__}.calls"] > calls
     if fine_capacity < 1.0:
         assert stats["fine_overflow"] > 0
     np.testing.assert_allclose(out[0], ref[0], atol=NET_RGB_ATOL[name],

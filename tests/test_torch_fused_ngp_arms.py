@@ -33,6 +33,7 @@ from nerf_replication_tpu_torch.models.nerf.network import make_network
 from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
 from nerf_replication_tpu_torch.ops import eval_encode, fused_ngp
 from nerf_replication_tpu_torch.run import load_model
+from nerf_replication_tpu_torch.utils import tracing
 from nerf_replication_tpu_torch.utils.ckpt_utils import params_from_jax
 
 ROOT = chip_smoke.ROOT
@@ -162,10 +163,10 @@ def test_plain_bf16_arm_matches_jax(monkeypatch):
     ops, meta = fused_ngp.extract_mlp_weights(
         port.fine.state_dict(), 6, 3, (1,), 1)
     packed = eval_encode.pack_eval_table(port.xyz_encoder.table.detach())
-    calls = fused_ngp.fused_ngp_eval_reference.calls
+    calls = tracing.counts["fused_ngp_eval_reference.calls"]
     out = fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh,
                                    mlp_bf16=True)
-    assert fused_ngp.fused_ngp_eval_reference.calls == calls + 1
+    assert tracing.counts["fused_ngp_eval_reference.calls"] == calls + 1
     assert _col_err(out, expect) <= BF16_COL_RTOL
     monkeypatch.setattr(fused_ngp, "_round_bias", lambda b: b)
     control = fused_ngp.fused_ngp_eval(layout, meta, packed, ops, x, sh,

@@ -35,6 +35,7 @@ from nerf_replication_tpu_torch.models.encoding.hashgrid import (
 )
 from nerf_replication_tpu_torch.ops import eval_encode
 from nerf_replication_tpu_torch.ops import hashgrid_kernel as hk
+from nerf_replication_tpu_torch.utils import tracing
 from nerf_replication_tpu_torch.utils.ckpt_utils import load_pretrain
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -160,11 +161,11 @@ def test_eval_encode_counts_plain_calls_on_cpu():
     port, _ = layouts(SMALL)
     cells = eval_encode.pack_cell_table(eval_encode.pack_eval_table(
         torch.zeros(port.n_rows, 256)))
-    calls = eval_encode.brick_encode_cells_reference.calls
-    launches = eval_encode.brick_encode_eval.launches
+    calls = tracing.counts["brick_encode_cells_reference.calls"]
+    launches = tracing.counts["brick_encode_eval.launches"]
     eval_encode.brick_encode_eval(port, cells, torch.rand(5, 3))
-    assert eval_encode.brick_encode_cells_reference.calls == calls + 1
-    assert eval_encode.brick_encode_eval.launches == launches
+    assert tracing.counts["brick_encode_cells_reference.calls"] == calls + 1
+    assert tracing.counts["brick_encode_eval.launches"] == launches
 
 
 def test_normalize_to_unit_matches_jax():
@@ -389,13 +390,11 @@ def test_hashgrid_encoder_trains_through_the_function():
     x = torch.from_numpy(points(50, 15, enc.layout))
     cot = torch.from_numpy(np.random.default_rng(16).normal(
         size=(x.shape[0], 6)).astype(np.float32))
-    before = (hk.brick_encode_reference.calls,
-              hk.brick_encode_bwd_reference.calls,
-              hk.brick_hash_encode.launches, hk.brick_hash_encode_bwd.launches)
+    keys = ("brick_encode_reference.calls", "brick_encode_bwd_reference.calls",
+            "brick_hash_encode.launches", "brick_hash_encode_bwd.launches")
+    before = tuple(tracing.counts[k] for k in keys)
     enc(x).backward(cot)
-    after = (hk.brick_encode_reference.calls,
-             hk.brick_encode_bwd_reference.calls,
-             hk.brick_hash_encode.launches, hk.brick_hash_encode_bwd.launches)
+    after = tuple(tracing.counts[k] for k in keys)
     assert after == (before[0] + 1, before[1] + 1, before[2], before[3])
     assert torch.equal(enc.table.grad,
                        hk.brick_encode_bwd_reference(enc.layout, x, cot))
@@ -442,6 +441,7 @@ def test_gather_probes_script_on_cpu():
         "probe_atomic_add", "probe_atomic_add"]
     assert all(r["ok"] and r["bound_by"] == "bytes" and r["bound_ms"] > 0
                for r in readings)
-    assert all(w.launches == 0 for w in probe.PROBES)
+    assert all(tracing.counts[f"{w.__name__}.launches"] == 0
+               for w in probe.PROBES)
     if not torch.cuda.is_available():
         assert probe.main() == 1

@@ -25,6 +25,7 @@ from nerf_replication_tpu.ops.pallas.mlp_train import pack_params_jnp
 from nerf_replication_tpu_torch.config import default_cfg, load_cfg_tree
 from nerf_replication_tpu_torch.models.nerf.network import NeRFMLP, make_network
 from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+from nerf_replication_tpu_torch.utils import tracing
 from nerf_replication_tpu_torch.utils.ckpt_utils import (
     load_pretrain,
     params_from_jax,
@@ -185,17 +186,17 @@ def test_input_grads_are_zero_by_contract(setup):
 
 def test_wrappers_take_the_plain_versions_on_cpu(setup):
     _, params, x, v, cot = setup
-    counts = (mlp_kernel.fused_nerf_mlp.launches,
-              mlp_train.fused_nerf_mlp_bwd.launches,
-              mlp_kernel.fused_nerf_mlp_reference.calls,
-              mlp_train.fused_nerf_mlp_bwd_reference.calls)
+    counts = (tracing.counts["fused_nerf_mlp.launches"],
+              tracing.counts["fused_nerf_mlp_bwd.launches"],
+              tracing.counts["fused_nerf_mlp_reference.calls"],
+              tracing.counts["fused_nerf_mlp_bwd_reference.calls"])
     raw = mlp_train.fused_nerf_mlp_diff(_port_mlp(params), *_features(x, v),
                                         IN, VIEW)
     (raw * torch.from_numpy(cot)).sum().backward()
-    assert (mlp_kernel.fused_nerf_mlp.launches,
-            mlp_train.fused_nerf_mlp_bwd.launches,
-            mlp_kernel.fused_nerf_mlp_reference.calls,
-            mlp_train.fused_nerf_mlp_bwd_reference.calls) == (
+    assert (tracing.counts["fused_nerf_mlp.launches"],
+            tracing.counts["fused_nerf_mlp_bwd.launches"],
+            tracing.counts["fused_nerf_mlp_reference.calls"],
+            tracing.counts["fused_nerf_mlp_bwd_reference.calls"]) == (
         counts[0], counts[1], counts[2] + 1, counts[3] + 1)
 
 

@@ -22,6 +22,7 @@ from nerf_replication_tpu.ops.pallas import mlp_kernel as jax_mlp
 from nerf_replication_tpu.utils.ckpt_utils import load_pretrain as jax_load
 from nerf_replication_tpu_torch.models.nerf.network import make_network
 from nerf_replication_tpu_torch.ops import mlp_kernel
+from nerf_replication_tpu_torch.utils import tracing
 from nerf_replication_tpu_torch.utils.ckpt_utils import (
     load_network,
     load_pretrain,
@@ -156,13 +157,13 @@ def test_wrapper_takes_the_plain_version_on_cpu(hard):
     apply_fn = mlp_kernel.make_fused_apply(net)
     assert apply_fn is not None
     pts, dirs = ray_points(24, seed=3)
-    launches = mlp_kernel.fused_nerf_mlp_enc.launches
-    calls = mlp_kernel.fused_nerf_mlp_enc_reference.calls
+    launches = tracing.counts["fused_nerf_mlp_enc.launches"]
+    calls = tracing.counts["fused_nerf_mlp_enc_reference.calls"]
     out = apply_fn(torch.from_numpy(pts).view(4, 6, 3),
                    torch.from_numpy(dirs).view(4, 6, 3), "fine")
     assert out.shape == (4, 6, 4) and torch.isfinite(out).all()
-    assert mlp_kernel.fused_nerf_mlp_enc.launches == launches
-    assert mlp_kernel.fused_nerf_mlp_enc_reference.calls == calls + 1
+    assert tracing.counts["fused_nerf_mlp_enc.launches"] == launches
+    assert tracing.counts["fused_nerf_mlp_enc_reference.calls"] == calls + 1
 
 
 def _plain_with_f64_sums(packed, pts, dirs):

@@ -28,13 +28,12 @@ import chip_smoke
 from nerf_replication_tpu_torch import run
 from nerf_replication_tpu_torch.config import make_cfg, parse_args
 from nerf_replication_tpu_torch.models import make_network
-from nerf_replication_tpu_torch.models.nerf.network import Network, NeRFMLP
 from nerf_replication_tpu_torch.models.nerf.renderer import (
     make_renderer,
     ngp_renderer,
 )
 from nerf_replication_tpu_torch.ops import eval_encode, fused_ngp
-from nerf_replication_tpu_torch.utils import synthetic_scene
+from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
 from nerf_replication_tpu_torch.utils.ckpt_utils import (
     load_pretrain,
     params_from_jax,
@@ -91,11 +90,11 @@ def test_small_ngp_render_matches_jax(monkeypatch):
     net = make_network(cfg)
     net.load_state_dict(params_from_jax(
         jax.tree.map(np.asarray, jax.device_get(params))))
-    calls = fused_ngp.fused_ngp_eval_reference.calls
-    launches = fused_ngp.fused_ngp_eval.launches
+    calls = tracing.counts["fused_ngp_eval_reference.calls"]
+    launches = tracing.counts["fused_ngp_eval.launches"]
     out = run.build_renderer(cfg, net.eval()).render_rays_batch(ro, rd)
-    assert fused_ngp.fused_ngp_eval_reference.calls == calls + 2
-    assert fused_ngp.fused_ngp_eval.launches == launches
+    assert tracing.counts["fused_ngp_eval_reference.calls"] == calls + 2
+    assert tracing.counts["fused_ngp_eval.launches"] == launches
     for key, atol in (("rgb", 1e-4), ("acc", 1e-4), ("depth", 1e-3),
                       ("rgb_coarse", 1e-4)):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]),
@@ -115,6 +114,13 @@ def b9_net():
         os.chdir(cwd)
 
 
+# the fused kernel's plain version, the eval encode's, the MLP's, the
+# network's
+ROUTE_COUNTS = ("fused_ngp_eval_reference.calls",
+                "brick_encode_cells_reference.calls", "NeRFMLP.calls",
+                "Network.calls")
+
+
 def test_three_routes_agree_on_b9(b9_net):
     """The trained b9 network, 16 rays of hard view 0: the fused route,
     the unfused route (eval encode + nn.Module MLP) and the plain
@@ -128,20 +134,15 @@ def test_three_routes_agree_on_b9(b9_net):
     out = {}
     counts = {}
     for route in ("fused", "unfused", "plain"):
-        before = (fused_ngp.fused_ngp_eval_reference.calls,
-                  eval_encode.brick_encode_cells_reference.calls,
-                  NeRFMLP.calls, Network.calls)
+        before = tuple(tracing.counts[k] for k in ROUTE_COUNTS)
         if route == "plain":
             renderer.use_apply(net)
         else:
             renderer.use_apply(ngp_renderer.make_ngp_eval_apply(
                 net, fused=route == "fused"))
         out[route] = renderer.render_rays_batch(ro, rd)
-        counts[route] = tuple(
-            a - b for a, b in zip(
-                (fused_ngp.fused_ngp_eval_reference.calls,
-                 eval_encode.brick_encode_cells_reference.calls,
-                 NeRFMLP.calls, Network.calls), before))
+        counts[route] = tuple(tracing.counts[k] - b
+                              for k, b in zip(ROUTE_COUNTS, before))
     assert counts == {"fused": (2, 0, 0, 0), "unfused": (0, 2, 2, 0),
                       "plain": (0, 0, 2, 2)}
     assert float(out["fused"]["acc"].min()) > 0.5   # the rays hit
@@ -257,9 +258,9 @@ def test_run_evaluate_ngp_on_cpu(monkeypatch):
     (PSNR above 20 dB at this size)."""
     cfg = port_cfg(monkeypatch, *B9)
     views = synthetic_scene.test_views("hard", 16, 16, [0])
-    calls = fused_ngp.fused_ngp_eval_reference.calls
+    calls = tracing.counts["fused_ngp_eval_reference.calls"]
     res = run.run_evaluate(cfg, loader=views)
-    assert fused_ngp.fused_ngp_eval_reference.calls == calls + 2
+    assert tracing.counts["fused_ngp_eval_reference.calls"] == calls + 2
     assert res["rgb"][0].shape == (256, 3)
     assert np.isfinite(res["rgb"][0]).all()
     assert res["psnr"] > 20.0 and 0.5 < res["ssim"] <= 1.0

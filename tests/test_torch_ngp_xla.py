@@ -37,7 +37,6 @@ from nerf_replication_tpu_torch import run
 from nerf_replication_tpu_torch.config import make_cfg, parse_args
 from nerf_replication_tpu_torch.models import make_network
 from nerf_replication_tpu_torch.models.encoding import hashgrid
-from nerf_replication_tpu_torch.models.nerf.network import Network
 from nerf_replication_tpu_torch.models.nerf.renderer import ngp_renderer
 from nerf_replication_tpu_torch.ops import (
     eval_encode,
@@ -47,7 +46,7 @@ from nerf_replication_tpu_torch.ops import (
     mlp_train,
 )
 from nerf_replication_tpu_torch.train.trainers.nerf import NetworkWrapper
-from nerf_replication_tpu_torch.utils import synthetic_scene
+from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
 from nerf_replication_tpu_torch.utils.ckpt_utils import (
     params_from_jax,
     params_to_jax,
@@ -83,7 +82,8 @@ def _counts():
              mlp_train.fused_nerf_mlp_bwd_reference,
              eval_encode.brick_encode_eval_reference,
              fused_ngp.fused_ngp_eval_reference]
-    return ([f.launches for f in fns], [f.calls for f in plain])
+    return ([tracing.counts[f"{f.__name__}.launches"] for f in fns],
+            [tracing.counts[f"{f.__name__}.calls"] for f in plain])
 
 
 @pytest.fixture(scope="module")
@@ -137,10 +137,10 @@ def test_raw_matches_jax_network(nets, model):
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     expect = jnet.apply(params, jnp.asarray(pts), jnp.asarray(dirs),
                         model=model)
-    calls = hashgrid.hash_encode.calls
+    calls = tracing.counts["hash_encode.calls"]
     with torch.no_grad():
         out = net(torch.from_numpy(pts), torch.from_numpy(dirs), model=model)
-    assert hashgrid.hash_encode.calls == calls + 1
+    assert tracing.counts["hash_encode.calls"] == calls + 1
     np.testing.assert_allclose(out.numpy(), np.asarray(expect), atol=1e-5,
                                rtol=0)
 
@@ -205,10 +205,10 @@ def test_brick_network_keeps_its_kernels(monkeypatch):
     assert ngp_renderer.is_brick_ngp(net) and not ngp_renderer.is_xla_ngp(net)
     renderer = run.build_renderer(cfg, net)
     assert renderer.apply_fn is not net
-    calls = fused_ngp.fused_ngp_eval_reference.calls
+    calls = tracing.counts["fused_ngp_eval_reference.calls"]
     renderer.render_rays_batch(*[_rays(4, 4)[k] for k in ("rays_o",
                                                           "rays_d")])
-    assert fused_ngp.fused_ngp_eval_reference.calls == calls + 2
+    assert tracing.counts["fused_ngp_eval_reference.calls"] == calls + 2
     freq = make_cfg(parse_args(["--cfg_file", "configs/nerf/hard.yaml",
                                 "device", "cpu", "network.nerf.W", "64"]))
     with pytest.raises(ValueError, match="use_pallas_mlp is on"):
@@ -246,9 +246,9 @@ def test_run_evaluate_xla_on_cpu(nets, tmp_path, monkeypatch):
     _write_pretrain(tmp_path, net)
     cfg = port_cfg("pretrain_path", str(tmp_path))
     views = synthetic_scene.test_views("hard", 16, 16, [0])
-    before, calls = _counts(), Network.calls
+    before, calls = _counts(), tracing.counts["Network.calls"]
     res = run.run_evaluate(cfg, loader=views)
-    assert _counts() == before and Network.calls == calls + 2
+    assert _counts() == before and tracing.counts["Network.calls"] == calls + 2
     assert res["rgb"][0].shape == (256, 3)
     assert np.isfinite(res["rgb"][0]).all() and np.isfinite(res["psnr"])
 

@@ -22,14 +22,12 @@ from nerf_replication_tpu.models.nerf.renderer.volume_renderer import (
 from nerf_replication_tpu.utils.ckpt_utils import load_pretrain as jax_load
 from nerf_replication_tpu_torch.config import CN, as_bool, make_cfg, parse_args
 from nerf_replication_tpu_torch.models import make_network
-from nerf_replication_tpu_torch.models.nerf.network import Network
 from nerf_replication_tpu_torch.models.nerf.renderer import (
     RenderSettings,
     make_renderer,
 )
-from nerf_replication_tpu_torch.ops import mlp_kernel
 from nerf_replication_tpu_torch.run import build_renderer, load_model
-from nerf_replication_tpu_torch.utils import synthetic_scene
+from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGV = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard.yaml",
@@ -76,9 +74,9 @@ def test_slice_matches_jax_renderer(port_cfg, monkeypatch):
 
     renderer = make_renderer(port_cfg, load_model(port_cfg, "cpu"))
     assert renderer.enable_fused_mlp()
-    calls = mlp_kernel.fused_nerf_mlp_enc_reference.calls
+    calls = tracing.counts["fused_nerf_mlp_enc_reference.calls"]
     out = renderer.render_rays_batch(ro, rd)
-    assert mlp_kernel.fused_nerf_mlp_enc_reference.calls == calls + 2
+    assert tracing.counts["fused_nerf_mlp_enc_reference.calls"] == calls + 2
     assert np.asarray(ref["acc"]).min() > 0.5  # the rays hit the object
     np.testing.assert_allclose(out["rgb"].numpy(), ref["rgb"], atol=2e-3,
                                rtol=0)
@@ -143,7 +141,8 @@ def test_build_renderer_runs_the_plain_mlp_only_when_asked(port_cfg,
                                                            use_pallas_mlp):
     """With network.use_pallas_mlp on, a network the kernel does not cover
     raises, naming what differs, rather than running the plain MLP. With
-    it off the plain nn.Module MLP runs, and Network.calls counts it."""
+    it off the plain nn.Module MLP runs, and tracing.counts["Network.calls"]
+    counts it."""
     cfg = port_cfg.clone()
     cfg.network.nerf.W = 128
     cfg.network.use_pallas_mlp = use_pallas_mlp
@@ -153,12 +152,12 @@ def test_build_renderer_runs_the_plain_mlp_only_when_asked(port_cfg,
         with pytest.raises(ValueError, match="width 128"):
             build_renderer(cfg, net)
         return
-    calls = Network.calls
-    ref_calls = mlp_kernel.fused_nerf_mlp_enc_reference.calls
+    calls = tracing.counts["Network.calls"]
+    ref_calls = tracing.counts["fused_nerf_mlp_enc_reference.calls"]
     out = build_renderer(cfg, net).render_rays_batch(*object_rays())
     assert bool(torch.isfinite(out["rgb"]).all())
-    assert Network.calls == calls + 2
-    assert mlp_kernel.fused_nerf_mlp_enc_reference.calls == ref_calls
+    assert tracing.counts["Network.calls"] == calls + 2
+    assert tracing.counts["fused_nerf_mlp_enc_reference.calls"] == ref_calls
 
 
 def test_padded_last_chunk_matches_one_chunk(port_cfg):

@@ -11,8 +11,7 @@ import torch
 
 from nerf_replication_tpu_torch import run
 from nerf_replication_tpu_torch.config import make_cfg, parse_args
-from nerf_replication_tpu_torch.ops import mlp_kernel
-from nerf_replication_tpu_torch.utils import synthetic_scene
+from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_MODULES = [
@@ -83,11 +82,11 @@ def test_run_evaluate_on_cpu(monkeypatch):
         "pretrain_path", "data/pretrain/hard", "device", "cpu",
         "save_result", "False"]))
     views = synthetic_scene.test_views("hard", 16, 16, [0])
-    launches = mlp_kernel.fused_nerf_mlp_enc.launches
-    calls = mlp_kernel.fused_nerf_mlp_enc_reference.calls
+    launches = tracing.counts["fused_nerf_mlp_enc.launches"]
+    calls = tracing.counts["fused_nerf_mlp_enc_reference.calls"]
     res = run.run_evaluate(cfg, loader=views)
-    assert mlp_kernel.fused_nerf_mlp_enc.launches == launches
-    assert mlp_kernel.fused_nerf_mlp_enc_reference.calls == calls + 2
+    assert tracing.counts["fused_nerf_mlp_enc.launches"] == launches
+    assert tracing.counts["fused_nerf_mlp_enc_reference.calls"] == calls + 2
     assert res["rgb"][0].shape == (256, 3) and len(res["net_time"]) == 1
     assert res["psnr"] > 28.0 and 0.9 < res["ssim"] <= 1.0
 
