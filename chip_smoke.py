@@ -32,7 +32,10 @@ Phases (any failure exits non-zero):
    leaf against the plain backward in relative norm, with exactly zero
    gradients on the padding. Two faulty plain backwards (deltas kept in
    f32; the density head's path into the trunk dropped) must fail that
-   check. CUDA-event times of kernel and plain at both shapes.
+   check. CUDA-event times of kernel and plain at both shapes; then the
+   backward alone at a 4096-ray step's 262144 and 786432 points (random
+   rays and cotangent, held to the same check against the plain backward),
+   beside its bound, its workspace's floor and its bulk copies' bytes.
 5. training: configs/nerf/hard.yaml at full width from a fresh init
    (seed 0) on 20 of the hard scene's 100 train views at 800x800, 2000
    steps (four 500-step epochs, the first under precrop) through the fused
@@ -310,6 +313,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # GRAD_CONTROLS are faulty plain backwards that the check must reject.
 DELTA_DIFF = 5e-3
 WGRAD_REL = 1e-5
+WGRAD_CHECK_POINTS = 65536   # points per float64 partial of that check
 GRAD_REL = 2e-2
 TRAIN_VIEWS = list(range(0, 100, 5))  # 20 of the 100 train views
 TRAIN_STEPS = 2000                    # four epochs of ep_iter steps
@@ -709,9 +713,10 @@ def backward_agreement(out, ref, planes, ref_planes, packed, in_dim: int,
     """The backward check of ``out`` (weight-pack grad, bias-pack grad) and
     its delta ``planes`` against the plain ``ref`` and ``ref_planes``; with
     the features ``x``, ``v`` (a kernel's output) also the weight-gradient
-    products against float64 sums of ``planes``. ``ok`` when every part
-    holds, at most ``delta_diff`` of the deltas differing; the worst plane
-    or leaf of each statistic."""
+    products against float64 sums of ``planes`` (summed over slices of
+    WGRAD_CHECK_POINTS points, so that a training step's points fit). ``ok``
+    when every part holds, at most ``delta_diff`` of the deltas differing;
+    the worst plane or leaf of each statistic."""
     from nerf_replication_tpu_torch.ops import mlp_train
 
     pad_rows = {"w0": in_dim, f"w{packed.skip + 1}x": in_dim, "wvd": view_dim}
@@ -731,9 +736,13 @@ def backward_agreement(out, ref, planes, ref_planes, packed, in_dim: int,
         diff[name] = float((d.float() != ref_d[name].float()).float().mean())
     wgrad = {}
     if x is not None:
-        f64 = {k: ([t.double() for t in p] if isinstance(p, list)
-                   else p.double()) for k, p in planes.items()}
-        sums = mlp_train.weight_grads(f64, x.double(), v.double(), packed)
+        sums = 0
+        for p0 in range(0, x.shape[0], WGRAD_CHECK_POINTS):
+            at = slice(p0, p0 + WGRAD_CHECK_POINTS)
+            f64 = {k: ([t[at].double() for t in p] if isinstance(p, list)
+                       else p[at].double()) for k, p in planes.items()}
+            sums = sums + mlp_train.weight_grads(f64, x[at].double(),
+                                                 v[at].double(), packed)
         zeros = torch.zeros_like(out[1])
         for (name, k), (_, p) in zip(_leaves(out[0], zeros, packed),
                                      _leaves(sums.float(), zeros, packed)):
@@ -849,9 +858,56 @@ def real_batch(cfg, net, arrays) -> dict:
     return out
 
 
-def phase_train_kernels(cfg, arrays) -> dict:
+# A 4096-ray training step's points through #5: 64 coarse and 192 fine
+# samples a ray.
+STEP_POINTS = (262_144, 786_432)
+
+
+def backward_at_step_shape(net, mlp, packed, n: int) -> dict:
+    """#5 alone at ``n`` points along random rays with a random cotangent,
+    checked against the plain backward on the same inputs as phase 4
+    checks a real batch (``check``: :func:`backward_agreement` with its
+    planes, padding and float64 workspace sums); its CUDA-event time, its
+    bound by operations, its design's floor (the tile-order workspace
+    written once and read once at the card's memory rate) and the bytes
+    one launch's bulk copies move by the ``fused_nerf_mlp_bwd.bulk_bytes``
+    counter (more: D planes of 256-wide gradients read twice, mostly from
+    L2)."""
+    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+    from nerf_replication_tpu_torch.utils import tracing
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x, v = mlp_kernel.encode_features(*ray_points(n, gen),
+                                      net.xyz_encoder.n_freqs,
+                                      net.dir_encoder.n_freqs)
+    g = torch.randn(n, 4, device="cuda", generator=gen) * 1e-4
+    enc = net.xyz_encoder.output_dim, net.dir_encoder.output_dim
+    keep_k, keep_p = {}, {}
+    before = tracing.counts["fused_nerf_mlp_bwd.bulk_bytes"]
+    grad_k = mlp_train.fused_nerf_mlp_bwd(packed, x, v, g, keep_k)
+    moved = tracing.counts["fused_nerf_mlp_bwd.bulk_bytes"] - before
+    grad_p = mlp_train.fused_nerf_mlp_bwd_reference(packed, x, v, g, keep_p)
+    torch.cuda.synchronize()
+    check = backward_agreement(grad_k, grad_p, keep_k["planes"],
+                               keep_p["planes"], packed, *enc, x=x, v=v)
+    del keep_k, keep_p, grad_k, grad_p
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(packed, x, v, g), 20)
+    flops = n * (3 * mlp_flops(mlp) - input_side_flops(mlp, *enc))
+    n_pad = -(-n // mlp_train.PAD) * mlp_train.PAD
+    workspace = 2 * n_pad * sum(map(sum, mlp_train.workspace_columns(
+        packed.depth)))
+    return dict(n=n, ms=ms, **bound(nbytes(x, v, g, packed.w, packed.b),
+                                    flops, "bf16"),
+                floor_ms=2 * workspace / PEAK_BYTES_PER_S * 1e3,
+                bulk_bytes=moved, check=check)
+
+
+def phase_train_kernels(cfg, arrays, step_shapes: bool = False) -> dict:
     """Phase 4: the features-in forward and the backward against their
-    plain versions at the training shapes; returns errors and times."""
+    plain versions at the training shapes; returns errors and times. With
+    ``step_shapes``, also #5 alone at a training step's points
+    (``bwd_step``, :func:`backward_at_step_shape`)."""
     from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
     from nerf_replication_tpu_torch.run import load_model
 
@@ -923,6 +979,24 @@ def phase_train_kernels(cfg, arrays) -> dict:
             if c["ok"]:
                 fail(f"the backward check accepts the plain backward with "
                      f"{label}, so it cannot see such a fault")
+    if step_shapes:
+        packed = mlp_kernel.pack_nerf_params(net.fine.state_dict(), *enc,
+                                             net.fine.depth,
+                                             net.fine.skips[0])
+        res["bwd_step"] = []
+        for n in STEP_POINTS:
+            r = backward_at_step_shape(net, net.fine, packed, n)
+            res["bwd_step"].append(r)
+            print(f"backward alone at a step's N={n} (fine weights): "
+                  f"{r['ms']:.3f} ms | bound {r['bound_ms']:.3f} ms by "
+                  f"{r['bound_by']} ({r['bound_ms'] / r['ms']:.1%}), the "
+                  f"workspace's floor {r['floor_ms']:.3f} ms "
+                  f"({r['floor_ms'] / r['ms']:.1%}); bulk copies "
+                  f"{r['bulk_bytes'] / 1e9:.3f} GB | vs plain: "
+                  f"{describe_grad(r['check'])}")
+            if not r["check"]["ok"]:
+                fail(f"backward disagrees with plain at a step's N={n}")
+            torch.cuda.empty_cache()
     del net
     torch.cuda.empty_cache()
     return res
@@ -3715,7 +3789,7 @@ def main(argv=None):
           f"rendered on the card in {time.perf_counter() - t0:.1f} s")
     train_cfg = make_cfg(parse_args(TRAIN_ARGV + [
         "pretrain_path", "data/pretrain/hard"]))
-    train_checks = phase_train_kernels(train_cfg, arrays)
+    train_checks = phase_train_kernels(train_cfg, arrays, step_shapes=True)
 
     # -- 5. training ------------------------------------------------------
     counts = phase_train(arrays, views, opts.steps, opts.profile)
@@ -3812,7 +3886,8 @@ def main(argv=None):
         {**entry("fused_nerf_mlp_bwd", "fused_nerf_mlp_bwd.cu",
                  "mlp_train.py:225", counts["bwd"], train_checks["bwd"],
                  more=compact["train"]["bwd"]),
-         "host_loader_launches": host_counts["bwd"]},
+         "host_loader_launches": host_counts["bwd"],
+         "step_shapes": train_checks["bwd_step"]},
         entry("brick_encode_eval", "brick_encode_eval.cu",
               "eval_encode.py:202 and :245", ngp["launches"]["encode"],
               ngp["encode"]),

@@ -23,25 +23,41 @@
 //    added as exact bf16 x bf16 products; the bias gradients are column
 //    sums of the f32 deltas, summed in a fixed order (row pairs, a shuffle
 //    tree, the four warps in order). Every bf16 activation and delta that a
-//    weight gradient needs is written once to a workspace in device memory
-//    (about 10 KB a point), while the next product's last wgmmas run.
-//    The ring here has three stages (the mask bits take the fourth's room),
-//    less than a whole product, so the warpgroups do not take turns.
+//    weight gradient needs goes to a workspace in device memory (about 10 KB
+//    a point) in the tile's own byte order (below), so each plane of a tile
+//    leaves as one bulk copy (cp.async.bulk, shared -> global) that one
+//    thread of the warpgroup issues while the next product's last wgmmas
+//    run; it waits for the copy to have read the tile before the tile is
+//    written again. The encoded x and v go out the same way, in the same order. The
+//    ring has three stages (the mask bits take the fourth's room), less
+//    than a whole product, so the warpgroups do not take turns.
 // 2. weight gradient: dW_l = A_l^T . D_l with the points as the product's K.
 //    A block owns 128 rows x up to 256 columns of one gradient for one
-//    chunk of points; both planes are row-major (points, features), so both
-//    are MN-major wgmma operands, staged 64 points at a time through a
-//    four-stage cp.async ring of 16-byte pieces into core-matrix order. A
-//    256 x 256 gradient reads its A plane once and its D plane twice. f32
-//    partials a chunk.
+//    chunk of points. A 64-point stage of either operand is one contiguous
+//    block of the workspace, already in the MN-major core-matrix order the
+//    wgmmas read, so a producer warp's one thread loads each with a bulk
+//    copy (global -> shared) into a four-stage ring that completes on
+//    mbarriers; the consumer warpgroups wait, multiply and hand the stage
+//    back. A 256 x 256 gradient reads its A plane once and its D plane
+//    twice. f32 partials a chunk.
 // 3. reduce: the partials summed in a fixed order (two passes), so the
 //    result does not depend on how the blocks were scheduled.
 //
+// Workspace order ("tile order"): a plane of C columns over n_pad points is
+// n_pad / 64 groups of 64 points, each the image of a warpgroup's tile,
+// core matrices [column / 8][point / 8][point % 8][column % 8]: element
+// (p, c) at (p / 64) 64 C + (c / 8) 512 + (p % 64) 8 + c % 8. A group, and
+// every run of whole 8-column blocks of it, is one contiguous block.
+//
 // What bounds it: the recompute plus the delta chain is twice the forward's
-// tensor-core work; the weight-gradient products another forward's worth.
-// The two-stage split costs one write and about 1.5 reads of the ~10 KB a
-// point workspace: at 196,608 points about 5 GB, 1.5 ms of the card's
-// memory rate, above the 0.7 ms the operations would take at peak.
+// tensor-core work, the weight-gradient products another forward's worth,
+// about 3.5 ms at the bf16 peak for a training step's 1,048,576 points. The
+// two-kernel split writes the ~10 KB a point workspace once and reads it
+// about 1.6 times as issued (D planes of 256-wide gradients twice, the
+// second mostly from L2): at least 20.9 GB a step at depth 8, 6.25 ms of
+// the card's 3.35 TB/s, above the operations. The bulk copies take that
+// traffic off the threads that issue the wgmmas, so stores and loads can
+// run under the products.
 //
 // The two paths from the heads into the trunk: d_h7 = d_feat . W_feat^T +
 // d_sigma . w_alpha^T. The feature part runs on the tensor cores, the
@@ -66,6 +82,7 @@ struct BwdSmem {
   alignas(128) unsigned char t[2][kHBytes];  // activations, then deltas
   // encoded points; after the recompute, each warp's f32 column sums
   alignas(128) unsigned char x[2][kXBytes];
+  // encoded directions; after the recompute, d_rgb's tile and d_af's tail
   alignas(128) unsigned char v[2][kVBytes];
   float g[kTileM * 4];                       // cotangent tile
   float bias[2][2 * kWidth];                  // the running layer's biases
@@ -73,6 +90,7 @@ struct BwdSmem {
   // and (4 depth + 2) * kConsumers mask words
 };
 static_assert(4 * kWidth * sizeof(float) <= kXBytes, "column sums fit in x");
+static_assert(4 * kALbo <= kVBytes, "d_rgb and d_af's tail fit in v");
 
 __host__ __device__ inline size_t bwd_smem_bytes(int depth) {
   return sizeof(BwdSmem) + static_cast<size_t>(4 * depth + 2) * kConsumers * 4;
@@ -149,6 +167,32 @@ __device__ __forceinline__ void produce_backward(Ring<kStages>& ring,
     produce(ring, p, wt + w_trunk_offset(i, skip), kWidth, kWidth, kSlabK);
 }
 
+// Element offset of the 64-point group that starts at row0 (a multiple of
+// 64) in a tile-order plane of `cols` columns.
+__device__ __forceinline__ size_t group_at(int row0, int cols) {
+  return static_cast<size_t>(row0) * cols;
+}
+
+// The workspace's traffic, moved by one thread of the warpgroup (`leader`):
+// out() copies a tile image (or a run of its 8-column blocks) to device
+// memory in a bulk group of its own, after the tile_sync() that made the
+// tile's writes visible to the async proxy; read_back() waits until every
+// such copy has read its source, before the tile is written again (a
+// barrier then tells the other threads).
+struct TileOut {
+  bool leader;
+  __device__ __forceinline__ void out(bf16* dst, const unsigned char* src,
+                                      int bytes) const {
+    if (leader) {
+      bulk_store(dst, src, bytes);
+      bulk_commit();
+    }
+  }
+  __device__ __forceinline__ void read_back() const {
+    if (leader) bulk_wait_read<0>();
+  }
+};
+
 // A consumer warpgroup's share of the delta kernel: its 64 rows of every
 // tile the block takes.
 __device__ __forceinline__ void delta_tiles(
@@ -161,17 +205,24 @@ __device__ __forceinline__ void delta_tiles(
   const int wg = tid / kWgThreads, t = tid % kWgThreads;
   const int warp = t >> 5, lane = t & 31, bar_id = 1 + wg;
   const size_t plane = static_cast<size_t>(n_pad) * kWidth;
-  bf16* d_af = dlt + depth * plane;                          // (n_pad, 272)
+  bf16* g_act = act + (depth + 1) * plane;                    // 128 columns
+  bf16* x_out = g_act + static_cast<size_t>(n_pad) * kHalf;   // 64
+  bf16* v_out = x_out + static_cast<size_t>(n_pad) * kXDim;   // 32
+  bf16* d_af = dlt + depth * plane;                           // 272
   bf16* d_gpre = d_af + static_cast<size_t>(n_pad) * (kWidth + kAlphaPad);
-  bf16* d_rgb = d_gpre + static_cast<size_t>(n_pad) * kHalf; // (n_pad, 16)
+  bf16* d_rgb = d_gpre + static_cast<size_t>(n_pad) * kHalf;  // 16
   const bf16* wa = s.wa;
   unsigned char* tile_h = s.t[wg];
   const uint32_t tile_addr = smem_addr(tile_h);
+  // after the recompute: d_rgb's tile (2 column blocks), then d_af's last
+  // 16 columns [d_sigma | 0] (2 more), staged where v was
+  unsigned char* tail = s.v[wg];
   uint32_t* masks = mask_words + tid;
   float* colsum_all = reinterpret_cast<float*>(s.x[wg]);
   float* colsum = colsum_all + warp * kWidth;
   float* gs = s.g + wg * kWgRows * 4;
   const int r_lo = warp * 16 + (lane >> 2);   // this thread's rows: r_lo, + 8
+  const TileOut ws{t == 0};
   turn_start(pipe, wg);
 
   for (int k = 0; k < rounds; ++k) {
@@ -183,7 +234,10 @@ __device__ __forceinline__ void delta_tiles(
     load_rows(v, n_pad, row0, kVDim, s.v[wg], t);
     for (int e = t; e < kWgRows * 4; e += kWgThreads)
       gs[e] = row0 + (e >> 2) < n ? g[static_cast<size_t>(row0) * 4 + e] : 0.0f;
+    ws.read_back();   // the last tile's d_0, before the recompute's layer 0
     tile_sync(bar_id);
+    ws.out(x_out + group_at(row0, kXDim), s.x[wg], kXBytes);
+    ws.out(v_out + group_at(row0, kVDim), s.v[wg], kVBytes);
 
     // recompute, keeping every activation in the workspace and its ReLU
     // mask on chip
@@ -191,25 +245,29 @@ __device__ __forceinline__ void delta_tiles(
     forward_tile<kStages, false, true>(
         s.ring, pipe, tile_h, s.x[wg], s.v[wg], b, s.bias[wg], wa, depth,
         skip, masks, unused, warp, lane, bar_id, [&](int l) {
-          if (l <= depth)
-            store_rows(tile_h, kWidth, act + l * plane, kWidth, row0, t);
-          else
-            store_rows(tile_h, kHalf, act + (depth + 1) * plane, kHalf, row0,
-                       t);
+          if (l <= depth) {
+            ws.out(act + l * plane + group_at(row0, kWidth), tile_h, kHBytes);
+            ws.read_back();   // layer l + 1's epilogue overwrites the tile
+          } else {
+            ws.out(g_act + group_at(row0, kHalf), tile_h, kWgRows * kHalf * 2);
+          }
         });
-    // every warp has written the view activations out: the tile is free
-    named_barrier(bar_id, kWgThreads);
 
-    // d_rgb: the first 3 cotangent columns, bf16, padded to 16
+    // d_rgb: the first 3 cotangent columns, bf16, padded to 16; d_af's
+    // tail: d_sigma, padded to 16
     {
       const int p = t >> 1, c8 = t & 1;
-      __align__(16) bf16 vals[8];
+      __align__(16) bf16 rgb[8], dsig[8];
 #pragma unroll
-      for (int c = 0; c < 8; ++c)
-        vals[c] = __float2bfloat16_rn(c8 == 0 && c < 3 ? gs[p * 4 + c] : 0.0f);
-      *reinterpret_cast<uint4*>(tile_h + c8 * kALbo + (p >> 3) * kCore +
-                                (p & 7) * 16) =
-          *reinterpret_cast<const uint4*>(vals);
+      for (int c = 0; c < 8; ++c) {
+        rgb[c] = __float2bfloat16_rn(c8 == 0 && c < 3 ? gs[p * 4 + c] : 0.0f);
+        dsig[c] =
+            __float2bfloat16_rn(c8 == 0 && c == 0 ? gs[p * 4 + 3] : 0.0f);
+      }
+      unsigned char* at = tail + c8 * kALbo + (p >> 3) * kCore + (p & 7) * 16;
+      *reinterpret_cast<uint4*>(at) = *reinterpret_cast<const uint4*>(rgb);
+      *reinterpret_cast<uint4*>(at + 2 * kALbo) =
+          *reinterpret_cast<const uint4*>(dsig);
     }
     if (t < kRgbCols + kAlphaPad) {  // b_rgb and b_alpha: f32 column sums
       const int c = t < kRgbCols ? t : 3;
@@ -222,15 +280,17 @@ __device__ __forceinline__ void delta_tiles(
     tile_sync(bar_id);
 
     // Each plane of deltas goes out to the workspace while the next
-    // product's last wgmmas read the same tile.
+    // product's last wgmmas read the same tile (issued any earlier, the
+    // copy's reads of the tile slow the product's: measured).
     // view layer: d_gpre = relu'(g_act) * (d_rgb . W_rgb^T)
     bool fresh = true;
     {
       float accv[kHalf / 2] = {};
-      consume<kHalf>(accv, s.ring, pipe, tile_addr, kRgbCols, kRgbCols, fresh,
-                     lane);
-      store_rows(tile_h, kRgbCols, d_rgb, kRgbCols, row0, t);
+      consume<kHalf>(accv, s.ring, pipe, smem_addr(tail), kRgbCols, kRgbCols,
+                     fresh, lane);
+      ws.out(d_rgb + group_at(row0, kRgbCols), tail, kWgRows * kRgbCols * 2);
       drain(accv, s.ring, pipe, lane);
+      ws.read_back();   // g_act's copy has read the tile
       named_barrier(bar_id, kWgThreads);
       delta_epilogue<kHalf, true, false>(accv, masks + 4 * depth * kConsumers,
                                          unused, nullptr, tile_h, colsum, warp,
@@ -243,8 +303,9 @@ __device__ __forceinline__ void delta_tiles(
     // feature head: d_feat = d_gpre . Wv_f^T (no ReLU)
     fresh = true;
     consume<kWidth>(acc, s.ring, pipe, tile_addr, kHalf, kSlabK, fresh, lane);
-    store_rows(tile_h, kHalf, d_gpre, kHalf, row0, t);
+    ws.out(d_gpre + group_at(row0, kHalf), tile_h, kWgRows * kHalf * 2);
     drain(acc, s.ring, pipe, lane);
+    ws.read_back();
     named_barrier(bar_id, kWgThreads);
     delta_epilogue<kWidth, false, false>(acc, nullptr, unused, nullptr, tile_h,
                                          colsum, warp, lane);
@@ -263,22 +324,17 @@ __device__ __forceinline__ void delta_tiles(
       consume<kWidth>(acc, s.ring, pipe, tile_addr, kWidth, kSlabK, fresh,
                       lane);
       if (i == depth) {
-        // d_af = [d_feat | d_sigma | 0], all bf16
-        store_rows(tile_h, kWidth, d_af, kWidth + kAlphaPad, row0, t);
-        const int p = t >> 1, c8 = t & 1;
-        __align__(16) bf16 vals[8];
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          vals[c] =
-              __float2bfloat16_rn(c8 == 0 && c == 0 ? gs[p * 4 + 3] : 0.0f);
-        *reinterpret_cast<uint4*>(d_af + static_cast<size_t>(row0 + p) *
-                                             (kWidth + kAlphaPad) +
-                                  kWidth + c8 * 8) =
-            *reinterpret_cast<const uint4*>(vals);
+        // d_af = [d_feat | d_sigma | 0]: the tile's 32 column blocks, then
+        // the staged 2
+        bf16* af = d_af + group_at(row0, kWidth + kAlphaPad);
+        ws.out(af, tile_h, kHBytes);
+        ws.out(af + kWgRows * kWidth, tail + 2 * kALbo,
+               kWgRows * kAlphaPad * 2);
       } else {
-        store_rows(tile_h, kWidth, dlt + i * plane, kWidth, row0, t);
+        ws.out(dlt + i * plane + group_at(row0, kWidth), tile_h, kHBytes);
       }
       drain(acc, s.ring, pipe, lane);
+      ws.read_back();
       named_barrier(bar_id, kWgThreads);
       const uint32_t* m = masks + 4 * (i - 1) * kConsumers;
       if (i == depth)
@@ -290,10 +346,12 @@ __device__ __forceinline__ void delta_tiles(
       tile_sync(bar_id);
       bias_out(colsum_all, kWidth, bp + (i - 1) * kWidth, t);
     }
-    store_rows(tile_h, kWidth, dlt, kWidth, row0, t);
-    // the next tile's loads overwrite x (the column sums) and the tile
+    ws.out(dlt + group_at(row0, kWidth), tile_h, kHBytes);
+    // the next tile's loads overwrite x (the column sums) and v
     named_barrier(bar_id, kWgThreads);
   }
+  // the copies complete before the block's shared memory goes
+  if (ws.leader) bulk_wait_all();
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -333,7 +391,9 @@ nerf_mlp_bwd_delta_kernel(const bf16* __restrict__ x,
 
 // One weight gradient: out[k][m] = sum_n a[n][k] * d[n][m] for k < K (a
 // multiple of 16) and m < M (256, 128 or 16), to out_off + k * out_ld + m;
-// or, with alpha_off >= 0, column 0 alone to alpha_off + k.
+// or, with alpha_off >= 0, column 0 alone to alpha_off + k. a and d are
+// tile-order planes of lda and ldd columns, each pointer at its first
+// column block.
 struct Product {
   const bf16* a;
   const bf16* d;
@@ -353,66 +413,55 @@ constexpr int kWgRowsA = 128;                      // gradient rows per block
 constexpr int kWgABytes = kWgPoints * kWgRowsA * 2;
 constexpr int kWgDBytes = kWgPoints * kWidth * 2;
 constexpr int kWgStageBytes = kWgABytes + kWgDBytes;
+constexpr int kWgThreadsAll = kConsumers + 32;     // and a producer warp
 // both operands MN-major: core matrices of 8 points x 8 features, ordered
-// [feature / 8][point / 8]
-constexpr int kWgGroups = kWgPoints / 8;
+// [feature / 8][point / 8], as a 64-point group of the workspace is
 constexpr int kWgLbo = kCore;                      // next 8 points
 constexpr int kWgSbo = (kWgPoints / 8) * kCore;    // next 8 features
+
+struct WgradSmem {
+  alignas(128) unsigned char buf[kWgStages][kWgStageBytes];  // A, then D
+  uint64_t full[kWgStages];    // a stage's bulk copies have landed
+  uint64_t empty[kWgStages];   // every consumer warp has finished with it
+};
 
 // The main loop of one block for a product with M = N columns.
 template <int N>
 __device__ __forceinline__ void wgrad_block(const Product& pr, int ka0, int nb,
-                                            int ne, unsigned char* smem,
+                                            int ne, WgradSmem& s,
                                             float* __restrict__ out) {
-  const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
-  const int warp = t >> 5, lane = t & 31;
-  const int a_blocks = min(kWgRowsA, pr.k - ka0) >> 3, d_blocks = N >> 3;
+  const int tid = threadIdx.x;
   const int iters = (ne - nb) / kWgPoints;
-
-  // Stage `it` into its slot: 16-byte pieces, 8 consecutive features of one
-  // point. Piece e: point e % 8 of point group (e / 32) % kWgGroups, feature
-  // block 4 (e / (32 kWgGroups)) + (e / 8) % 4, so a quarter warp writes 128
-  // contiguous bytes of shared memory and four lanes read 64 contiguous
-  // bytes.
-  auto load = [&](int it) {
-    unsigned char* sa = smem + (it % kWgStages) * kWgStageBytes;
-    const uint32_t sa_addr = smem_addr(sa), sd_addr = sa_addr + kWgABytes;
-    const size_t p0 = static_cast<size_t>(nb) + it * kWgPoints;
-    const bf16* ap = pr.a + p0 * pr.lda + ka0;
-    const bf16* dp = pr.d + p0 * pr.ldd;
-    for (int e = tid; e < kWgPoints * ((a_blocks + 3) & ~3); e += kConsumers) {
-      const int p = ((e >> 5) % kWgGroups) * 8 + (e & 7);
-      const int f8 = (e / (32 * kWgGroups)) * 4 + ((e >> 3) & 3);
-      if (f8 < a_blocks)
-        cp_async16(sa_addr + f8 * kWgSbo + (p >> 3) * kWgLbo + (p & 7) * 16,
-                   ap + static_cast<size_t>(p) * pr.lda + f8 * 8);
+  if (tid >= kConsumers) {
+    // the producer: stage `it` holds, of the 64-point group at nb + 64 it,
+    // A's 8-column blocks from ka0 / 8 on (at most 16) and D's first N / 8,
+    // each one contiguous block of its plane
+    if (tid != kConsumers) return;
+    const uint32_t a_bytes = min(kWgRowsA, pr.k - ka0) * kWgPoints * 2;
+    const uint32_t d_bytes = N * kWgPoints * 2;
+    const bf16* a = pr.a + static_cast<size_t>(ka0) * kWgPoints;
+    Pipe<kWgStages> p;
+    for (int it = 0; it < iters; ++it) {
+      const size_t p0 = static_cast<size_t>(nb) + it * kWgPoints;
+      mbar_wait(&s.empty[p.stage], p.phase ^ 1);
+      mbar_expect_tx(&s.full[p.stage], a_bytes + d_bytes);
+      bulk_copy(s.buf[p.stage], a + p0 * pr.lda, a_bytes, &s.full[p.stage]);
+      bulk_copy(s.buf[p.stage] + kWgABytes, pr.d + p0 * pr.ldd, d_bytes,
+                &s.full[p.stage]);
+      p.advance();
     }
-    for (int e = tid; e < kWgPoints * ((d_blocks + 3) & ~3); e += kConsumers) {
-      const int p = ((e >> 5) % kWgGroups) * 8 + (e & 7);
-      const int f8 = (e / (32 * kWgGroups)) * 4 + ((e >> 3) & 3);
-      if (f8 < d_blocks)
-        cp_async16(sd_addr + f8 * kWgSbo + (p >> 3) * kWgLbo + (p & 7) * 16,
-                   dp + static_cast<size_t>(p) * pr.ldd + f8 * 8);
-    }
-  };
-
-  float acc[N / 2] = {};
-  for (int it = 0; it < kWgStages - 2; ++it) {
-    if (it < iters) load(it);
-    cp_async_commit();
+    return;
   }
+  const int wg = tid / kWgThreads, t = tid % kWgThreads;
+  const int warp = t >> 5, lane = t & 31;
+
+  // A warpgroup whose rows lie past the product's K multiplies whatever the
+  // stage holds and stores nothing: the wgmmas stay in uniform code.
+  float acc[N / 2] = {};
+  Pipe<kWgStages> p;
   for (int it = 0; it < iters; ++it) {
-    // stage `it` has landed (this thread's pieces, then everyone's), and
-    // every warpgroup has finished the wgmmas of stage it - 2, whose slot
-    // the next load overwrites
-    cp_async_wait<kWgStages - 3>();
-    fence_async_proxy();
-    __syncthreads();
-    if (it + kWgStages - 2 < iters) load(it + kWgStages - 2);
-    cp_async_commit();
-    // A warpgroup whose rows lie past the product's K multiplies whatever
-    // the stage holds and stores nothing: the wgmmas stay in uniform code.
-    const uint32_t sa_addr = smem_addr(smem + (it % kWgStages) * kWgStageBytes);
+    mbar_wait(&s.full[p.stage], p.phase);
+    const uint32_t sa_addr = smem_addr(s.buf[p.stage]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kWgPoints / 16; ++kk) {
@@ -424,7 +473,11 @@ __device__ __forceinline__ void wgrad_block(const Product& pr, int ka0, int nb,
       wgmma<N, 1, 1>(acc, da, db, it > 0 || kk > 0);
     }
     wgmma_commit();
+    // the stage before this one is read: back to the producer
     wgmma_wait<1>();
+    if (p.prev >= 0 && lane == 0) mbar_arrive(&s.empty[p.prev]);
+    p.prev = p.stage;
+    p.advance();
   }
   wgmma_wait<0>();
   fence_regs(acc);
@@ -449,10 +502,19 @@ __device__ __forceinline__ void wgrad_block(const Product& pr, int ka0, int nb,
     }
 }
 
-__global__ void __launch_bounds__(kConsumers, 1)
+__global__ void __launch_bounds__(kWgThreadsAll, 1)
 nerf_mlp_bwd_wgrad_kernel(const __grid_constant__ Products ps, int n_pad,
                           int chunk, long long e_w, float* __restrict__ part) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  WgradSmem& s = *reinterpret_cast<WgradSmem*>(smem_raw);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWgStages; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
   int q = 0;
   while (q + 1 < ps.count &&
          ps.blocks_begin[q + 1] <= static_cast<int>(blockIdx.x))
@@ -463,11 +525,11 @@ nerf_mlp_bwd_wgrad_kernel(const __grid_constant__ Products ps, int n_pad,
   const int ne = min(n_pad, nb + chunk);
   float* out = part + static_cast<size_t>(blockIdx.y) * e_w;
   if (pr.m == kWidth)
-    wgrad_block<kWidth>(pr, ka0, nb, ne, smem_raw, out);
+    wgrad_block<kWidth>(pr, ka0, nb, ne, s, out);
   else if (pr.m == kHalf)
-    wgrad_block<kHalf>(pr, ka0, nb, ne, smem_raw, out);
+    wgrad_block<kHalf>(pr, ka0, nb, ne, s, out);
   else
-    wgrad_block<kRgbCols>(pr, ka0, nb, ne, smem_raw, out);
+    wgrad_block<kRgbCols>(pr, ka0, nb, ne, s, out);
 }
 
 // out[r][e] = sum of in[c][e] over c in [r * group, min(C, (r + 1) * group)),
@@ -507,26 +569,35 @@ extern "C" {
 int fused_nerf_mlp_bwd_delta_smem_bytes(int depth) {
   return static_cast<int>(bwd_smem_bytes(depth));
 }
-int fused_nerf_mlp_bwd_wgrad_smem_bytes() { return kWgStages * kWgStageBytes; }
+int fused_nerf_mlp_bwd_wgrad_smem_bytes() {
+  return static_cast<int>(sizeof(WgradSmem));
+}
 
 // Gradients of the packed f32 weights (grad_w, e_w elements) and biases
 // (grad_b, e_b) on `stream`. x (n_pad, 64) and v (n_pad, 32) are the bf16
 // encoded features with zero rows past n, g (n, 4) f32 the cotangent; img
 // and img_t the forward and transposed images of the bf16 weight pack.
-// Workspaces (the caller sizes them, see ops/mlp_train.py):
-//   act bf16 (depth + 1) * n_pad * 256 + n_pad * 128
-//   dlt bf16 depth * n_pad * 256 + n_pad * (272 + 128 + 16)
+// Workspaces (the caller sizes them, see ops/mlp_train.py), tile-order
+// planes of the columns named:
+//   act bf16 h_0 .. h_{depth-1}, feat (256 each), g_act (128), x (64),
+//       v (32): (depth + 1) * n_pad * 256 + n_pad * (128 + 64 + 32)
+//   dlt bf16 d_0 .. d_{depth-1} (256 each), d_af (272), d_gpre (128),
+//       d_rgb (16): depth * n_pad * 256 + n_pad * (272 + 128 + 16)
 //   part_w f32 ceil(n_pad / chunk) * e_w, tmp_w ceil(that / group_w) * e_w
 //   part_b f32 (n_pad / 64) * e_b, tmp_b ceil(that / group_b) * e_b
-// Returns cudaGetLastError() of the last launch, or cudaErrorInvalidValue
-// for arguments the kernels do not take.
+// *bulk_bytes gets the bytes the launch's bulk copies move: both
+// workspaces written once by the delta kernel, and every stage the
+// weight-gradient producers load (A's rows of a block and D's columns, so
+// D once for each 128 gradient rows). Returns cudaGetLastError() of the
+// last launch, or cudaErrorInvalidValue for arguments the kernels do not
+// take.
 int fused_nerf_mlp_bwd(const void* x, const void* v, const float* g, int n,
                        int n_pad, const void* img, const void* img_t,
                        const float* b, int depth, int skip, void* act,
                        void* dlt, float* part_w, float* tmp_w, float* part_b,
                        float* tmp_b, float* grad_w, float* grad_b,
                        long long e_w, long long e_b, int chunk, int group_w,
-                       int group_b, void* stream) {
+                       int group_b, void* stream, long long* bulk_bytes) {
   if (n <= 0 || n_pad % kTileM != 0 || n_pad < n ||
       chunk % kWgPoints != 0 ||
       depth + 6 > kMaxProducts || skip < 0 || skip >= depth - 1 ||
@@ -553,12 +624,20 @@ int fused_nerf_mlp_bwd(const void* x, const void* v, const float* g, int n,
   if ((err = cudaGetLastError())) return static_cast<int>(err);
 
   const size_t plane = static_cast<size_t>(n_pad) * kWidth;
+  const bf16* g_act = actb + (depth + 1) * plane;
+  const bf16* xt = g_act + static_cast<size_t>(n_pad) * kHalf;
+  const bf16* vt = xt + static_cast<size_t>(n_pad) * kXDim;
   const bf16* d_af = dltb + depth * plane;
   const bf16* d_gpre = d_af + static_cast<size_t>(n_pad) * (kWidth + kAlphaPad);
   const bf16* d_rgb = d_gpre + static_cast<size_t>(n_pad) * kHalf;
   Products ps;
   ps.count = 0;
   int total = 0;
+  // the delta kernel's stores, then each product's stage loads over all
+  // n_pad / 64 stages of its blocks
+  long long moved = static_cast<long long>(
+      (vt + static_cast<size_t>(n_pad) * kVDim - actb) +
+      (d_rgb + static_cast<size_t>(n_pad) * kRgbCols - dltb)) * 2;
   auto add = [&](const bf16* a, int lda, const bf16* d, int ldd, int k, int m,
                  size_t out_off, int out_ld, long long alpha_off) {
     Product& p = ps.p[ps.count];
@@ -566,38 +645,41 @@ int fused_nerf_mlp_bwd(const void* x, const void* v, const float* g, int n,
     p.out_off = static_cast<long long>(out_off); p.out_ld = out_ld;
     p.alpha_off = alpha_off;
     ps.blocks_begin[ps.count++] = total;
-    total += (k + kWgRowsA - 1) / kWgRowsA;
+    const int blocks = (k + kWgRowsA - 1) / kWgRowsA;
+    total += blocks;
+    moved += static_cast<long long>(n_pad) * 2 * (k + blocks * m);
   };
-  add(xb, kXDim, dltb, kWidth, kXDim, kWidth, 0, kWidth, -1);
+  add(xt, kXDim, dltb, kWidth, kXDim, kWidth, 0, kWidth, -1);
   for (int i = 1; i < depth; ++i) {
     const size_t off = w_trunk_offset(i, skip);
     if (i == skip + 1)
-      add(xb, kXDim, dltb + i * plane, kWidth, kXDim, kWidth,
+      add(xt, kXDim, dltb + i * plane, kWidth, kXDim, kWidth,
           off - static_cast<size_t>(kXDim) * kWidth, kWidth, -1);
     add(actb + (i - 1) * plane, kWidth, dltb + i * plane, kWidth, kWidth,
         kWidth, off, kWidth, -1);
   }
   // d_af = [d_feat | d_sigma | 0]: W_feat's gradient, and w_alpha's from
-  // the 16 columns that start with d_sigma
+  // the 16 columns that start with d_sigma (column block 32 of a group)
   add(actb + (depth - 1) * plane, kWidth, d_af, kWidth + kAlphaPad, kWidth,
       kWidth, w_feat_offset(depth, skip), kWidth, -1);
-  add(actb + (depth - 1) * plane, kWidth, d_af + kWidth, kWidth + kAlphaPad,
-      kWidth, kAlphaPad, 0, 0,
+  add(actb + (depth - 1) * plane, kWidth, d_af + kWidth * kWgPoints,
+      kWidth + kAlphaPad, kWidth, kAlphaPad, 0, 0,
       static_cast<long long>(w_alpha_offset(depth, skip)));
   add(actb + depth * plane, kWidth, d_gpre, kHalf, kWidth, kHalf,
       w_view_offset(depth, skip), kHalf, -1);
-  add(vb, kVDim, d_gpre, kHalf, kVDim, kHalf, w_view_dir_offset(depth, skip),
+  add(vt, kVDim, d_gpre, kHalf, kVDim, kHalf, w_view_dir_offset(depth, skip),
       kHalf, -1);
-  add(actb + (depth + 1) * plane, kHalf, d_rgb, kRgbCols, kHalf, kRgbCols,
+  add(g_act, kHalf, d_rgb, kRgbCols, kHalf, kRgbCols,
       w_rgb_offset(depth, skip), kRgbCols, -1);
   ps.blocks_begin[ps.count] = total;
+  *bulk_bytes = moved;
 
-  const int wg_smem = kWgStages * kWgStageBytes;
+  const int wg_smem = static_cast<int>(sizeof(WgradSmem));
   err = prepare_launch(wgrad_cache, nerf_mlp_bwd_wgrad_kernel, wg_smem, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int chunks = (n_pad + chunk - 1) / chunk;
-  nerf_mlp_bwd_wgrad_kernel<<<dim3(total, chunks), kConsumers, wg_smem, st>>>(
-      ps, n_pad, chunk, e_w, part_w);
+  nerf_mlp_bwd_wgrad_kernel<<<dim3(total, chunks), kWgThreadsAll, wg_smem,
+                              st>>>(ps, n_pad, chunk, e_w, part_w);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
   if (int e2 = reduce_two_pass(part_w, tmp_w, grad_w, chunks, e_w, group_w, st))
     return e2;

@@ -391,8 +391,8 @@ __device__ __forceinline__ void act_epilogue(float (&acc)[N / 2],
   }
 }
 
-// 16-byte pieces of the warpgroup's tile <-> rows of a row-major bf16 matrix
-// in global memory. Piece e of a pass: row e % 8 of row group (e / 32) % 8,
+// Rows of a row-major bf16 matrix in global memory -> 16-byte pieces of the
+// warpgroup's tile. Piece e of a pass: row e % 8 of row group (e / 32) % 8,
 // column block 4 (e / 256) + (e / 8) % 4: a quarter warp touches 128
 // contiguous bytes of shared memory, and four lanes 64 contiguous bytes of
 // a row in global memory.
@@ -421,20 +421,6 @@ __device__ __forceinline__ void load_rows(const bf16* __restrict__ src, int n,
       val = *reinterpret_cast<const uint4*>(
           src + static_cast<size_t>(row0 + pc.row) * cols + pc.col8 * 8);
     *reinterpret_cast<uint4*>(tile + pc.tile_offset()) = val;
-  }
-}
-
-// Columns [0, cols) of the warpgroup's tile into rows [row0, row0 + 64) of a
-// row-major bf16 matrix of pitch ldg in global memory.
-__device__ __forceinline__ void store_rows(const unsigned char* tile, int cols,
-                                           bf16* __restrict__ dst, int ldg,
-                                           int row0, int t) {
-  for (int e = t; e < piece_count(cols); e += kWgThreads) {
-    const Piece pc(e);
-    if (pc.col8 >= (cols >> 3)) continue;
-    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(row0 + pc.row) * ldg +
-                              pc.col8 * 8) =
-        *reinterpret_cast<const uint4*>(tile + pc.tile_offset());
   }
 }
 

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) primitives used by the NeRF MLP kernels, as thin wrappers
 // over PTX: shared-memory matrix descriptors and wgmma (the warpgroup
 // tensor-core product, m64nNk16, bf16 x bf16 -> f32), its fences, mbarriers,
-// the 1-D bulk copy (global -> shared, completion on an mbarrier), cp.async
-// and named barriers.
+// the 1-D bulk copies (global -> shared, completion on an mbarrier; shared
+// -> global, completion by bulk group) and named barriers.
 //
 // Operand layout in shared memory (no swizzle): "core matrices" of 8 x 8
 // bf16, 128 contiguous bytes, eight 16-byte rows. For a K-major operand a
@@ -55,7 +55,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[kRegs]) {
 #pragma unroll
   for (int i = 0; i < kRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-// Generic-proxy writes to shared memory (st.shared, cp.async) made visible
+// Generic-proxy writes to shared memory (st.shared) made visible
 // to the async proxy (wgmma operands, bulk copies).
 __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -113,6 +113,31 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from shared `src` to global `dst`, both 16-byte
+// aligned, into this thread's open bulk group. The source must have been
+// made visible to the async proxy (fence_async_proxy) by its writers.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until this thread's bulk groups but the newest kPending have read their
+// shared-memory sources (which may then be written again).
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+// Until all of this thread's bulk groups have completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // Registers a thread of this warpgroup may use from here on: the producer
 // gives registers up, the consumers take them. kRegs: a multiple of 8.
 template <int kRegs>
@@ -134,19 +159,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   else
     asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(out) : "f"(hi), "f"(lo));
   return out;
-}
-
-// 16 bytes global -> shared, asynchronously (L2 only).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // d (+)= A . B for one 64-row tile of the warpgroup, K = 16: d keeps its

@@ -38,7 +38,9 @@ from .mlp_kernel import (
     ALPHA_PAD,
     HALF,
     RGB_COLS,
+    V_DIM,
     WIDTH,
+    X_DIM,
     PackedMLP,
     _bf16,
     _take,
@@ -47,6 +49,7 @@ from .mlp_kernel import (
 PAD = 128          # the delta kernel takes whole 128-point tiles
 BIAS_ROWS = 64     # points per bias partial (one of a tile's two warpgroups)
 CHUNK = 4096       # points per partial of the weight-gradient kernel
+GROUP = 64         # points per group of a tile-order workspace plane
 
 
 def pack_params_torch(mlp, in_dim: int, view_dim: int):
@@ -179,7 +182,8 @@ def _kernel():
     lib.fused_nerf_mlp_bwd.argtypes = (
         [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, i32, i32]   # x .. skip
         + [ptr] * 8                                          # act .. grad_b
-        + [i64, i64, i32, i32, i32, ptr])                    # e_w .. stream
+        + [i64, i64, i32, i32, i32, ptr]                     # e_w .. stream
+        + [ctypes.POINTER(i64)])                             # bulk_bytes
     lib.fused_nerf_mlp_bwd.restype = i32
     lib.fused_nerf_mlp_bwd_delta_smem_bytes.argtypes = [i32]
     return lib
@@ -206,20 +210,41 @@ def _two_pass_group(rows: int) -> int:
     return max(1, math.ceil(math.sqrt(rows)))
 
 
+def workspace_columns(depth: int) -> tuple:
+    """The column counts of the backward kernel's workspace planes, in
+    order: the activation workspace (h_0 .. h_{depth-1}, feat, g_act and
+    the encoded x, v) and the delta workspace (d_0 .. d_{depth-1}, d_af =
+    [d_feat | d_sigma | 0], d_gpre, d_rgb); csrc/fused_nerf_mlp_bwd.cu
+    names them."""
+    return ((WIDTH,) * (depth + 1) + (HALF, X_DIM, V_DIM),
+            (WIDTH,) * depth + (WIDTH + ALPHA_PAD, HALF, RGB_COLS))
+
+
+def _detile(buf: torch.Tensor, n: int, n_pad: int, cols: int):
+    """A tile-order plane (64-point groups, each ``[col / 8][point][col %
+    8]``) as the row-major (n, cols) matrix of its first ``n`` points."""
+    return buf.view(n_pad // GROUP, cols // 8, GROUP, 8).permute(0, 2, 1, 3) \
+        .reshape(n_pad, cols)[:n]
+
+
+def _planes_of(buf: torch.Tensor, columns, n: int, n_pad: int) -> list:
+    out, at = [], 0
+    for cols in columns:
+        out.append(_detile(buf[at:at + n_pad * cols], n, n_pad, cols))
+        at += n_pad * cols
+    return out
+
+
 def workspace_planes(act: torch.Tensor, dlt: torch.Tensor, n: int,
                      n_pad: int, depth: int) -> dict:
-    """Views of the backward kernel's workspaces as the planes of
-    :func:`backward_planes` (first ``n`` rows)."""
-    plane = n_pad * WIDTH
-    h = act[:(depth + 1) * plane].view(depth + 1, n_pad, WIDTH)[:, :n]
-    d = dlt[:depth * plane].view(depth, n_pad, WIDTH)[:, :n]
-    rest = dlt[depth * plane:]
-    af, at = WIDTH + ALPHA_PAD, n_pad * (WIDTH + ALPHA_PAD)
-    return {"h": list(h[:depth]), "feat": h[depth],
-            "g_act": act[(depth + 1) * plane:].view(n_pad, HALF)[:n],
-            "d": list(d), "d_af": rest[:at].view(n_pad, af)[:n],
-            "d_gpre": rest[at:at + n_pad * HALF].view(n_pad, HALF)[:n],
-            "d_rgb": rest[at + n_pad * HALF:].view(n_pad, RGB_COLS)[:n]}
+    """The backward kernel's workspaces, de-tiled, as the row-major planes
+    of :func:`backward_planes` (first ``n`` rows)."""
+    a_cols, d_cols = workspace_columns(depth)
+    a = _planes_of(act, a_cols, n, n_pad)
+    d = _planes_of(dlt, d_cols, n, n_pad)
+    return {"h": a[:depth], "feat": a[depth], "g_act": a[depth + 1],
+            "d": d[:depth], "d_af": d[depth], "d_gpre": d[depth + 1],
+            "d_rgb": d[depth + 2]}
 
 
 def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
@@ -227,7 +252,9 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     """Gradients of the f32 weight and bias packs from bf16 features x
     (N, 64), v (N, 32) and the f32 cotangent g (N, 4) of the raw output.
     With ``keep``, stores the kernel's workspace there as
-    ``keep["planes"]`` (see :func:`workspace_planes`), for checks.
+    ``keep["planes"]`` (see :func:`workspace_planes`), for checks. Counts
+    the launch, and the bytes its workspace's bulk copies move as the C
+    launcher reports them, in ``tracing.counts``.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     """
@@ -250,9 +277,9 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     x_pad = F.pad(x, (0, 0, 0, n_pad - n)).contiguous()
     v_pad = F.pad(v, (0, 0, 0, n_pad - n)).contiguous()
     bf = dict(dtype=torch.bfloat16, device=x.device)
-    act = torch.empty((d + 1) * n_pad * WIDTH + n_pad * HALF, **bf)
-    dlt = torch.empty(d * n_pad * WIDTH
-                      + n_pad * (WIDTH + ALPHA_PAD + HALF + RGB_COLS), **bf)
+    a_cols, d_cols = workspace_columns(d)
+    act = torch.empty(n_pad * sum(a_cols), **bf)
+    dlt = torch.empty(n_pad * sum(d_cols), **bf)
     chunks, bias_rows = -(-n_pad // CHUNK), n_pad // BIAS_ROWS
     group_w, group_b = _two_pass_group(chunks), _two_pass_group(bias_rows)
     part_w = torch.empty(chunks * e_w, **kw)
@@ -261,6 +288,7 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     tmp_b = torch.empty(-(-bias_rows // group_b) * e_b, **kw)
     grad_w, grad_b = torch.empty(e_w, **kw), torch.empty(e_b, **kw)
     lib = _kernel()
+    moved = ctypes.c_longlong(0)
     with torch.cuda.device(x.device):
         err = lib.fused_nerf_mlp_bwd(
             x_pad.data_ptr(), v_pad.data_ptr(), g.data_ptr(), n, n_pad,
@@ -269,9 +297,11 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
             dlt.data_ptr(), part_w.data_ptr(), tmp_w.data_ptr(),
             part_b.data_ptr(), tmp_b.data_ptr(),
             grad_w.data_ptr(), grad_b.data_ptr(), e_w, e_b, CHUNK, group_w,
-            group_b, torch.cuda.current_stream(x.device).cuda_stream)
+            group_b, torch.cuda.current_stream(x.device).cuda_stream,
+            ctypes.byref(moved))
     mlp_kernel.check_launch(err, "fused_nerf_mlp_bwd")
     tracing.counts["fused_nerf_mlp_bwd.launches"] += 1
+    tracing.counts["fused_nerf_mlp_bwd.bulk_bytes"] += moved.value
     if keep is not None:
         keep["planes"] = workspace_planes(act, dlt, n, n_pad, d)
     return grad_w, grad_b
@@ -331,5 +361,5 @@ def make_fused_train_apply(net):
 
 __all__ = ["pack_params_torch", "fused_nerf_mlp_bwd",
            "fused_nerf_mlp_bwd_reference", "backward_planes", "weight_grads",
-           "workspace_planes", "FusedNeRFMLPFn",
+           "workspace_columns", "workspace_planes", "FusedNeRFMLPFn",
            "fused_nerf_mlp_diff", "make_fused_train_apply", "build"]

@@ -139,11 +139,14 @@ FLIPPED_POINTS = 5e-3
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 257, 260, 385,
-                               1000, 4096])
+                               1000, 4096, 12289, 65536])
 def test_training_kernels_match_plain_versions(cuda, monkeypatch, n):
     """The features-in forward (TPU kernels #3/#4) and the backward (#5) at
     ragged point counts around the 128-point tile (one below, at, one above,
-    and one above two and three tiles), trained weights, a cotangent shaped
+    and one above two and three tiles), beyond one 4096-point chunk of the
+    weight-gradient kernel (three chunks and a point: the two-pass
+    reduction over chunks, a ragged last chunk and the stage ring's
+    wrap-around; sixteen chunks), trained weights, a cotangent shaped
     like dloss/draw: the forward to 1e-2 of each column's range, the
     backward to chip_smoke.py's check (deltas, workspace sums, leaves,
     padding).
@@ -204,6 +207,27 @@ def test_training_kernels_match_plain_versions(cuda, monkeypatch, n):
         assert kept["ok"], chip_smoke.describe_grad(kept)
         assert a["wgrad"] <= chip_smoke.WGRAD_REL and a["pad_zero"], \
             chip_smoke.describe_grad(a)
+
+
+@pytest.mark.cuda
+def test_backward_counts_its_bulk_bytes(cuda, monkeypatch):
+    """One launch of the backward adds to ``fused_nerf_mlp_bwd.bulk_bytes``
+    exactly the bytes its workspace's bulk copies move, as the C launcher
+    counts them from its own layout and product table: at depth 8 (the
+    paper's model) 9,984 a point written and 15,776 read
+    (tests/test_torch_mlp_train.py sums both by hand from the planes and
+    the products), for each of the points padded to whole 128-point
+    tiles."""
+    net = load_model(_cfg(monkeypatch), cuda)
+    packed = mlp_kernel.pack_nerf_params(net.fine.state_dict(), 63, 27, 8, 4)
+    x, v = mlp_kernel.encode_features(*_ray_points(1000, seed=0, device=cuda),
+                                      10, 4)
+    g = torch.zeros(1000, 4, device=cuda)
+    before = tracing.counts["fused_nerf_mlp_bwd.bulk_bytes"]
+    mlp_train.fused_nerf_mlp_bwd(packed, x, v, g)
+    torch.cuda.synchronize()
+    assert tracing.counts["fused_nerf_mlp_bwd.bulk_bytes"] - before == \
+        1024 * (9984 + 15776)
 
 
 @pytest.mark.cuda

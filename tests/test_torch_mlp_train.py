@@ -296,25 +296,89 @@ def test_smoke_backward_check_sees_faults(trained_batch, variant):
             out, ref, out_planes, planes, packed, IN, VIEW)["ok"]
 
 
+def _tile_offset(p, c, cols):
+    """Element offset of (point p, column c) inside a tile-order plane of
+    ``cols`` columns, written out from the kernel's comment: 64-point
+    groups, each the warpgroup tile's core matrices [c / 8][p / 8][p % 8]
+    [c % 8]."""
+    group, r = p // 64, p % 64
+    return (group * 64 * cols + (c // 8) * 64 * 8 + (r // 8) * 64
+            + (r % 8) * 8 + c % 8)
+
+
 def test_workspace_planes_layout():
-    """workspace_planes reads the kernel's workspace layout (the C
-    function's comment): planes of a hand-filled workspace land where
+    """workspace_planes reads the kernel's tile-order workspace (the C
+    function's comment): elements of a hand-filled workspace land where
     the kernel writes them."""
-    n, n_pad, depth = 3, 64, 2
-    act = torch.arange((depth + 1) * n_pad * 256 + n_pad * 128,
+    n, n_pad, depth = 70, 128, 2
+    plane = n_pad * 256
+    act = torch.arange((depth + 1) * plane + n_pad * (128 + 64 + 32),
                        dtype=torch.float64)
-    dlt = torch.arange(depth * n_pad * 256 + n_pad * (272 + 128 + 16),
+    dlt = torch.arange(depth * plane + n_pad * (272 + 128 + 16),
                        dtype=torch.float64)
     p = mlp_train.workspace_planes(act, dlt, n, n_pad, depth)
-    plane = n_pad * 256
-    assert p["h"][1][2, 5] == plane + 2 * 256 + 5
+    # h_1 (point 2, column 5): core matrix 0 of group 0, row 2, element 5
+    assert p["h"][1][2, 5] == plane + 2 * 8 + 5
+    # point 69: group 1 (64 * 256 elements on), row 5; column 17: block 2
+    assert p["h"][0][69, 17] == 64 * 256 + 2 * 512 + 5 * 8 + 1
     assert p["feat"][0, 0] == depth * plane
-    assert p["g_act"][1, 0] == (depth + 1) * plane + 128
+    # g_act (128 columns): point 9 is core matrix row 1 of point group 1
+    assert p["g_act"][9, 8] == (depth + 1) * plane + 512 + 64 + 8
     assert p["d"][1][0, 7] == plane + 7
-    assert p["d_af"][2, 256] == depth * plane + 2 * 272 + 256
+    # d_af's d_sigma column (256): block 32 of a 272-column group
+    assert p["d_af"][66, 256] == depth * plane + 64 * 272 + 32 * 512 + 2 * 8
     assert p["d_gpre"][0, 0] == depth * plane + n_pad * 272
-    assert p["d_rgb"][1, 2] == depth * plane + n_pad * (272 + 128) + 16 + 2
+    assert p["d_rgb"][1, 10] == (depth * plane + n_pad * (272 + 128)
+                                 + 512 + 8 + 2)
     assert all(t.shape[0] == n for t in (p["feat"], p["d_af"], p["d_rgb"]))
+
+
+@pytest.mark.parametrize("depth", [2, 8])
+@pytest.mark.parametrize("n_pad", [128, 4224])
+def test_workspace_planes_detile_every_element(depth, n_pad):
+    """An arange-filled workspace, de-tiled: every element of every plane
+    is its own offset by the tile-order formula, planes in the order the C
+    function's comment gives, the x and v copies last in the activations
+    and left out of the planes, and the sizes the wrapper allocates."""
+    n = n_pad - 61
+    a_cols = [256] * (depth + 1) + [128, 64, 32]
+    d_cols = [256] * depth + [272, 128, 16]
+    assert mlp_train.workspace_columns(depth) == (tuple(a_cols),
+                                                 tuple(d_cols))
+    act = torch.arange(n_pad * sum(a_cols), dtype=torch.int64)
+    dlt = torch.arange(n_pad * sum(d_cols), dtype=torch.int64)
+    got = mlp_train.workspace_planes(act, dlt, n, n_pad, depth)
+    names = ([("h", i) for i in range(depth)] + [("feat", None),
+             ("g_act", None)], [("d", i) for i in range(depth)]
+             + [("d_af", None), ("d_gpre", None), ("d_rgb", None)])
+    pts = torch.arange(n)[:, None]
+    for cols_of, named in zip((a_cols, d_cols), names):
+        base = 0
+        for cols, (key, i) in zip(cols_of, named):
+            plane = got[key] if i is None else got[key][i]
+            want = base + _tile_offset(pts, torch.arange(cols)[None], cols)
+            assert plane.shape == (n, cols)
+            assert torch.equal(plane, want), (key, i)
+            base += n_pad * cols
+
+
+def test_bulk_bytes_counts_the_workspace_traffic():
+    """The bytes ``fused_nerf_mlp_bwd.bulk_bytes`` grows by a point at
+    depth 8 (the paper's model), which tests/test_torch_cuda.py holds the
+    C launcher's count to: 9,984 written (the planes the wrapper allocates,
+    x and v, in bf16) and 15,776 read as the weight-gradient blocks load
+    them, each product's A plane once and its D columns once for each 128
+    gradient rows (w_alpha's: the 16 columns that start with d_sigma)."""
+    written = 2 * (9 * 256 + 128 + 64 + 32 + 8 * 256 + 272 + 128 + 16)
+    # W0 and W_5x (K 64), W_1..7 and W_feat (K 256, two blocks), w_alpha
+    # (K 256, 16 columns), Wv_f, Wv_d (K 32), W_rgb (K 128)
+    read = 2 * (2 * (64 + 256) + 8 * (256 + 2 * 256) + (256 + 2 * 16)
+                + (256 + 2 * 128) + (32 + 128) + (128 + 16))
+    assert (written, read) == (9984, 15776)
+    assert 2 * sum(map(sum, mlp_train.workspace_columns(8))) == written
+    products = mlp_kernel.pack_matrices(8, 4)
+    assert 2 * sum(k + (16 if name == "alpha" else m) * -(-k // 128)
+                   for name, k, m in products) == read
 
 
 def _staged_offset(k, n, cols, slab_k):
