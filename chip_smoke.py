@@ -701,6 +701,41 @@ def _leaves(flat_w, flat_b, packed):
         at += size
 
 
+def flipped_points(planes_k, planes_p) -> torch.Tensor:
+    """The points (a bool mask) at which the two arms' recomputed
+    activations disagree on a ReLU: one is zero where the other is
+    positive, because the f32 summation order moved a value across zero."""
+    flipped = ((planes_k["g_act"] > 0) != (planes_p["g_act"] > 0)).any(dim=1)
+    for h_k, h_p in zip(planes_k["h"], planes_p["h"]):
+        flipped |= ((h_k > 0) != (h_p > 0)).any(dim=1)
+    return flipped
+
+
+def input_grad_agreement(packed, x, v, g, grads_off) -> dict:
+    """#5's input gradient arm (a D-NeRF's) against the plain backward's
+    on the same inputs: ``bit_equal``, the arm's grad_w and grad_b against
+    ``grads_off`` (the arm off's, which it must not change); ``rel``, the
+    norm of grad_x's difference over the plain one's, at the points whose
+    ReLUs agree (``flipped``, the others); ``ok`` when both hold, ``rel``
+    within GRAD_REL."""
+    from nerf_replication_tpu_torch.ops import mlp_train
+
+    keep_k, keep_p = {}, {}
+    gw, gb, gx = mlp_train.fused_nerf_mlp_bwd(packed, x, v, g, keep_k,
+                                              with_input_grad=True)
+    *_, ref_gx = mlp_train.fused_nerf_mlp_bwd_reference(
+        packed, x, v, g, keep_p, with_input_grad=True)
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(gw, grads_off[0])
+                     and torch.equal(gb, grads_off[1]))
+    flipped = flipped_points(keep_k["planes"], keep_p["planes"])
+    ok = ~flipped
+    rel = float((gx[ok] - ref_gx[ok]).norm()
+                / ref_gx[ok].norm().clamp_min(1e-30))
+    return dict(bit_equal=bit_equal, rel=rel, flipped=int(flipped.sum()),
+                ok=bit_equal and rel <= GRAD_REL)
+
+
 def _delta_planes(planes: dict) -> dict:
     out = {f"d{i}": d for i, d in enumerate(planes["d"])}
     out.update({k: planes[k] for k in ("d_af", "d_gpre", "d_rgb")})
@@ -869,10 +904,11 @@ def backward_at_step_shape(net, mlp, packed, n: int) -> dict:
     checks a real batch (``check``: :func:`backward_agreement` with its
     planes, padding and float64 workspace sums); its CUDA-event time, its
     bound by operations, its design's floor (the tile-order workspace
-    written once and read once at the card's memory rate) and the bytes
+    written once and read once at the card's memory rate), the bytes
     one launch's bulk copies move by the ``fused_nerf_mlp_bwd.bulk_bytes``
     counter (more: D planes of 256-wide gradients read twice, mostly from
-    L2)."""
+    L2), and the input gradient arm (``input_grad``:
+    :func:`input_grad_agreement`) with its time (``input_grad_ms``)."""
     from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
     from nerf_replication_tpu_torch.utils import tracing
 
@@ -890,9 +926,14 @@ def backward_at_step_shape(net, mlp, packed, n: int) -> dict:
     torch.cuda.synchronize()
     check = backward_agreement(grad_k, grad_p, keep_k["planes"],
                                keep_p["planes"], packed, *enc, x=x, v=v)
-    del keep_k, keep_p, grad_k, grad_p
+    del keep_k, keep_p, grad_p
+    torch.cuda.empty_cache()
+    arm = input_grad_agreement(packed, x, v, g, grad_k)
+    del grad_k
     torch.cuda.empty_cache()
     ms = cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(packed, x, v, g), 20)
+    arm_ms = cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(
+        packed, x, v, g, with_input_grad=True), 20)
     flops = n * (3 * mlp_flops(mlp) - input_side_flops(mlp, *enc))
     n_pad = -(-n // mlp_train.PAD) * mlp_train.PAD
     workspace = 2 * n_pad * sum(map(sum, mlp_train.workspace_columns(
@@ -900,7 +941,8 @@ def backward_at_step_shape(net, mlp, packed, n: int) -> dict:
     return dict(n=n, ms=ms, **bound(nbytes(x, v, g, packed.w, packed.b),
                                     flops, "bf16"),
                 floor_ms=2 * workspace / PEAK_BYTES_PER_S * 1e3,
-                bulk_bytes=moved, check=check)
+                bulk_bytes=moved, check=check, input_grad=arm,
+                input_grad_ms=arm_ms)
 
 
 def phase_train_kernels(cfg, arrays, step_shapes: bool = False) -> dict:
@@ -994,8 +1036,16 @@ def phase_train_kernels(cfg, arrays, step_shapes: bool = False) -> dict:
                   f"({r['floor_ms'] / r['ms']:.1%}); bulk copies "
                   f"{r['bulk_bytes'] / 1e9:.3f} GB | vs plain: "
                   f"{describe_grad(r['check'])}")
+            a = r["input_grad"]
+            print(f"backward with the input gradient arm at N={n}: "
+                  f"{r['input_grad_ms']:.3f} ms | grad_w, grad_b bit-equal "
+                  f"to the arm off's: {a['bit_equal']} | grad_x vs plain "
+                  f"{a['rel']:.2e} of its norm ({a['flipped']} points with "
+                  f"a flipped ReLU left out)")
             if not r["check"]["ok"]:
                 fail(f"backward disagrees with plain at a step's N={n}")
+            if not a["ok"]:
+                fail(f"the input gradient arm disagrees at a step's N={n}")
             torch.cuda.empty_cache()
     del net
     torch.cuda.empty_cache()

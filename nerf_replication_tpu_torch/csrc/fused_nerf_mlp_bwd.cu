@@ -43,6 +43,15 @@
 // 3. reduce: the partials summed in a fixed order (two passes), so the
 //    result does not depend on how the blocks were scheduled.
 //
+// Input gradient (the delta kernel's kDx arm, asked for by a non-null
+// grad_x): dL/dx = d_0 . W_0^T + d_{skip+1} . W_{skip+1,x}^T, f32 (n_pad,
+// 64). Each product is a wgmma of the bf16 deltas already in the tile
+// against the transposed image of W_ix or W_0 (4 slabs of 64 x 64), which
+// the producer streams through the ring just before W_{skip+1}^T and just
+// after W_1^T. The skip layer's part goes to grad_x from the accumulators;
+// the thread that stored it adds d_0's part to it. Without grad_x the
+// kernel is the kDx = false instantiation, which has none of this.
+//
 // Workspace order ("tile order"): a plane of C columns over n_pad points is
 // n_pad / 64 groups of 64 points, each the image of a warpgroup's tile,
 // core matrices [column / 8][point / 8][point % 8][column % 8]: element
@@ -155,7 +164,9 @@ __device__ __forceinline__ void bias_out(const float* colsum, int cols,
 }
 
 // The backward's slabs of one tile after the recompute's, in the order the
-// delta chain consumes them, from the transposed image.
+// delta chain consumes them, from the transposed image; with kDx, W_ix^T
+// before W_{skip+1}^T and W_0^T last (256 x 64 each).
+template <bool kDx>
 __device__ __forceinline__ void produce_backward(Ring<kStages>& ring,
                                                  Pipe<kStages>& p,
                                                  const bf16* __restrict__ wt,
@@ -163,8 +174,39 @@ __device__ __forceinline__ void produce_backward(Ring<kStages>& ring,
   produce(ring, p, wt + w_rgb_offset(depth, skip), kRgbCols, kHalf, kRgbCols);
   produce(ring, p, wt + w_view_offset(depth, skip), kHalf, kWidth, kSlabK);
   produce(ring, p, wt + w_feat_offset(depth, skip), kWidth, kWidth, kSlabK);
-  for (int i = depth - 1; i >= 1; --i)
+  for (int i = depth - 1; i >= 1; --i) {
+    if (kDx && i == skip + 1)
+      produce(ring, p, wt + w_trunk_offset(i, skip) - kXDim * kWidth, kWidth,
+              kXDim, kSlabK);
     produce(ring, p, wt + w_trunk_offset(i, skip), kWidth, kWidth, kSlabK);
+  }
+  if (kDx) produce(ring, p, wt, kWidth, kXDim, kSlabK);
+}
+
+// The input gradient's part in this thread's accumulators (a 64-column
+// product) to rows row0.. of the f32 (n_pad, 64) grad_x; with kAdd added to
+// what this thread stored there before.
+template <bool kAdd>
+__device__ __forceinline__ void dx_out(const float (&acc)[kXDim / 2],
+                                       float* __restrict__ dx, int row0,
+                                       int warp, int lane) {
+  const int r = row0 + warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < kXDim / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = 4 * j + 2 * half;
+      float2* at = reinterpret_cast<float2*>(
+          dx + static_cast<size_t>(r + 8 * half) * kXDim + 8 * j + cq);
+      float2 val = make_float2(acc[i], acc[i + 1]);
+      if (kAdd) {
+        const float2 part = *at;
+        val.x += part.x;
+        val.y += part.y;
+      }
+      *at = val;
+    }
 }
 
 // Element offset of the 64-point group that starts at row0 (a multiple of
@@ -194,13 +236,14 @@ struct TileOut {
 };
 
 // A consumer warpgroup's share of the delta kernel: its 64 rows of every
-// tile the block takes.
+// tile the block takes; with kDx, their input gradient to dx.
+template <bool kDx>
 __device__ __forceinline__ void delta_tiles(
     BwdSmem& s, uint32_t* mask_words, Pipe<kStages>& pipe, int rounds,
     const bf16* __restrict__ x, const bf16* __restrict__ v,
     const float* __restrict__ g, int n, int n_pad, const float* __restrict__ b,
     int depth, int skip, bf16* __restrict__ act, bf16* __restrict__ dlt,
-    float* __restrict__ bias_part) {
+    float* __restrict__ bias_part, float* __restrict__ dx) {
   const int tid = threadIdx.x;
   const int wg = tid / kWgThreads, t = tid % kWgThreads;
   const int warp = t >> 5, lane = t & 31, bar_id = 1 + wg;
@@ -314,12 +357,25 @@ __device__ __forceinline__ void delta_tiles(
 
     // trunk, from the last layer down: d_pre_{i-1} = relu'(h_{i-1}) *
     // (d_pre_i . W_i^T), where the last layer's input delta is d_feat .
-    // W_feat^T + d_sigma . w_alpha^T. The skip layer's input part W_ix takes
-    // no delta onward (inputs get none).
+    // W_feat^T + d_sigma . w_alpha^T. The skip layer's input part W_ix
+    // passes no delta on into the trunk; with kDx it gives the input
+    // gradient's first part, d_{skip+1} . W_ix^T.
     const float sig[2] = {
         __bfloat162float(__float2bfloat16_rn(gs[r_lo * 4 + 3])),
         __bfloat162float(__float2bfloat16_rn(gs[(r_lo + 8) * 4 + 3]))};
     for (int i = depth; i >= 1; --i) {
+      if (kDx && i == skip + 1) {
+        float accx[kXDim / 2];
+        bool fx = true;
+        consume<kXDim>(accx, s.ring, pipe, tile_addr, kWidth, kSlabK, fx,
+                       lane);
+        drain(accx, s.ring, pipe, lane);
+        dx_out<false>(accx, dx, row0, warp, lane);
+        // the last epilogue's values are spent: accx may take their
+        // registers
+#pragma unroll
+        for (int e = 0; e < kWidth / 2; ++e) acc[e] = 0.0f;
+      }
       fresh = true;
       consume<kWidth>(acc, s.ring, pipe, tile_addr, kWidth, kSlabK, fresh,
                       lane);
@@ -347,6 +403,13 @@ __device__ __forceinline__ void delta_tiles(
       bias_out(colsum_all, kWidth, bp + (i - 1) * kWidth, t);
     }
     ws.out(dlt + group_at(row0, kWidth), tile_h, kHBytes);
+    if (kDx) {   // the input gradient's second part, d_0 . W_0^T
+      float accx[kXDim / 2];
+      bool fx = true;
+      consume<kXDim>(accx, s.ring, pipe, tile_addr, kWidth, kSlabK, fx, lane);
+      drain(accx, s.ring, pipe, lane);
+      dx_out<true>(accx, dx, row0, warp, lane);
+    }
     // the next tile's loads overwrite x (the column sums) and v
     named_barrier(bar_id, kWgThreads);
   }
@@ -354,6 +417,7 @@ __device__ __forceinline__ void delta_tiles(
   if (ws.leader) bulk_wait_all();
 }
 
+template <bool kDx>
 __global__ void __launch_bounds__(kThreads, 1)
 nerf_mlp_bwd_delta_kernel(const bf16* __restrict__ x,
                           const bf16* __restrict__ v,
@@ -362,7 +426,8 @@ nerf_mlp_bwd_delta_kernel(const bf16* __restrict__ x,
                           const bf16* __restrict__ img_t,
                           const float* __restrict__ b, int depth, int skip,
                           bf16* __restrict__ act, bf16* __restrict__ dlt,
-                          float* __restrict__ bias_part) {
+                          float* __restrict__ bias_part,
+                          float* __restrict__ dx) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdSmem& s = *reinterpret_cast<BwdSmem*>(smem_raw);
   uint32_t* mask_words =
@@ -379,13 +444,13 @@ nerf_mlp_bwd_delta_kernel(const bf16* __restrict__ x,
     if (tid == kConsumers) {
       for (int k = 0; k < rounds; ++k) {
         produce_forward(s.ring, pipe, img, depth, skip, false);
-        produce_backward(s.ring, pipe, img_t, depth, skip);
+        produce_backward<kDx>(s.ring, pipe, img_t, depth, skip);
       }
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    delta_tiles(s, mask_words, pipe, rounds, x, v, g, n, n_pad, b, depth, skip,
-                act, dlt, bias_part);
+    delta_tiles<kDx>(s, mask_words, pipe, rounds, x, v, g, n, n_pad, b, depth,
+                     skip, act, dlt, bias_part, dx);
   }
 }
 
@@ -574,9 +639,11 @@ int fused_nerf_mlp_bwd_wgrad_smem_bytes() {
 }
 
 // Gradients of the packed f32 weights (grad_w, e_w elements) and biases
-// (grad_b, e_b) on `stream`. x (n_pad, 64) and v (n_pad, 32) are the bf16
-// encoded features with zero rows past n, g (n, 4) f32 the cotangent; img
-// and img_t the forward and transposed images of the bf16 weight pack.
+// (grad_b, e_b) on `stream`, and, where grad_x is not null, of the encoded
+// points: grad_x f32 (n_pad, 64), zero in rows past n. x (n_pad, 64) and v
+// (n_pad, 32) are the bf16 encoded features with zero rows past n, g (n, 4)
+// f32 the cotangent; img and img_t the forward and transposed images of the
+// bf16 weight pack.
 // Workspaces (the caller sizes them, see ops/mlp_train.py), tile-order
 // planes of the columns named:
 //   act bf16 h_0 .. h_{depth-1}, feat (256 each), g_act (128), x (64),
@@ -596,8 +663,9 @@ int fused_nerf_mlp_bwd(const void* x, const void* v, const float* g, int n,
                        const float* b, int depth, int skip, void* act,
                        void* dlt, float* part_w, float* tmp_w, float* part_b,
                        float* tmp_b, float* grad_w, float* grad_b,
-                       long long e_w, long long e_b, int chunk, int group_w,
-                       int group_b, void* stream, long long* bulk_bytes) {
+                       float* grad_x, long long e_w, long long e_b, int chunk,
+                       int group_w, int group_b, void* stream,
+                       long long* bulk_bytes) {
   if (n <= 0 || n_pad % kTileM != 0 || n_pad < n ||
       chunk % kWgPoints != 0 ||
       depth + 6 > kMaxProducts || skip < 0 || skip >= depth - 1 ||
@@ -611,16 +679,19 @@ int fused_nerf_mlp_bwd(const void* x, const void* v, const float* g, int n,
   bf16* dltb = static_cast<bf16*>(dlt);
 
   // persistent blocks, one an SM, or fewer when there are fewer tiles
-  static LaunchCache delta_cache, wgrad_cache;
+  static LaunchCache delta_cache[2], wgrad_cache;
   const size_t smem = bwd_smem_bytes(depth);
   int sms = 0;
-  cudaError_t err =
-      prepare_launch(delta_cache, nerf_mlp_bwd_delta_kernel, smem, &sms);
+  auto delta = grad_x ? nerf_mlp_bwd_delta_kernel<true>
+                      : nerf_mlp_bwd_delta_kernel<false>;
+  cudaError_t err = prepare_launch(delta_cache[grad_x != nullptr], delta,
+                                   smem, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = n_pad / kTileM;
-  nerf_mlp_bwd_delta_kernel<<<tiles < sms ? tiles : sms, kThreads, smem, st>>>(
+  delta<<<tiles < sms ? tiles : sms, kThreads, smem, st>>>(
       xb, vb, g, n, n_pad, static_cast<const bf16*>(img),
-      static_cast<const bf16*>(img_t), b, depth, skip, actb, dltb, part_b);
+      static_cast<const bf16*>(img_t), b, depth, skip, actb, dltb, part_b,
+      grad_x);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
 
   const size_t plane = static_cast<size_t>(n_pad) * kWidth;

@@ -53,8 +53,9 @@
 //     for Wv_d and W_rgb), a slab (Ks x N) ordered
 //     [k / 8][n / 8][n % 8][k % 8];
 //   transposed image: the same for W^T (N x K), for the matrices the
-//     backward multiplies by: W_i (i >= 1), W_feat, Wv_f (slabs of 64 rows)
-//     and W_rgb (one slab of 16).
+//     backward multiplies by: W_i (i >= 1), W_feat, Wv_f (slabs of 64 rows),
+//     W_rgb (one slab of 16), and for the input gradient W_0 and W_ix
+//     (slabs of 64 rows of 64).
 // nerf_replication_tpu_torch/ops/mlp_kernel.py builds the packs and images.
 #pragma once
 
@@ -248,9 +249,11 @@ __device__ __forceinline__ void turn_start(Pipe<kStages>& p, int wg) {
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
                                       uint64_t db, int scale_d) {
-  static_assert(N == 256 || N == 128 || N == 16, "instantiated widths");
+  static_assert(N == 256 || N == 128 || N == 64 || N == 16,
+                "instantiated widths");
   if constexpr (N == 256) wgmma_n256<TA, TB>(d, da, db, scale_d);
   if constexpr (N == 128) wgmma_n128<TA, TB>(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_n64<TA, TB>(d, da, db, scale_d);
   if constexpr (N == 16) wgmma_n16<TA, TB>(d, da, db, scale_d);
 }
 

@@ -11,7 +11,9 @@ pixels, test/val every pixel. ``__getitem__`` returns the same batch dict
 test split when present). ``as_arrays`` stacks the split for the
 device-resident training sampler (datasets/pipeline.py) and
 ``alpha_arrays`` the alpha channels of RGBA sources, which
-random-background training needs.
+random-background training needs. A dynamic scene in D-NeRF's layout gives
+each frame a ``time``: every batch then holds ``times``, each ray's frame
+time, and ``time_arrays`` gives the split's.
 """
 
 from __future__ import annotations
@@ -71,6 +73,9 @@ class Dataset:
         size = (self.W, self.H)
         self.images, self.poses, self.depths, self.normals = [], [], [], []
         self.alphas = []       # (H, W) float32 coverage of RGBA sources
+        self.times = ([float(f["time"]) for f in frames]
+                      if frames and all("time" in f for f in frames)
+                      else None)
         for frame in frames:
             base = os.path.join(self.scene_root, frame["file_path"])
             img = _load_png(base + ".png", size, Image.BILINEAR) / 255.0
@@ -108,6 +113,7 @@ class Dataset:
         self.images = [np.asarray(img, np.float32) for img in images]
         self.poses = [np.asarray(p, np.float32) for p in poses]
         self.depths, self.normals, self.alphas = [], [], []
+        self.times = None
         return self
 
     @property
@@ -121,6 +127,11 @@ class Dataset:
         K = np.array([[f, 0, self.W / 2.0], [0, f, self.H / 2.0],
                       [0, 0, 1.0]], dtype=np.float32)
         return np.stack(self.images), np.stack(self.poses), K
+
+    def time_arrays(self):
+        """(N,) float32 frame times of a dynamic scene, or None."""
+        return (None if self.times is None
+                else np.asarray(self.times, np.float32))
 
     def alpha_arrays(self):
         """(N, H, W) float32 coverage, or None when the source images
@@ -154,6 +165,8 @@ class Dataset:
                "H": np.int32(self.H), "W": np.int32(self.W),
                "id": np.int32(index), "pose": pose.astype(np.float32),
                "focal": np.float32(self.focal)}
+        if self.times is not None:
+            out["times"] = np.full(ui.shape, self.times[index], np.float32)
         if self.split == "test":
             if index < len(self.depths):
                 out["depth"] = self.depths[index][vi, ui]

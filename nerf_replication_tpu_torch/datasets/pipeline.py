@@ -8,7 +8,9 @@ with no host-to-device copy per step. The first ``precrop_iters`` global
 steps draw from the centre crop (``precrop_frac`` of each side).
 ``sample_across_images`` draws each ray's image independently. With
 ``alphas`` (the coverage of RGBA sources, uint8 on the device too) a batch
-also holds ``alpha``, which random-background training needs.
+also holds ``alpha``, which random-background training needs; with
+``times`` (a dynamic scene's frame times) it holds ``times``, each ray's
+image's time, which a D-NeRF renders at. Neither draws anything.
 
 A data-parallel rank samples with its ``parallel.mesh.RowGenerator``: the
 global batch's pixels are drawn and the rank keeps its rows, so the ranks
@@ -37,15 +39,18 @@ class DeviceRayPipeline:
     def __init__(self, images, poses, K, n_rays: int = 1024,
                  precrop_iters: int = 0, precrop_frac: float = 0.5,
                  sample_across_images: bool = False, alphas=None,
-                 device="cpu"):
+                 times=None, device="cpu"):
         """images (N, H, W, 3) and alphas (N, H, W) or None, in [0, 1] or
-        uint8; poses (N, 4, 4) c2w; K (3, 3) intrinsics."""
+        uint8; poses (N, 4, 4) c2w; K (3, 3) intrinsics; times (N,) or
+        None."""
         self.device = torch.device(device)
         self.images = torch.as_tensor(_to_uint8(images), device=self.device)
         self.alphas = None if alphas is None else torch.as_tensor(
             _to_uint8(alphas), device=self.device)
         self.poses = torch.as_tensor(np.asarray(poses, np.float32),
                                      device=self.device)
+        self.times = None if times is None else torch.as_tensor(
+            np.asarray(times, np.float32), device=self.device)
         self.n_images, self.H, self.W = self.images.shape[:3]
         K = np.asarray(K, np.float32)
         self.focal, self.cx, self.cy = (float(K[0, 0]), float(K[0, 2]),
@@ -89,9 +94,9 @@ class DeviceRayPipeline:
 
     def sample(self, generator: torch.Generator, step: int = 1 << 30) -> dict:
         """One training batch {rays_o, rays_d, colors}, each (n_rays, 3)
-        float32 on the device, and {alpha} (n_rays,) when the pipeline
-        holds alphas; a data-parallel rank's ``generator`` gives its rows
-        of that batch."""
+        float32 on the device, and {alpha} and {times} (n_rays,) when the
+        pipeline holds alphas and times; a data-parallel rank's
+        ``generator`` gives its rows of that batch."""
         u_lo, u_hi, v_lo, v_hi = self.bounds(step)
         n = local_rows(generator, self.n_rays)
 
@@ -111,4 +116,6 @@ class DeviceRayPipeline:
                  "colors": colors}
         if self.alphas is not None:
             batch["alpha"] = self.alphas[img, v, u].float() / 255.0
+        if self.times is not None:
+            batch["times"] = self.times[img].expand(n)
         return batch

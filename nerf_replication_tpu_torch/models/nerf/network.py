@@ -132,10 +132,12 @@ class Network(nn.Module):
         return self(pts, zero_dirs, model=model)[..., 3]
 
 
-def make_network(cfg, generator: torch.Generator | None = None) -> Network:
+def make_network(cfg, generator: torch.Generator | None = None):
     """The config's Network, initialised from ``generator`` (default: a
     CPU generator seeded with ``cfg.seed``): a hash-grid table first, then
-    coarse, then fine. A top-level ``num_frames`` goes into the encoder
+    coarse, then fine. With a ``network.deform`` section it is a D-NeRF
+    (``dnerf_network.DNeRFNetwork``: the deformation MLP, then one
+    canonical MLP). A top-level ``num_frames`` goes into the encoder
     sections that do not set their own, as in the JAX package (the
     reference's time-conditioned encoders read it globally)."""
     c = cfg.network
@@ -151,6 +153,10 @@ def make_network(cfg, generator: torch.Generator | None = None) -> Network:
     dtype = getattr(torch, c.get("dtype", "bfloat16"))
     xyz_encoder = get_encoder(c.xyz_encoder, generator)
     dir_encoder = get_encoder(c.dir_encoder, generator)
+    if c.get("deform") is not None:
+        from .dnerf_network import make_dnerf_network
+        return make_dnerf_network(cfg, xyz_encoder, dir_encoder, dtype,
+                                  use_viewdirs, generator)
 
     def mk():
         return NeRFMLP(

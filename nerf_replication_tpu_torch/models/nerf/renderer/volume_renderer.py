@@ -41,6 +41,12 @@ rank makes itself on the whole frame; each chunk is the one-device
 render's, so the image is too. In training a rank's generator draws the
 global batch's values and keeps its rays' (``ops.ray_ops.draw``).
 
+A D-NeRF (``models.nerf.dnerf_network``) renders each ray at its time:
+:func:`render_rays` and :func:`fine_stage` take ``times`` (N,) and give
+every coarse and fine sample its ray's, as ``apply_fn(pts, viewdirs,
+model, times)``; the eval paths take them from the batch's ``times``
+(:meth:`Renderer.render`), the training batch's from the pipeline.
+
 Under a torch profiler the stages are ``utils.tracing`` spans:
 ``render.coarse`` (:func:`render_rays`), ``render.resample`` and
 ``render.fine`` (:func:`fine_stage`), inside ``render.frame``
@@ -168,10 +174,20 @@ def _ess_ert_mask(density, t_coarse, t_fine_idx_below,
     return valid & ~empty_ray[..., None]
 
 
+def _at_times(apply_fn, times):
+    """``apply_fn`` with every sample at its ray's time (``times`` (N,)),
+    or as it is without times."""
+    if times is None:
+        return apply_fn
+    t = times.reshape(-1, 1)
+    return lambda pts, viewdirs, model="": apply_fn(pts, viewdirs, model, t)
+
+
 def fine_stage(apply_fn, rays_o, rays_d, viewdirs, t_coarse, w_c,
                s: RenderSettings, generator: torch.Generator | None = None,
                train: bool = False,
-               density_coarse: torch.Tensor | None = None) -> dict:
+               density_coarse: torch.Tensor | None = None,
+               times: torch.Tensor | None = None) -> dict:
     """Importance-resample from the coarse weights (their gradient
     stopped), sort the union of coarse and fine depths, run the fine MLP
     and composite. In training the CDF is sampled at random ``u`` and the
@@ -182,8 +198,9 @@ def fine_stage(apply_fn, rays_o, rays_d, viewdirs, t_coarse, w_c,
     replaced by zeros (the reference's zero-filled scatter,
     network.py:234-253), so its density is the activation's at 0 and it
     gets no gradient. With ``ess_verbose`` the output holds
-    ``ess_stats``."""
+    ``ess_stats``. ``times`` (N,): each ray's time, for a D-NeRF."""
     gen = generator if train else None
+    apply_fn = _at_times(apply_fn, times)
     with tracing.span("render.resample"):
         bins = 0.5 * (t_coarse[..., 1:] + t_coarse[..., :-1])
         t_fine = sample_pdf(bins, w_c[..., 1:-1].detach(), s.N_importance,
@@ -332,7 +349,8 @@ def fine_stage_ert(apply_fn, rays_o, rays_d, viewdirs, t_coarse, w_c,
 
 def render_rays(apply_fn, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 s: RenderSettings, generator: torch.Generator | None = None,
-                train: bool = False) -> dict:
+                train: bool = False,
+                times: torch.Tensor | None = None) -> dict:
     """Render a flat batch of rays (N, 3).
     ``apply_fn(pts, viewdirs, model) -> raw (..., 4)``. Deterministic
     unless ``train`` and a ``generator`` are given (the JAX package's
@@ -340,8 +358,11 @@ def render_rays(apply_fn, rays_o: torch.Tensor, rays_d: torch.Tensor,
     rgb_coarse/depth_coarse/acc_coarse when N_importance > 0, else the
     coarse ``weights`` (N, N_samples), which the compacted frame's fine
     pass reuses. With ``fast_sampling`` the fine pass is masked
-    (:func:`fine_stage`), in training and in eval."""
+    (:func:`fine_stage`), in training and in eval. ``times`` (N,): each
+    ray's time, which a D-NeRF's ``apply_fn`` takes as a fourth
+    argument."""
     gen = generator if train else None
+    coarse_fn = _at_times(apply_fn, times)
     with tracing.span("render.coarse"):
         t_coarse = stratified_sample(
             rays_o.shape[0], s.N_samples, s.near, s.far,
@@ -349,7 +370,7 @@ def render_rays(apply_fn, rays_o: torch.Tensor, rays_d: torch.Tensor,
             device=rays_o.device)
         pts = rays_o[:, None] + rays_d[:, None] * t_coarse[..., None]
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-        raw = apply_fn(pts, viewdirs[:, None], "")
+        raw = coarse_fn(pts, viewdirs[:, None], "")
         act = density_activation(s.density_activation)
         w_c, _, _ = compute_weights(
             raw[..., 3], t_coarse, activation=act, finite_tail=s.finite_tail,
@@ -361,7 +382,8 @@ def render_rays(apply_fn, rays_o: torch.Tensor, rays_d: torch.Tensor,
     # the masks read the coarse densities without noise
     density_c = act(raw[..., 3]) if s.fast_sampling else None
     out = fine_stage(apply_fn, rays_o, rays_d, viewdirs, t_coarse, w_c, s,
-                     generator=gen, train=train, density_coarse=density_c)
+                     generator=gen, train=train, density_coarse=density_c,
+                     times=times)
     out.update(rgb_coarse=rgb_c, depth_coarse=depth_c, acc_coarse=acc_c)
     return out
 
@@ -463,29 +485,37 @@ class Renderer:
         return (torch.as_tensor(rays_o, dtype=torch.float32, device=device),
                 torch.as_tensor(rays_d, dtype=torch.float32, device=device))
 
-    def _render_chunks(self, rays_o, rays_d, s: RenderSettings) -> dict:
+    def _render_chunks(self, rays_o, rays_d, s: RenderSettings,
+                       times=None) -> dict:
         """``render_rays`` over (N, 3) rays ``ray_chunk`` at a time, with a
         mesh the chunks dealt out whole over its ranks (the JAX package
         splits each by rows instead, rounding ``ray_chunk`` up to a
         multiple of the mesh's size, :481-488). The last chunk is padded to
         full size with rays whose direction is (1, 1, 1), so padding never
-        divides by zero."""
+        divides by zero. ``times`` (N,): each ray's time (a D-NeRF)."""
         n = rays_o.shape[0]
         chunk = min(s.ray_chunk, n)
         n_pad = (-n) % chunk
         ro = torch.nn.functional.pad(rays_o, (0, 0, 0, n_pad))
         rd = torch.nn.functional.pad(rays_d, (0, 0, 0, n_pad), value=1.0)
+        xs = (ro, rd) if times is None else (
+            ro, rd, torch.nn.functional.pad(times.reshape(-1), (0, n_pad)))
         out = make_dp_eval_render(
-            lambda o, d: render_rays(self.apply_fn, o, d, s), self.mesh,
-            chunk)(ro, rd)
+            lambda o, d, *t: render_rays(self.apply_fn, o, d, s,
+                                         times=t[0] if t else None),
+            self.mesh, chunk)(*xs)
         return {k: v[:n] for k, v in out.items()}
 
     @torch.inference_mode()
-    def render_rays_batch(self, rays_o, rays_d) -> dict:
+    def render_rays_batch(self, rays_o, rays_d, times=None) -> dict:
         """Flat (N, 3) rays (numpy or tensors) -> dict of (N, ...) tensors
-        on the renderer's device, rendered ``ray_chunk`` rays at a time."""
+        on the renderer's device, rendered ``ray_chunk`` rays at a time;
+        a D-NeRF's at ``times`` (N,)."""
+        if times is not None:
+            times = torch.as_tensor(times, dtype=torch.float32,
+                                    device=self.device)
         return self._render_chunks(*self._rays(rays_o, rays_d),
-                                   self.eval_settings)
+                                   self.eval_settings, times)
 
     @torch.inference_mode()
     def render_image_fast(self, rays_o, rays_d, eps: float = 1e-3) -> dict:
@@ -676,15 +706,16 @@ class Renderer:
 
     def render(self, batch):
         """Reference-contract entry: ``batch`` holds rays_o/rays_d of shape
-        (..., 3); returns (rgb (N, 3), depth (N,)) tensors. With
-        ``fast_sampling`` and a fine pass, through
-        :meth:`render_image_fast`."""
+        (..., 3) (and, for a D-NeRF, ``times`` (...)); returns (rgb (N, 3),
+        depth (N,)) tensors. With ``fast_sampling`` and a fine pass,
+        through :meth:`render_image_fast`."""
         rays_o = torch.as_tensor(batch["rays_o"]).reshape(-1, 3)
         rays_d = torch.as_tensor(batch["rays_d"]).reshape(-1, 3)
         with tracing.span("render.frame", root=self.frames):
             if self.settings.fast_sampling and self.settings.N_importance > 0:
                 out = self.render_image_fast(rays_o, rays_d)
             else:
-                out = self.render_rays_batch(rays_o, rays_d)
+                out = self.render_rays_batch(rays_o, rays_d,
+                                             batch.get("times"))
         self.frames += 1
         return out["rgb"], out["depth"]

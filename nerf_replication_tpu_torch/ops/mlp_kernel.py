@@ -82,7 +82,8 @@ def image_index(depth: int, skip: int, transposed: bool) -> torch.Tensor:
     transposed one the backward's delta products read (see
     ``csrc/nerf_mlp_tile.cuh``). Every matrix keeps its offset. The
     transposed image permutes only the matrices the backward multiplies
-    by (trunk layers 1.., feat, vf, rgb); the rest stay as in the pack."""
+    by (the trunk's, the skip layer's input rows, feat, vf, rgb; W_0 and
+    W_ix only for the input gradient); the rest stay as in the pack."""
     parts, at = [], 0
     for name, rows, cols in pack_matrices(depth, skip):
         idx = torch.arange(at, at + rows * cols).view(rows, cols)
@@ -92,7 +93,7 @@ def image_index(depth: int, skip: int, transposed: bool) -> torch.Tensor:
         elif not transposed:
             parts.append(_slab_order(idx, min(rows, SLAB_K)
                                      if name != "rgb" else rows))
-        elif name in ("0", "vd") or name.endswith("x"):
+        elif name == "vd":
             parts.append(idx.reshape(-1))
         else:
             parts.append(_slab_order(idx.t(), min(cols, SLAB_K)))
@@ -254,10 +255,12 @@ def fused_nerf_mlp_enc_reference(packed: PackedMLP, pts: torch.Tensor,
 
 
 def encode_features(pts: torch.Tensor, dirs: torch.Tensor, xyz_freqs: int,
-                    view_freqs: int):
+                    view_freqs: int, x_dtype: torch.dtype = torch.bfloat16):
     """Raw (N, 3) points and directions -> the features-in kernel's bf16
-    inputs x (N, 64) and v (N, 32), zero-padded, contiguous."""
-    return (_encode(pts, xyz_freqs, X_DIM).to(torch.bfloat16).contiguous(),
+    inputs x (N, 64) and v (N, 32), zero-padded, contiguous. ``x_dtype``
+    float32 keeps x unrounded (the kernel's wrapper rounds it), so that a
+    gradient into x is not rounded to bf16 on its way back."""
+    return (_encode(pts, xyz_freqs, X_DIM).to(x_dtype).contiguous(),
             _encode(dirs, view_freqs, V_DIM).to(torch.bfloat16).contiguous())
 
 
@@ -405,7 +408,9 @@ def flops_per_point(packed: PackedMLP) -> int:
 
 def unsupported(net) -> str | None:
     """What of ``net`` (a port Network) the kernel does not cover, or None
-    when it is the canonical architecture with frequency encoders."""
+    when it is the canonical architecture with frequency encoders. A
+    D-NeRF's ``coarse`` and ``fine`` are its one canonical MLP; its
+    deformation MLP runs in PyTorch ahead of the kernel."""
     for m in (net.coarse, net.fine):
         if m.width != WIDTH:
             return f"width {m.width} (the kernel takes {WIDTH})"
@@ -428,7 +433,9 @@ def unsupported(net) -> str | None:
 def make_fused_apply(net):
     """Eval ``apply_fn(pts, viewdirs, model)`` that runs both branches of
     ``net`` (a port Network) through :func:`fused_nerf_mlp_enc`, with the
-    weights packed now. None when :func:`unsupported` names a part of the
+    weights packed now. For a D-NeRF, ``apply_fn(pts, viewdirs, model,
+    times)`` moves the points through its deformation MLP first and runs
+    the kernel on x + dx. None when :func:`unsupported` names a part of the
     network that the kernel does not cover."""
     if unsupported(net) is not None:
         return None
@@ -437,10 +444,12 @@ def make_fused_apply(net):
         name: pack_nerf_params(mlp.state_dict(), xyz.output_dim,
                                dirs.output_dim, mlp.depth, mlp.skips[0])
         for name, mlp in (("coarse", net.coarse), ("fine", net.fine))}
+    move = getattr(net, "move", None)
 
-    def apply_fn(pts, viewdirs, model=""):
+    def apply_fn(pts, viewdirs, model="", times=None):
         shape = pts.shape[:-1]
-        p = pts.reshape(-1, 3).float().contiguous()
+        p = pts if move is None else move(pts, times)
+        p = p.reshape(-1, 3).float().contiguous()
         d = viewdirs.expand(*shape, 3).reshape(-1, 3).float().contiguous()
         branch = "fine" if model == "fine" else "coarse"
         raw = fused_nerf_mlp_enc(packed[branch], p, d, xyz.n_freqs,

@@ -19,8 +19,11 @@ The counterpart of nerf_replication_tpu/ops/pallas/mlp_train.py, whose
 Numerics (mlp_train.py:14-19): bf16 operands and f32 accumulation both
 ways, f32 master weights cast to bf16 for the products, ReLU masks from the
 recomputed activations, bias gradients summed from f32 deltas, weight
-gradients from bf16 deltas. Input gradients are zero by contract: sample
-positions and directions carry none in NeRF training.
+gradients from bf16 deltas. The encoded points' gradient dL/dx = d_0 .
+W_0^T + d_{skip+1} . W_ix^T (f32, from the same bf16 deltas) is formed when
+x needs one, as a D-NeRF's moved points do (the backward kernel's input
+gradient arm), and only then: a NeRF's sample positions carry none. The
+directions' gradient is zero by contract.
 """
 
 from __future__ import annotations
@@ -160,19 +163,34 @@ def backward_planes(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     return planes, torch.cat([gb[name] for name, _ in sizes])
 
 
+def input_grad(planes: dict, packed: PackedMLP) -> torch.Tensor:
+    """The encoded points' gradient (N, 64) from the planes' bf16 deltas:
+    d_0 . W_0^T + d_{skip+1} . W_ix^T, the products the kernel's input
+    gradient arm computes."""
+    _, w, _, _ = _unpack(packed)
+    s = packed.skip + 1
+    d = planes["d"]
+    return d[s] @ w[f"{s}x"].t() + d[0] @ w["0"].t()
+
+
 def fused_nerf_mlp_bwd_reference(packed: PackedMLP, x: torch.Tensor,
                                  v: torch.Tensor, g: torch.Tensor,
-                                 keep: dict | None = None):
+                                 keep: dict | None = None,
+                                 with_input_grad: bool = False):
     """Plain PyTorch version of the backward kernel (see
     :func:`backward_planes`): bf16 x (N, 64), v (N, 32), f32 g (N, 4) ->
-    (f32 weight-pack gradient, f32 bias-pack gradient). With ``keep``,
-    stores the planes there as ``keep["planes"]``."""
+    (f32 weight-pack gradient, f32 bias-pack gradient), and with
+    ``with_input_grad`` the f32 gradient of x (:func:`input_grad`). With
+    ``keep``, stores the planes there as ``keep["planes"]``."""
     tracing.counts["fused_nerf_mlp_bwd_reference.calls"] += 1
     planes, grad_b = backward_planes(packed, x, v, g)
     if keep is not None:
         keep["planes"] = planes
     dt = planes["d_rgb"].dtype
-    return weight_grads(planes, x.to(dt), v.to(dt), packed), grad_b
+    grads = (weight_grads(planes, x.to(dt), v.to(dt), packed), grad_b)
+    if with_input_grad:
+        grads += (input_grad(planes, packed),)
+    return grads
 
 
 @functools.cache
@@ -181,7 +199,7 @@ def _kernel():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_nerf_mlp_bwd.argtypes = (
         [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, i32, i32]   # x .. skip
-        + [ptr] * 8                                          # act .. grad_b
+        + [ptr] * 9                                          # act .. grad_x
         + [i64, i64, i32, i32, i32, ptr]                     # e_w .. stream
         + [ctypes.POINTER(i64)])                             # bulk_bytes
     lib.fused_nerf_mlp_bwd.restype = i32
@@ -248,18 +266,22 @@ def workspace_planes(act: torch.Tensor, dlt: torch.Tensor, n: int,
 
 
 def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
-                       g: torch.Tensor, keep: dict | None = None):
+                       g: torch.Tensor, keep: dict | None = None,
+                       with_input_grad: bool = False):
     """Gradients of the f32 weight and bias packs from bf16 features x
-    (N, 64), v (N, 32) and the f32 cotangent g (N, 4) of the raw output.
-    With ``keep``, stores the kernel's workspace there as
-    ``keep["planes"]`` (see :func:`workspace_planes`), for checks. Counts
-    the launch, and the bytes its workspace's bulk copies move as the C
-    launcher reports them, in ``tracing.counts``.
+    (N, 64), v (N, 32) and the f32 cotangent g (N, 4) of the raw output,
+    and with ``with_input_grad`` the f32 gradient of x (N, 64), which the
+    delta kernel's input gradient arm forms. With ``keep``, stores the
+    kernel's workspace there as ``keep["planes"]`` (see
+    :func:`workspace_planes`), for checks. Counts the launch (and an
+    input-gradient launch apart), and the bytes its workspace's bulk
+    copies move as the C launcher reports them, in ``tracing.counts``.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     """
     if x.device.type == "cpu":
-        return fused_nerf_mlp_bwd_reference(packed, x, v, g, keep)
+        return fused_nerf_mlp_bwd_reference(packed, x, v, g, keep,
+                                            with_input_grad)
     if x.device.type != "cuda":
         raise ValueError(f"fused kernel: unsupported device {x.device}")
     n = mlp_kernel.check_features(x, v)
@@ -271,7 +293,9 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     kw = dict(dtype=torch.float32, device=x.device)
     e_w, e_b = packed.w.numel(), packed.b.numel()
     if n == 0:
-        return torch.zeros(e_w, **kw), torch.zeros(e_b, **kw)
+        empty = (torch.zeros(e_w, **kw), torch.zeros(e_b, **kw))
+        return empty + ((torch.zeros(0, X_DIM, **kw),) if with_input_grad
+                        else ())
     d = packed.depth
     n_pad = -(-n // PAD) * PAD
     x_pad = F.pad(x, (0, 0, 0, n_pad - n)).contiguous()
@@ -287,6 +311,7 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     part_b = torch.empty(bias_rows * e_b, **kw)
     tmp_b = torch.empty(-(-bias_rows // group_b) * e_b, **kw)
     grad_w, grad_b = torch.empty(e_w, **kw), torch.empty(e_b, **kw)
+    grad_x = torch.empty(n_pad, X_DIM, **kw) if with_input_grad else None
     lib = _kernel()
     moved = ctypes.c_longlong(0)
     with torch.cuda.device(x.device):
@@ -296,44 +321,52 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
             packed.b.data_ptr(), d, packed.skip, act.data_ptr(),
             dlt.data_ptr(), part_w.data_ptr(), tmp_w.data_ptr(),
             part_b.data_ptr(), tmp_b.data_ptr(),
-            grad_w.data_ptr(), grad_b.data_ptr(), e_w, e_b, CHUNK, group_w,
-            group_b, torch.cuda.current_stream(x.device).cuda_stream,
+            grad_w.data_ptr(), grad_b.data_ptr(),
+            None if grad_x is None else grad_x.data_ptr(), e_w, e_b, CHUNK,
+            group_w, group_b, torch.cuda.current_stream(x.device).cuda_stream,
             ctypes.byref(moved))
     mlp_kernel.check_launch(err, "fused_nerf_mlp_bwd")
     tracing.counts["fused_nerf_mlp_bwd.launches"] += 1
     tracing.counts["fused_nerf_mlp_bwd.bulk_bytes"] += moved.value
     if keep is not None:
         keep["planes"] = workspace_planes(act, dlt, n, n_pad, d)
-    return grad_w, grad_b
+    if grad_x is None:
+        return grad_w, grad_b
+    tracing.counts["fused_nerf_mlp_bwd.input_grad_launches"] += 1
+    return grad_w, grad_b, grad_x[:n]
 
 
 class FusedNeRFMLPFn(torch.autograd.Function):
     """raw (N, 4) = MLP(x, v) with f32 packs ``w``, ``b`` as the
-    differentiable inputs; x, v get zero gradients."""
+    differentiable inputs; x (bf16, or f32 that the forward rounds to
+    bf16) gets its f32 gradient where it needs one (the backward's input
+    gradient arm; an f32 x keeps it unrounded), v a zero one."""
 
     @staticmethod
     def forward(ctx, w, b, x, v, depth: int, skip: int):
         packed = PackedMLP(w=w.detach().to(torch.bfloat16).contiguous(),
                            b=b.detach().contiguous(), depth=depth, skip=skip)
         ctx.packed = packed
+        x = x.to(torch.bfloat16).contiguous()
         ctx.save_for_backward(x, v)
         return mlp_kernel.fused_nerf_mlp(packed, x, v)
 
     @staticmethod
     def backward(ctx, g):
         x, v = ctx.saved_tensors
-        grad_w, grad_b = fused_nerf_mlp_bwd(ctx.packed, x, v,
-                                            g.float().contiguous())
-        zx = torch.zeros_like(x) if ctx.needs_input_grad[2] else None
+        want_x = ctx.needs_input_grad[2]
+        grad_w, grad_b, *gx = fused_nerf_mlp_bwd(
+            ctx.packed, x, v, g.float().contiguous(), with_input_grad=want_x)
+        gx = gx[0] if want_x else None
         zv = torch.zeros_like(v) if ctx.needs_input_grad[3] else None
-        return grad_w, grad_b, zx, zv, None, None
+        return grad_w, grad_b, gx, zv, None, None
 
 
 def fused_nerf_mlp_diff(mlp, x: torch.Tensor, v: torch.Tensor, in_dim: int,
                         view_dim: int) -> torch.Tensor:
-    """One branch through the differentiable kernels: bf16 features x
-    (N, 64), v (N, 32) -> raw (N, 4), with gradients to ``mlp``'s
-    parameters."""
+    """One branch through the differentiable kernels: features x (N, 64;
+    bf16, or f32 for an f32 gradient), bf16 v (N, 32) -> raw (N, 4), with
+    gradients to ``mlp``'s parameters (and to x where it needs one)."""
     w, b = pack_params_torch(mlp, in_dim, view_dim)
     return FusedNeRFMLPFn.apply(w, b, x, v, mlp.depth, mlp.skips[0])
 
@@ -341,17 +374,25 @@ def fused_nerf_mlp_diff(mlp, x: torch.Tensor, v: torch.Tensor, in_dim: int,
 def make_fused_train_apply(net):
     """Training ``apply_fn(pts, viewdirs, model) -> raw (..., 4)`` that runs
     both branches of ``net`` (a port Network) through the differentiable
-    kernels. None exactly where ``mlp_kernel.unsupported(net)`` names a
-    part of the network that the kernels do not cover."""
+    kernels. For a D-NeRF, ``apply_fn(pts, viewdirs, model, times)`` moves
+    the points through its deformation MLP (PyTorch, autograd) and runs the
+    kernels on x + dx, whose f32 gradient the backward's input gradient arm
+    returns: the one path by which the deformation learns. None exactly
+    where ``mlp_kernel.unsupported(net)`` names a part of the network that
+    the kernels do not cover."""
     if mlp_kernel.unsupported(net) is not None:
         return None
     xyz, dirs = net.xyz_encoder, net.dir_encoder
+    move = getattr(net, "move", None)
+    x_dtype = torch.bfloat16 if move is None else torch.float32
 
-    def apply_fn(pts, viewdirs, model=""):
+    def apply_fn(pts, viewdirs, model="", times=None):
         shape = pts.shape[:-1]
-        p = pts.reshape(-1, 3).float()
+        p = pts if move is None else move(pts, times)
+        p = p.reshape(-1, 3).float()
         d = viewdirs.expand(*shape, 3).reshape(-1, 3).float()
-        x, v = mlp_kernel.encode_features(p, d, xyz.n_freqs, dirs.n_freqs)
+        x, v = mlp_kernel.encode_features(p, d, xyz.n_freqs, dirs.n_freqs,
+                                          x_dtype)
         mlp = net.fine if model == "fine" else net.coarse
         raw = fused_nerf_mlp_diff(mlp, x, v, xyz.output_dim, dirs.output_dim)
         return raw.reshape(*shape, 4)
@@ -361,5 +402,6 @@ def make_fused_train_apply(net):
 
 __all__ = ["pack_params_torch", "fused_nerf_mlp_bwd",
            "fused_nerf_mlp_bwd_reference", "backward_planes", "weight_grads",
+           "input_grad",
            "workspace_columns", "workspace_planes", "FusedNeRFMLPFn",
            "fused_nerf_mlp_diff", "make_fused_train_apply", "build"]

@@ -72,18 +72,21 @@ from . import make_recorder, make_trainer
 
 
 def make_pipeline(cfg, arrays, device) -> DeviceRayPipeline:
-    """The device-resident sampler over ``arrays``: (images, poses, K) or
-    (images, poses, K, alphas). The alphas go to the device only with
-    ``task_arg.random_bkgd``, the one thing that reads them."""
+    """The device-resident sampler over ``arrays``: (images, poses, K),
+    (images, poses, K, alphas) or (images, poses, K, alphas, times). The
+    alphas go to the device only with ``task_arg.random_bkgd``, the one
+    thing that reads them; a dynamic scene's times always."""
     ta = cfg.task_arg
     images, poses, K, *rest = arrays
+    times = rest[1] if len(rest) > 1 else None
     random_bkgd = as_bool(ta.get("random_bkgd", False), "task_arg.random_bkgd")
     return DeviceRayPipeline(
         images, poses, K, n_rays=int(ta.get("N_rays", 1024)),
         precrop_iters=int(ta.get("precrop_iters", 0)),
         precrop_frac=float(ta.get("precrop_frac", 0.5)),
         sample_across_images=bool(ta.get("sample_across_images", False)),
-        alphas=rest[0] if rest and random_bkgd else None, device=device)
+        alphas=rest[0] if rest and random_bkgd else None, times=times,
+        device=device)
 
 
 def _pretrain_dir(name: str) -> str:
@@ -126,7 +129,8 @@ def train(cfg, train_arrays=None, val_loader=None):
     elif train_arrays is None:
         dataset = make_train_dataset(cfg)
         if hasattr(dataset, "as_arrays"):
-            train_arrays = (*dataset.as_arrays(), dataset.alpha_arrays())
+            train_arrays = (*dataset.as_arrays(), dataset.alpha_arrays(),
+                            dataset.time_arrays())
         else:
             loader = make_loader(cfg, dataset, **host)
     pipeline = (None if loader is not None

@@ -12,6 +12,9 @@ loader's colours are composited onto white, so the batch's ``alpha``
 recovers the premultiplied colour exactly. It applies in training with a
 generator, a white-background renderer and ``alpha`` in the batch, as in
 the JAX package (:51-54).
+
+A batch's ``times`` (a dynamic scene's) go to the network with its rays:
+a D-NeRF renders each ray at its time.
 """
 
 from __future__ import annotations
@@ -67,7 +70,8 @@ class NetworkWrapper:
             bg = self.draw_background(colors, generator)
             colors = (colors - (1.0 - alpha)) + bg * (1.0 - alpha)
         out = render_rays(self.renderer.train_apply, rays_o, rays_d,
-                          self.settings, generator=generator, train=train)
+                          self.settings, generator=generator, train=train,
+                          times=batch.get("times"))
 
         def recompose(rgb, acc):
             """The white-composited ``rgb`` on the random background."""

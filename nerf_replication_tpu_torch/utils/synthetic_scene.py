@@ -13,6 +13,13 @@ train split (``rng(seed + 1)``, 100 views, as the hard scene was made).
 :func:`generate_scene` writes a whole scene in the NeRF-synthetic layout
 (``transforms_{split}.json``, RGBA PNGs, and the test split's depth and
 normal PNGs, :func:`normal_field`), as the JAX writer (:246-306) does.
+
+``hard_dnerf`` is the dynamic variant of the hard scene, the procedural
+stand-in for D-NeRF's scenes: each primitive moves smoothly with the time t
+in [0, 1] (:data:`HARD_MOTION`, :func:`spheres_at`) and carries its
+texture along, and t = 0 is the hard scene itself. ``generate_scene``
+writes it in D-NeRF's layout: view i of a split of n is at time i / (n -
+1), stored as its frame's ``time``.
 """
 
 from __future__ import annotations
@@ -59,8 +66,23 @@ MED_SPHERES = [
     for (c, r, col, dens, amp, freq, ph) in HARD_SPHERES
 ]
 
+# "hard_dnerf": primitive k of the hard scene moved at time t by
+# amp_k * sin(pi * rate_k * t); (amp xyz, rate)
+HARD_MOTION = [
+    ((0.00, 0.00, 0.15), 1.0),
+    ((0.00, 0.25, 0.00), 0.5),
+    ((0.20, 0.00, 0.10), 2.0),
+    ((-0.15, 0.10, 0.00), 1.0),
+    ((0.00, -0.20, -0.10), 0.5),
+    ((0.15, 0.15, 0.00), 2.0),
+    ((0.00, 0.20, 0.15), 1.0),
+    ((-0.20, 0.00, 0.00), 0.5),
+]
+
 SCENES = {"probe": DEFAULT_SPHERES, "hard": HARD_SPHERES,
           "med": MED_SPHERES}
+# the dynamic scenes: (their primitives at t = 0, their motion)
+DYNAMIC_SCENES = {"hard_dnerf": (HARD_SPHERES, HARD_MOTION)}
 CAMERA_ANGLE_X = 0.6911112070083618  # the Blender lego field of view
 # generate_scene's defaults, with which the hard scene was made: the test
 # poses depend on all three
@@ -74,6 +96,26 @@ def _sphere_fields(sphere):
         return (*sphere, None)
     center, radius, color, density, amp, freq, phase = sphere
     return center, radius, color, density, (amp, freq, phase)
+
+
+def spheres_at(spheres, motion, t: float) -> list:
+    """The primitives of a dynamic scene at time ``t``: each centre moved
+    by its offset, and its texture's phase by -freq * offset, so the
+    texture moves with the primitive."""
+    out = []
+    for (center, radius, color, density, amp, freq, phase), (a, rate) in \
+            zip(spheres, motion):
+        off = [ak * float(np.sin(np.pi * rate * t)) for ak in a]
+        out.append((tuple(c + o for c, o in zip(center, off)), radius, color,
+                    density, amp, freq,
+                    tuple(p - f * o for p, f, o in zip(phase, freq, off))))
+    return out
+
+
+def frame_times(n: int) -> np.ndarray:
+    """The times of a dynamic scene's ``n`` views of a split: i / (n - 1)."""
+    return (np.arange(n, dtype=np.float32) / max(n - 1, 1)).astype(
+        np.float32)
 
 
 def _tex_mod(pts: torch.Tensor, amp, freq, phase) -> torch.Tensor:
@@ -200,11 +242,19 @@ def render_gt(pose, H, W, focal, spheres=DEFAULT_SPHERES, n_samples=384,
             torch.cat(depth_out).cpu().numpy().reshape(H, W))
 
 
-def _stored_and_loaded(pose, H, W, focal, scene, device):
+def _spheres(scene: str, t: float):
+    """The scene's primitives (at time ``t``, for a dynamic scene)."""
+    if scene in DYNAMIC_SCENES:
+        return spheres_at(*DYNAMIC_SCENES[scene], t)
+    return SCENES[scene]
+
+
+def _stored_and_loaded(pose, H, W, focal, scene, device, t=0.0):
     """Ground truth as ``generate_scene`` stores it (RGBA uint8) and the
     Blender loader reads it: the image composited onto white, float32
     (H, W, 3), and the stored alpha, float32 (H, W)."""
-    rgb, alpha, _ = render_gt(pose, H, W, focal, SCENES[scene], device=device)
+    rgb, alpha, _ = render_gt(pose, H, W, focal, _spheres(scene, t),
+                              device=device)
     rgba = np.concatenate([rgb, alpha[..., None]], -1)
     img = (np.clip(rgba, 0, 1) * 255).astype(np.uint8)
     img = np.asarray(img, dtype=np.float32) / 255.0
@@ -217,11 +267,12 @@ def train_views(scene: str, H: int, W: int, idx, device="cpu"):
     Blender loader's ``as_arrays`` and ``alpha_arrays`` give them: (images
     (n, H, W, 3) float32, poses (n, 4, 4) float32, K (3, 3) float32,
     alphas (n, H, W) float32), ground truth from :func:`render_gt` on
-    ``device``."""
+    ``device`` (a dynamic scene's view i at its time i / 99)."""
     focal = W / (2.0 * np.tan(CAMERA_ANGLE_X / 2.0))
     poses = train_poses()
-    views = [_stored_and_loaded(poses[i], H, W, focal, scene, device)
-             for i in idx]
+    times = frame_times(N_TRAIN)
+    views = [_stored_and_loaded(poses[i], H, W, focal, scene, device,
+                                float(times[i])) for i in idx]
     K = np.array([[focal, 0, W / 2.0], [0, focal, H / 2.0], [0, 0, 1.0]],
                  dtype=np.float32)
     return (np.stack([v[0] for v in views]).astype(np.float32),
@@ -232,17 +283,24 @@ def train_views(scene: str, H: int, W: int, idx, device="cpu"):
 def test_views(scene: str, H: int, W: int, idx, device="cpu") -> list[dict]:
     """Test views ``idx`` of ``generate_scene(scene)`` as the
     Blender loader's test batches (colors, rays_o, rays_d, H, W, id,
-    pose, focal), with ground truth from :func:`render_gt` on ``device``
-    stored and loaded as ``generate_scene`` and the loader do it: RGBA
-    uint8, then composited onto white in float32."""
+    pose, focal, and a dynamic scene's per-ray ``times``), with ground
+    truth from :func:`render_gt` on ``device`` stored and loaded as
+    ``generate_scene`` and the loader do it: RGBA uint8, then composited
+    onto white in float32."""
     focal = W / (2.0 * np.tan(CAMERA_ANGLE_X / 2.0))
     poses = test_poses()
+    times = frame_times(N_TEST)
     batches = []
     for i in idx:
         pose = poses[i]
-        img, _ = _stored_and_loaded(pose, H, W, focal, scene, device)
+        img, _ = _stored_and_loaded(pose, H, W, focal, scene, device,
+                                    float(times[i]))
         rays_o, rays_d = camera_rays(pose, H, W, focal)
-        batches.append({
+        if scene in DYNAMIC_SCENES:
+            extra = {"times": np.full(H * W, times[i], np.float32)}
+        else:
+            extra = {}
+        batches.append({**extra,
             "colors": img.reshape(-1, 3).astype(np.float32),
             "rays_o": rays_o.reshape(-1, 3).astype(np.float32),
             "rays_d": rays_d.reshape(-1, 3).astype(np.float32),
@@ -262,10 +320,16 @@ def generate_scene(out_root: str, scene: str = "probe", H: int = 200,
     ``transforms_<split>.json``; the test split also gets
     ``<name>_depth_0001.png`` (depth / 8 as uint8) and
     ``<name>_normal_0001.png`` (of :data:`DEFAULT_SPHERES`, as the JAX
-    writer makes them for every scene). Returns the scene's directory."""
+    writer makes them for every scene). A dynamic scene (``DYNAMIC_SCENES``)
+    renders view i of a split of n at time i / (n - 1) and stores it as
+    the frame's ``time`` (D-NeRF's layout). Returns the scene's
+    directory."""
     from PIL import Image
 
-    if spheres is None:
+    motion = None
+    if spheres is None and scene in DYNAMIC_SCENES:
+        spheres, motion = DYNAMIC_SCENES[scene]
+    elif spheres is None:
         spheres = SCENES.get(scene, DEFAULT_SPHERES)
     scene_dir = os.path.join(out_root, scene)
     focal = W / (2.0 * np.tan(CAMERA_ANGLE_X / 2.0))
@@ -284,8 +348,11 @@ def generate_scene(out_root: str, scene: str = "probe", H: int = 200,
         split_dir = os.path.join(scene_dir, split)
         os.makedirs(split_dir, exist_ok=True)
         frames = []
+        times = frame_times(n)
         for i, pose in enumerate(poses_for(n, split_seed)):
-            rgb, alpha, depth = render_gt(pose, H, W, focal, spheres,
+            at = (spheres if motion is None
+                  else spheres_at(spheres, motion, float(times[i])))
+            rgb, alpha, depth = render_gt(pose, H, W, focal, at,
                                           device=device)
             rgba = np.concatenate([rgb, alpha[..., None]], -1)
             name = f"r_{i}"
@@ -306,6 +373,8 @@ def generate_scene(out_root: str, scene: str = "probe", H: int = 200,
             frames.append({"file_path": f"./{split}/{name}",
                            "rotation": 0.0,
                            "transform_matrix": pose.tolist()})
+            if motion is not None:
+                frames[-1]["time"] = float(times[i])
         with open(os.path.join(scene_dir, f"transforms_{split}.json"),
                   "w") as f:
             json.dump({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames}, f)

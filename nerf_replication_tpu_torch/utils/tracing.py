@@ -23,7 +23,11 @@ children's). :func:`reset` empties the store.
 :data:`counts` counts, always, each kernel wrapper's launches and each
 plain version's calls, under ``"<owner>.<what>"``: e.g.
 ``"fused_nerf_mlp.launches"``, ``"fused_ngp_eval.bf16_launches"``,
-``"fused_nerf_mlp_reference.calls"``, ``"Network.calls"``.
+``"fused_nerf_mlp_reference.calls"``, ``"Network.calls"``. A D-NeRF
+adds the span ``dnerf.deform`` (its deformation MLP's forward, once per
+pass), the count of the points it moves (``"DNeRF.deform_points"``) and
+the backward's input-gradient launches
+(``"fused_nerf_mlp_bwd.input_grad_launches"``).
 """
 
 from __future__ import annotations

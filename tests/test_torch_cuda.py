@@ -107,14 +107,7 @@ def test_render_on_gpu_matches_cpu_plain_render(cuda, monkeypatch):
     torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=2e-3, rtol=0)
 
 
-def _flipped_points(planes_k, planes_p) -> torch.Tensor:
-    """The points (a bool mask) at which the two arms' recomputed
-    activations disagree on a ReLU: one is zero where the other is
-    positive, because the f32 summation order moved a value across zero."""
-    flipped = ((planes_k["g_act"] > 0) != (planes_p["g_act"] > 0)).any(dim=1)
-    for h_k, h_p in zip(planes_k["h"], planes_p["h"]):
-        flipped |= ((h_k > 0) != (h_p > 0)).any(dim=1)
-    return flipped
+_flipped_points = chip_smoke.flipped_points
 
 
 def _less_points(grads, planes, rows, x, v, packed):
@@ -207,6 +200,56 @@ def test_training_kernels_match_plain_versions(cuda, monkeypatch, n):
         assert kept["ok"], chip_smoke.describe_grad(kept)
         assert a["wgrad"] <= chip_smoke.WGRAD_REL and a["pad_zero"], \
             chip_smoke.describe_grad(a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 129, 4096, 262144, 786432])
+def test_input_grad_arm_matches_plain_backward(cuda, monkeypatch, n):
+    """#5's input gradient arm (a D-NeRF's), at ragged small counts and at a
+    4096-ray step's 262,144 coarse and 786,432 fine points, trained
+    weights. With the arm on, grad_w and grad_b are bit-equal to the arm
+    off's (the arm adds products and changes none). grad_x is d_0 . W_0^T
+    + d_{skip+1} . W_ix^T of the kernel's own bf16 deltas (its workspace)
+    summed in float64, to 1e-4 of the products' absolute sums (f32 sums of
+    512 exact products in the tensor cores' order: ~6e-5 at most), with
+    the padding column 63 exactly 0; and it is the plain backward's input
+    gradient to 2e-2 of its norm over the points whose ReLUs agree (the
+    deltas differ where a summation-order flip moved one across zero, see
+    test_training_kernels_match_plain_versions)."""
+    net = load_model(_cfg(monkeypatch), cuda)
+    packed = mlp_kernel.pack_nerf_params(net.fine.state_dict(), 63, 27, 8, 4)
+    pts, dirs = _ray_points(n, seed=n, device=cuda)
+    x, v = mlp_kernel.encode_features(pts, dirs, 10, 4)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    cot = torch.randn(n, 4, device=cuda, generator=g) * torch.tensor(
+        [1e-4, 1e-4, 1e-4, 1e-3], device=cuda)
+    off = mlp_train.fused_nerf_mlp_bwd(packed, x, v, cot)
+    before = tracing.counts["fused_nerf_mlp_bwd.input_grad_launches"]
+    keep, keep_p = {}, {}
+    gw, gb, gx = mlp_train.fused_nerf_mlp_bwd(packed, x, v, cot, keep,
+                                              with_input_grad=True)
+    torch.cuda.synchronize()
+    assert tracing.counts["fused_nerf_mlp_bwd.input_grad_launches"] == \
+        before + 1
+    assert torch.equal(gw, off[0]) and torch.equal(gb, off[1])
+    assert gx.shape == (n, 64) and bool((gx[:, 63] == 0).all())
+    _, w, _, _ = mlp_train._unpack(packed)
+    d0, d5 = (keep["planes"]["d"][i].double() for i in (0, 5))
+    w0, w5 = w["0"].double(), w["5x"].double()
+    want = d5 @ w5.t() + d0 @ w0.t()
+    scale = d5.abs() @ w5.abs().t() + d0.abs() @ w0.abs().t()
+    worst = float(((gx.double() - want).abs() / scale.clamp_min(1e-30))
+                  .max())
+    *_, ref_gx = mlp_train.fused_nerf_mlp_bwd_reference(
+        packed, x, v, cot, keep_p, with_input_grad=True)
+    ok = ~_flipped_points(keep["planes"], keep_p["planes"])
+    rel = float((gx[ok] - ref_gx[ok]).norm()
+                / ref_gx[ok].norm().clamp_min(1e-30))
+    print(f"input gradient, N={n}: against its own deltas {worst:.2e} of "
+          f"the absolute sums; against the plain backward {rel:.2e} "
+          f"({int((~ok).sum())} points with a flipped ReLU left out)")
+    assert worst <= 1e-4
+    assert rel < 2e-2
 
 
 @pytest.mark.cuda

@@ -1,0 +1,412 @@
+"""The port's D-NeRF (models/nerf/dnerf_network.py) on the CPU at a small
+size (width 32, depth 8, skip 4, the canonical MLP at the kernels' 256 on
+their path; 256 rays of 8 + 8 samples) against the
+plain float32 reference ``reference/dnerf.py``, on seeded weights: raw
+outputs, rgb, loss and every leaf's gradient, the canonical frame, one
+Adam step; the backward's input gradient (#5's arm) in its plain version;
+and the dynamic scene's times through the Blender loader and the device
+pipeline. The kernels themselves are held to these plain versions on the
+card by tests/test_torch_cuda.py."""
+
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from nerf_replication_tpu_torch.config import make_cfg, parse_args
+from nerf_replication_tpu_torch.datasets import DeviceRayPipeline
+from nerf_replication_tpu_torch.datasets.nerf.blender import Dataset
+from nerf_replication_tpu_torch.models import make_network
+from nerf_replication_tpu_torch.models.nerf.dnerf_network import DNeRFNetwork
+from nerf_replication_tpu_torch.models.nerf.network import NeRFMLP
+from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+from nerf_replication_tpu_torch.train import make_trainer
+from nerf_replication_tpu_torch.train.trainers.nerf import NetworkWrapper
+from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
+from reference import dnerf as ref
+
+N_RAYS, WIDTH = 256, 32
+MODEL = {"xyz_freqs": 10, "dir_freqs": 4, "time_freqs": 10, "D": 8,
+         "skips": (4,), "D_t": 8, "skips_t": (4,)}
+RENDER = {"N_samples": 8, "N_importance": 8, "near": 2.0, "far": 6.0}
+
+
+# the nn.Module network at width 32; the fused path's canonical MLP is the
+# kernels' 256 wide
+MODULE = ("network.nerf.W", str(WIDTH), "network.use_pallas_mlp_train",
+          "False")
+
+
+def _cfg(*opts):
+    return make_cfg(parse_args([
+        "--cfg_file", "configs/nerf/hard_dnerf.yaml", "device", "cpu",
+        "network.deform.W", str(WIDTH), "task_arg.N_samples", "8",
+        "task_arg.N_importance", "8", "seed", "7", *opts]))
+
+
+@pytest.fixture(scope="module")
+def batch():
+    """Rays from radius 4 towards the origin, a quarter of them at t = 0."""
+    g = torch.Generator().manual_seed(11)
+    eye = F.normalize(torch.randn(N_RAYS, 3, generator=g), dim=-1) * 4.0
+    d = F.normalize(-eye / 4.0 + 0.15 * torch.randn(N_RAYS, 3, generator=g),
+                    dim=-1)
+    times = torch.rand(N_RAYS, generator=g)
+    times[::4] = 0.0
+    return {"rays_o": eye, "rays_d": d, "times": times,
+            "colors": torch.rand(N_RAYS, 3, generator=g)}
+
+
+def _port(opts=(), batch=None):
+    """(network, its weights as a dict, loss, gradients) of one
+    deterministic training loss."""
+    cfg = _cfg(*opts)
+    net = make_network(cfg)
+    assert isinstance(net, DNeRFNetwork)
+    w = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    loss, (out, _, _) = NetworkWrapper(net, cfg).loss_fn(batch, None,
+                                                         train=False)
+    loss.backward()
+    return net, w, loss.detach(), out, {k: p.grad for k, p in
+                                        net.named_parameters()}
+
+
+def _reference(w, batch):
+    w = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+    loss, out = ref.loss_of(w, MODEL, RENDER, batch)
+    grads = torch.autograd.grad(loss, list(w.values()))
+    return loss.detach(), out, dict(zip(w, grads))
+
+
+def _leaf_errors(got: dict, want: dict) -> dict:
+    return {k: float((got[k] - g).norm() / g.norm().clamp_min(1e-30))
+            for k, g in want.items()}
+
+
+def test_float32_network_matches_the_reference(batch):
+    """The nn.Module network in float32 (``network.dtype float32``) is the
+    reference up to the float32 summation order: raw outputs, rgb and loss
+    to 1e-5, every leaf's gradient, the deformation's included, to 1e-4
+    of its norm (read ~1e-6; an inverse-CDF depth is a continuous function
+    of the coarse weights, so no sample jumps)."""
+    net, w, loss, out, grads = _port(("network.dtype", "float32", *MODULE),
+                                     batch)
+    r_loss, r_out, r_grads = _reference(w, batch)
+    assert float(abs(loss - r_loss) / r_loss) < 1e-5
+    torch.testing.assert_close(out["rgb"], r_out["rgb"].detach(),
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(out["rgb_coarse"],
+                               r_out["rgb_coarse"].detach(), rtol=0,
+                               atol=1e-5)
+    pts = batch["rays_o"][:, None] + batch["rays_d"][:, None] * \
+        torch.linspace(2.0, 6.0, 8)[:, None]
+    with torch.no_grad():
+        raw = net(pts, batch["rays_d"][:, None], "", batch["times"][:, None])
+        r_raw = ref.field(w, MODEL, pts, batch["rays_d"][:, None],
+                          batch["times"][:, None])
+    torch.testing.assert_close(raw, r_raw, rtol=1e-5, atol=1e-5)
+    errs = _leaf_errors(grads, r_grads)
+    assert set(errs) == set(w) and any(k.startswith("deform.") for k in errs)
+    assert max(errs.values()) < 1e-4, errs
+
+
+def test_fused_path_follows_the_reference(batch):
+    """The training apply the card runs (the canonical MLP through #3/#4/#5,
+    here their plain versions in bf16; #5's input gradient the only path
+    into the deformation) on 256 rays x 16 points, at the batch's times,
+    with the deformation in float32 (``network.dtype float32``) so that
+    both sides move the points alike, against the float32 reference's
+    field: raw outputs to 1e-2 and every leaf's gradient under a random
+    cotangent to 0.25 of its norm (bf16 keeps 8 bits; the deltas of 8
+    layers at a random init read up to 0.16 on the first layers' leaves).
+    With the input gradient zeroed (#5 as it was) every deformation leaf
+    reads 1."""
+    net = make_network(_cfg("network.dtype", "float32"))
+    w = {k: v.detach().clone().requires_grad_(True)
+         for k, v in net.state_dict().items()}
+    g = torch.Generator().manual_seed(3)
+    d = batch["rays_d"][:, None]
+    pts = batch["rays_o"][:, None] + d * torch.linspace(2.5, 5.5, 16)[:, None]
+    cot = torch.randn(N_RAYS, 16, 4, generator=g)
+    t = batch["times"][:, None]
+    want = ref.field(w, MODEL, pts, d, t)
+    r_grads = dict(zip(w, torch.autograd.grad((want * cot).sum(),
+                                              list(w.values()))))
+    apply = mlp_train.make_fused_train_apply(net)
+    raw = apply(pts, d, "", t)
+    (raw * cot).sum().backward()
+    assert float((raw.detach() - want.detach()).abs().max()) < 1e-2
+    errs = _leaf_errors({k: p.grad for k, p in net.named_parameters()},
+                        r_grads)
+    print("fused path, worst leaves:", sorted(errs.items(),
+                                              key=lambda kv: -kv[1])[:3])
+    assert max(errs.values()) < 0.25, errs
+    net.zero_grad()
+    zero = mlp_train.FusedNeRFMLPFn.backward
+
+    def no_input_grad(ctx, gr):
+        gw, gb, gx, *rest = zero(ctx, gr)
+        return (gw, gb, None if gx is None else torch.zeros_like(gx), *rest)
+
+    with mock.patch.object(mlp_train.FusedNeRFMLPFn, "backward",
+                           staticmethod(no_input_grad)):
+        (apply(pts, d, "", t) * cot).sum().backward()
+    errs = _leaf_errors({k: p.grad for k, p in net.named_parameters()},
+                        r_grads)
+    assert all(errs[k] == 1.0 for k in errs if k.startswith("deform."))
+
+
+def test_bf16_training_loss_follows_the_reference(batch):
+    """The card's configuration as it is (the deformation in bf16 too):
+    the training loss to 2e-2 of the reference's. Its gradients are not
+    compared here: bf16 moves dx by up to ~3e-3 at this init, which the
+    10th band turns into phase shifts of ~1.4 rad, so the deformation's
+    gradients differ by their own size (the benchmark's limits, set on the
+    card, hold that path)."""
+    _, w, loss, _, _ = _port((), batch)
+    r_loss, _, _ = _reference(w, batch)
+    assert float(abs(loss - r_loss) / r_loss) < 2e-2
+
+
+def test_canonical_frame_does_not_move(batch):
+    """dx is exactly 0 at t = 0, a mask on t: the points come back bit
+    for bit, and rays at t = 0 give the deformation no gradient."""
+    net = make_network(_cfg(*MODULE))
+    pts = batch["rays_o"] * 0.3
+    before = tracing.counts["DNeRF.deform_points"]
+    moved = net.move(pts, torch.zeros(N_RAYS))
+    assert torch.equal(moved, pts)
+    assert tracing.counts["DNeRF.deform_points"] == before + N_RAYS
+    assert not torch.equal(net.move(pts, torch.full((N_RAYS,), 0.5)), pts)
+    zero = {k: v.clone() for k, v in batch.items()}
+    zero["times"] = torch.zeros(N_RAYS)
+    *_, grads = _port(MODULE, zero)
+    assert all(float(g.abs().max()) == 0.0 for k, g in grads.items()
+               if k.startswith("deform."))
+    with pytest.raises(ValueError, match="time"):
+        net(pts[:, None], batch["rays_d"][:, None], "")
+
+
+def test_one_adam_step_matches_the_reference(batch):
+    """One ``Trainer.train_step`` (clip 40, Adam with optax's bias
+    corrections, lr 5e-4) from the seed's weights against the reference's
+    :func:`reference.dnerf.adam_step` on the reference's gradients: the
+    first update is lr * g / (|g| + eps), so the weights agree to 1e-3 of
+    lr: an element whose gradient is within a few thousand eps of 0 takes
+    an update that follows that element's own relative error (read 1.7e-4
+    of lr at worst)."""
+    cfg = _cfg("network.dtype", "float32", *MODULE)
+    net = make_network(cfg)
+    w0 = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    trainer = make_trainer(cfg, net)
+    trainer.train_step(batch, None)
+    _, _, r_grads = _reference(w0, batch)
+    want = ref.adam_step(w0, r_grads, {}, lr=5e-4)
+    got = dict(net.state_dict())
+    moved = max(float((got[k] - w0[k]).abs().max()) for k in w0)
+    assert moved == pytest.approx(5e-4, rel=1e-3)
+    for k in w0:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=5e-7)
+
+
+def _packs(depth=4, skip=1, seed=0):
+    """The f32 weight and bias packs of a seeded NeRFMLP."""
+    g = torch.Generator().manual_seed(seed)
+    mlp = NeRFMLP(63, 27, depth=depth, skips=(skip,), generator=g)
+    w, b = mlp_train.pack_params_torch(mlp, 63, 27)
+    return w.detach(), b.detach()
+
+
+def test_plain_input_gradient_is_autograds_in_f64():
+    """STRUCTURAL: #5's plain input gradient, d_0 . W_0^T + d_{skip+1} .
+    W_ix^T from the plain backward's deltas, with every bf16 rounding
+    replaced by float64, is autograd's gradient of the plain forward in
+    float64 (1e-10): a missing skip term or a wrong transpose fails."""
+    w, b = _packs()
+    packed = mlp_kernel.PackedMLP(w.double(), b.double(), 4, 1)
+    g = torch.Generator().manual_seed(1)
+    x = F.pad(torch.randn(130, 63, generator=g, dtype=torch.float64),
+              (0, 1)).requires_grad_(True)
+    v = F.pad(torch.randn(130, 27, generator=g, dtype=torch.float64),
+              (0, 5))
+    cot = torch.randn(130, 4, generator=g, dtype=torch.float64)
+
+    def take(flat, at, rows, cols):
+        return flat[at:at + rows * cols].view(rows, cols).double(), \
+            at + rows * cols
+
+    to64 = lambda t: t.double()  # noqa: E731
+    with mock.patch.object(mlp_kernel, "_bf16", to64), \
+            mock.patch.object(mlp_kernel, "_take", take), \
+            mock.patch.object(mlp_train, "_bf16", to64), \
+            mock.patch.object(mlp_train, "_round_delta", to64), \
+            mock.patch.object(mlp_train, "_take", take):
+        raw = mlp_kernel._mlp_body(packed, x, v)
+        (want,) = torch.autograd.grad((raw * cot).sum(), x)
+        *_, got = mlp_train.fused_nerf_mlp_bwd_reference(
+            packed, x.detach(), v, cot, with_input_grad=True)
+    assert float(want.abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
+
+
+def test_fused_fn_returns_the_input_gradient_when_asked():
+    """``FusedNeRFMLPFn`` gives x its gradient when x needs one: the plain
+    backward's f32 input gradient, not zeros; for an f32 x (a D-NeRF's
+    moved points' encoding, which the forward rounds to bf16) exactly that,
+    unrounded, and for a bf16 x rounded to bf16. v's stays zero by
+    contract, and without x needing one no input gradient is formed."""
+    w, b = _packs(depth=8, skip=4)
+    g = torch.Generator().manual_seed(2)
+    x, v = mlp_kernel.encode_features(torch.randn(200, 3, generator=g),
+                                      torch.randn(200, 3, generator=g),
+                                      10, 4)
+    cot = torch.randn(200, 4, generator=g)
+    packed = mlp_kernel.PackedMLP(w.to(torch.bfloat16), b, 8, 4)
+    *_, want = mlp_train.fused_nerf_mlp_bwd_reference(
+        packed, x, v, cot, with_input_grad=True)
+    xg, vg = x.clone().requires_grad_(True), v.clone().requires_grad_(True)
+    raw = mlp_train.FusedNeRFMLPFn.apply(w, b, xg, vg, 8, 4)
+    (raw * cot).sum().backward()
+    assert float(xg.grad.float().abs().max()) > 0
+    assert torch.equal(xg.grad, want.to(torch.bfloat16))
+    assert float(vg.grad.abs().max()) == 0.0
+    x32 = mlp_kernel.encode_features(*(torch.randn(200, 3, generator=g)
+                                       for _ in range(2)), 10, 4,
+                                     torch.float32)[0]
+    *_, want32 = mlp_train.fused_nerf_mlp_bwd_reference(
+        packed, x32.to(torch.bfloat16), v, cot, with_input_grad=True)
+    xg = x32.clone().requires_grad_(True)
+    raw32 = mlp_train.FusedNeRFMLPFn.apply(w, b, xg, v, 8, 4)
+    torch.testing.assert_close(raw32, mlp_train.FusedNeRFMLPFn.apply(
+        w, b, x32.to(torch.bfloat16), v, 8, 4), rtol=0, atol=0)
+    (raw32 * cot).sum().backward()
+    assert xg.grad.dtype == torch.float32
+    assert torch.equal(xg.grad, want32)
+    assert not torch.equal(want32, want32.to(torch.bfloat16).float())
+    calls = tracing.counts["fused_nerf_mlp_bwd_reference.calls"]
+    wg = w.clone().requires_grad_(True)
+    (mlp_train.FusedNeRFMLPFn.apply(wg, b, x, v, 8, 4) * cot).sum().backward()
+    assert tracing.counts["fused_nerf_mlp_bwd_reference.calls"] == calls + 1
+    assert wg.grad is not None
+
+
+def test_dynamic_scene_times_reach_every_batch(tmp_path):
+    """``generate_scene`` writes the dynamic hard scene in D-NeRF's layout
+    (a ``time`` a frame, view i of n at i / (n - 1)); the Blender loader
+    gives every ray its frame's time, and the device pipeline each ray its
+    image's."""
+    import json
+
+    synthetic_scene.generate_scene(str(tmp_path), "hard_dnerf", H=8, W=8,
+                                   n_train=3, n_val=0, n_test=2)
+    meta = json.loads((tmp_path / "hard_dnerf" / "transforms_train.json")
+                      .read_text())
+    assert [f["time"] for f in meta["frames"]] == [0.0, 0.5, 1.0]
+    cfg = _cfg("task_arg.N_rays", "16")
+    train = Dataset(cfg, data_root=str(tmp_path), split="train", H=8, W=8,
+                    seed=0)
+    test = Dataset(cfg, data_root=str(tmp_path), split="test", H=8, W=8)
+    np.testing.assert_array_equal(train.time_arrays(), [0.0, 0.5, 1.0])
+    assert np.all(train[1]["times"] == 0.5) and train[1]["times"].shape == (
+        16,)
+    assert np.all(test[1]["times"] == 1.0) and test[1]["times"].shape == (64,)
+    images, poses, K = train.as_arrays()
+    # the images differ with time: the primitives moved
+    assert float(np.abs(images[0] - images[2]).max()) > 0.1
+    pipe = DeviceRayPipeline(images, poses, K, n_rays=16,
+                             times=train.time_arrays(),
+                             sample_across_images=True)
+    b = pipe.sample(torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(5)
+    img = torch.randint(0, 3, (16,), generator=g)
+    torch.testing.assert_close(b["times"], torch.tensor([0.0, 0.5, 1.0])[img])
+    one = DeviceRayPipeline(images, poses, K, n_rays=16,
+                            times=train.time_arrays())
+    assert one.sample(torch.Generator().manual_seed(5))["times"].shape == (16,)
+
+
+def test_benchmark_counts_and_copies_are_the_ports():
+    """The benchmark's D-NeRF pieces against the port at the published
+    widths: its weight shapes are the network's state dict; Psi_t is
+    497,152 and the canonical MLP 593,408 multiply-adds a point, 6.86
+    TFLOP a 4096-ray step with the backward; its reference copy gives
+    the top-level reference's raw outputs; its scene copy moves the
+    primitives as the port's scene does."""
+    from benchmark.harness import dnerf_scene, dnerf_yardstick, specs
+    from benchmark.reference import dnerf as bench_ref
+
+    c = specs.config("dnerf-hard")
+    net = make_network(_cfg("network.deform.W", "256"))
+    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+    assert shapes == dnerf_yardstick.weight_shapes(c["model"])
+    assert dnerf_yardstick.deform_flops(c["model"]) == 2 * 497_152
+    assert dnerf_yardstick.train_step_flops(c) == pytest.approx(6.86e12,
+                                                                rel=1e-3)
+    w = {k: v.detach() for k, v in net.state_dict().items()}
+    g = torch.Generator().manual_seed(4)
+    pts = torch.rand(64, 3, generator=g) * 2.0 - 1.0
+    dirs = F.normalize(torch.randn(64, 3, generator=g), dim=-1)
+    t = torch.rand(64, generator=g)
+    t[:8] = 0.0
+    torch.testing.assert_close(
+        bench_ref.DNeRFField(c["model"])(w, pts, dirs, t),
+        ref.field(w, {**MODEL, "skips_t": (4,)}, pts, dirs, t),
+        rtol=1e-5, atol=1e-5)
+    for time in (0.0, 0.3, 1.0):
+        assert dnerf_scene.spheres_at(time) == synthetic_scene.spheres_at(
+            synthetic_scene.HARD_SPHERES, synthetic_scene.HARD_MOTION, time)
+    np.testing.assert_array_equal(dnerf_scene.frame_times(150),
+                                  synthetic_scene.frame_times(150))
+
+
+def test_benchmark_stand_ins_plant_the_input_gradient_faults():
+    """The benchmark reference's stand-ins for #5's input gradient faults
+    change Psi_t's gradient alone, as a faulty arm would: the sign flip
+    negates it exactly, the skip term left out and the zeroed arm change
+    it, and the canonical MLP's gradient and the raw outputs stay the
+    reference's. ``angle`` reads them 2, above 0, and 1, and 0 for the
+    reference itself and where both gradients are zero."""
+    from benchmark.harness import dnerf_yardstick, inputs, specs
+    from benchmark.reference import dnerf as bench_ref
+    from benchmark.traffic.dnerf_train import angle
+
+    m = specs.config("dnerf-hard")["model"]
+    w = inputs.init_weights(dnerf_yardstick.weight_shapes(m), m, 5,
+                            torch.device("cpu"))
+    g = torch.Generator().manual_seed(6)
+    pts = torch.rand(128, 3, generator=g) * 2.0 - 1.0
+    dirs = F.normalize(torch.randn(128, 3, generator=g), dim=-1)
+    t = torch.rand(128, generator=g)
+    cot = torch.randn(128, 4, generator=g)
+
+    def grads(fault=None):
+        p = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        raw = bench_ref.DNeRFField(m, fault=fault)(p, pts, dirs, t)
+        gr = dict(zip(p, torch.autograd.grad(
+            (raw * cot).sum(), list(p.values()), allow_unused=True)))
+        gr = {k: torch.zeros_like(w[k]) if v is None else v
+              for k, v in gr.items()}
+        flat = {part: torch.cat([v.reshape(-1) for k, v in gr.items()
+                                 if k.startswith(part)])
+                for part in ("deform.", "canonical.")}
+        return raw.detach(), flat
+
+    raw, want = grads()
+    assert angle(want["deform."], want["deform."]) == pytest.approx(0.0,
+                                                                    abs=1e-6)
+    assert angle(torch.zeros(3), torch.zeros(3)) == 0.0
+    for fault, reads in (("flip_input_grad", 2.0), ("no_skip_grad", None),
+                         ("no_input_grad", 1.0)):
+        raw_f, got = grads(fault)
+        torch.testing.assert_close(raw_f, raw, rtol=0, atol=0)
+        torch.testing.assert_close(got["canonical."], want["canonical."],
+                                   rtol=0, atol=0)
+        a = angle(got["deform."], want["deform."])
+        if reads is None:
+            assert 0.05 < a < 1.95, a
+        else:
+            assert a == pytest.approx(reads, abs=1e-6), (fault, a)
+    torch.testing.assert_close(grads("flip_input_grad")[1]["deform."],
+                               -want["deform."], rtol=0, atol=0)

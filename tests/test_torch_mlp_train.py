@@ -176,12 +176,23 @@ def test_padding_grads_are_exactly_zero(setup):
 
 
 def test_input_grads_are_zero_by_contract(setup):
+    """The directions' gradient is zero by contract. The encoded points'
+    is formed only where x needs one (a D-NeRF's moved points): then it is
+    the plain backward's input gradient, and never zeros."""
     _, params, x, v, _ = setup
     xb, vb = _features(x, v)
+    vb.requires_grad_(True)
     xb.requires_grad_(True)
     raw = mlp_train.fused_nerf_mlp_diff(_port_mlp(params), xb, vb, IN, VIEW)
     raw.sum().backward()
-    assert xb.grad is not None and float(xb.grad.abs().max()) == 0.0
+    assert vb.grad is not None and float(vb.grad.abs().max()) == 0.0
+    packed = mlp_kernel.pack_nerf_params(_port_mlp(params).state_dict(), IN,
+                                         VIEW, DEPTH, SKIP)
+    *_, want = mlp_train.fused_nerf_mlp_bwd_reference(
+        packed, xb.detach(), vb.detach(), torch.ones(N, 4),
+        with_input_grad=True)
+    assert float(xb.grad.float().abs().max()) > 0
+    assert torch.equal(xb.grad, want.to(torch.bfloat16))
 
 
 def test_wrappers_take_the_plain_versions_on_cpu(setup):
@@ -418,8 +429,7 @@ def test_weight_image_maps_back_to_the_canonical_pack(setup, transposed):
         m = w[at:at + rows * cols].view(rows, cols)
         region = img[at:at + rows * cols]
         at += rows * cols
-        moved = name != "alpha" and not (
-            transposed and (name in ("0", "vd") or name.endswith("x")))
+        moved = name != "alpha" and not (transposed and name == "vd")
         if not moved:   # w_alpha, and what the backward never multiplies by
             assert torch.equal(region, m.reshape(-1))
             continue
