@@ -36,6 +36,12 @@ Phases (any failure exits non-zero):
    backward alone at a 4096-ray step's 262144 and 786432 points (random
    rays and cotangent, held to the same check against the plain backward),
    beside its bound, its workspace's floor and its bulk copies' bytes.
+4b. the deformation kernels (D-NeRF's Psi_t, configs/nerf/hard_dnerf.yaml
+   at the seed's init) against their plain versions at a 4096-ray step's
+   262144 and 786432 points along random rays at random times: dx by
+   phase 2's check, the backward by phase 4's; three faulty plain versions
+   must fail. CUDA-event times beside the plain versions', the nn.Module's
+   (the library yardstick) and the bounds.
 5. training: configs/nerf/hard.yaml at full width from a fresh init
    (seed 0) on 20 of the hard scene's 100 train views at 800x800, 2000
    steps (four 500-step epochs, the first under precrop) through the fused
@@ -312,6 +318,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #   a structural fault by O(1)), finite, and exactly zero on the padding.
 # GRAD_CONTROLS are faulty plain backwards that the check must reject.
 DELTA_DIFF = 5e-3
+# A flipped ReLU's value over its layer's rms (:func:`relu_flips`): two
+# f32 summation orders of the deformation's plain trunk (K reversed) at
+# its seed init flip 0.46% of 160,000 points, at values up to 1.1e-2 of
+# the rms (median 1.0e-3; the CPU): the bf16 roundings a flip moves
+# cascade down the layers. The kernels against the plain read 1.5e-2 and
+# 1.7e-2 at 262,144 and 786,432 points (the H100); a trunk bias off by
+# 0.05 reads 2.3.
+FLIP_REL = 2.0 ** -4
 WGRAD_REL = 1e-5
 WGRAD_CHECK_POINTS = 65536   # points per float64 partial of that check
 GRAD_REL = 2e-2
@@ -686,29 +700,80 @@ def _leaf_rel(k: torch.Tensor, p: torch.Tensor) -> float:
     return float((k - p).norm() / p.norm().clamp_min(1e-30))
 
 
-def _leaves(flat_w, flat_b, packed):
-    """(name, weight-or-bias leaf) pairs of the two packs, 2-D weights."""
-    from nerf_replication_tpu_torch.ops import mlp_train
+def _members(packed, in_dim: int, view_dim: int):
+    """The leaves of a weight pack and a bias pack, in pack order: (name,
+    rows, cols, rows kept, cols kept), a bias as a column; the rest of each
+    leaf is padding. ``packed`` is #5's (``in_dim``, ``view_dim``: the
+    encoded point and view widths) or the deformation's (``in_dim``,
+    ``view_dim``: the encoded point and time widths)."""
+    from nerf_replication_tpu_torch.ops import deform_mlp, mlp_train
 
-    shapes, _, sizes, _ = mlp_train._unpack(packed)
-    at = 0
-    for name, rows, cols in shapes:
-        yield f"w{name}", flat_w[at:at + rows * cols].view(rows, cols)
-        at += rows * cols
-    at = 0
-    for name, size in sizes:
-        yield f"b{name}", flat_b[at:at + size][:, None]
-        at += size
+    if isinstance(packed, deform_mlp.DeformPack):
+        rows = {"w0x": in_dim, "w0t": view_dim,
+                f"w{packed.skip + 1}x": in_dim}
+        cols = {"wout": 3, "bout": 3}
+        shapes = deform_mlp.pack_matrices(packed.depth, packed.skip)
+        sizes = deform_mlp.bias_sizes(packed.depth)
+    else:
+        rows = {"w0": in_dim, f"w{packed.skip + 1}x": in_dim,
+                "wvd": view_dim}
+        cols = {"wrgb": 3, "balpha": 1, "brgb": 3}
+        shapes, _, sizes, _ = mlp_train._unpack(packed)
+    return ([(f"w{n}", r, c, rows.get(f"w{n}", r), cols.get(f"w{n}", c))
+             for n, r, c in shapes]
+            + [(f"b{n}", size, 1, cols.get(f"b{n}", size), 1)
+               for n, size in sizes])
+
+
+def _leaves(flat_w, flat_b, members):
+    """(name, leaf, rows kept, cols kept) of the two packs (:func:`_members`);
+    each leaf 2-D."""
+    at = {"w": 0, "b": 0}
+    for name, rows, cols, keep_r, keep_c in members:
+        flat = flat_w if name.startswith("w") else flat_b
+        k = at[name[0]]
+        at[name[0]] = k + rows * cols
+        yield name, flat[k:k + rows * cols].view(rows, cols), keep_r, keep_c
+
+
+def relu_flips(planes_k, planes_p) -> dict:
+    """The ReLUs on which two arms' recomputed activations disagree, one
+    zero where the other is positive: ``mask``, the points with one;
+    ``points``, their share; ``worst``, the largest positive value at one
+    over the rms of its layer's activations; ``ok`` when ``worst`` is
+    within FLIP_REL. The f32 summation order (and the bf16 roundings it
+    moves upstream) flips only values within its own error of zero; a
+    fault (a wrong bias, weight or mask) flips values of the layer's own
+    size."""
+    pairs = list(zip(planes_k["h"], planes_p["h"]))
+    if "g_act" in planes_k:
+        pairs.append((planes_k["g_act"], planes_p["g_act"]))
+    mask = torch.zeros(pairs[0][0].shape[0], dtype=torch.bool,
+                       device=pairs[0][0].device)
+    worst = 0.0
+    for a, b in pairs:
+        a, b = a.float(), b.float()
+        flip = (a > 0) != (b > 0)
+        mask |= flip.any(dim=1)
+        if bool(flip.any()):
+            rms = b.square().mean().sqrt().clamp_min(1e-30)
+            worst = max(worst, float(torch.maximum(a, b)[flip].max() / rms))
+    return dict(mask=mask, points=float(mask.float().mean()), worst=worst,
+                ok=worst <= FLIP_REL)
 
 
 def flipped_points(planes_k, planes_p) -> torch.Tensor:
     """The points (a bool mask) at which the two arms' recomputed
     activations disagree on a ReLU: one is zero where the other is
-    positive, because the f32 summation order moved a value across zero."""
-    flipped = ((planes_k["g_act"] > 0) != (planes_p["g_act"] > 0)).any(dim=1)
-    for h_k, h_p in zip(planes_k["h"], planes_p["h"]):
-        flipped |= ((h_k > 0) != (h_p > 0)).any(dim=1)
-    return flipped
+    positive, because the f32 summation order moved a value across zero
+    (:func:`relu_flips`)."""
+    return relu_flips(planes_k, planes_p)["mask"]
+
+
+def describe_flips(f: dict) -> str:
+    return (f"ReLU flips at {f['points']:.2e} of the points, the largest "
+            f"flipped value {f['worst']:.2e} of its layer's rms (<= "
+            f"{FLIP_REL:.2e}) {'ok' if f['ok'] else 'FAIL'}")
 
 
 def input_grad_agreement(packed, x, v, g, grads_off) -> dict:
@@ -737,38 +802,41 @@ def input_grad_agreement(packed, x, v, g, grads_off) -> dict:
 
 
 def _delta_planes(planes: dict) -> dict:
+    """The delta planes by name: d0 .. d{depth-1} and the heads' (named
+    ``d_...``)."""
     out = {f"d{i}": d for i, d in enumerate(planes["d"])}
-    out.update({k: planes[k] for k in ("d_af", "d_gpre", "d_rgb")})
+    out.update({k: p for k, p in planes.items() if k.startswith("d_")})
     return out
 
 
 def backward_agreement(out, ref, planes, ref_planes, packed, in_dim: int,
                        view_dim: int, x=None, v=None,
-                       delta_diff: float = DELTA_DIFF) -> dict:
+                       delta_diff: float = DELTA_DIFF, rows=None) -> dict:
     """The backward check of ``out`` (weight-pack grad, bias-pack grad) and
-    its delta ``planes`` against the plain ``ref`` and ``ref_planes``; with
-    the features ``x``, ``v`` (a kernel's output) also the weight-gradient
-    products against float64 sums of ``planes`` (summed over slices of
-    WGRAD_CHECK_POINTS points, so that a training step's points fit). ``ok``
-    when every part holds, at most ``delta_diff`` of the deltas differing;
-    the worst plane or leaf of each statistic."""
-    from nerf_replication_tpu_torch.ops import mlp_train
+    its delta ``planes`` against the plain ``ref`` and ``ref_planes``, for
+    #5's packs or the deformation's (:func:`_members`); with the encodings
+    ``x``, ``v`` (a kernel's input or its workspace's) also the
+    weight-gradient products against float64 sums of ``planes`` (summed
+    over slices of WGRAD_CHECK_POINTS points, so that a training step's
+    points fit). ``ok`` when every part holds, at most ``delta_diff`` of
+    the deltas differing at the points ``rows`` (a bool mask; all points
+    without it); the worst plane or leaf of each statistic."""
+    from nerf_replication_tpu_torch.ops import deform_mlp, mlp_train
 
-    pad_rows = {"w0": in_dim, f"w{packed.skip + 1}x": in_dim, "wvd": view_dim}
-    pad_cols = {"wrgb": 3, "balpha": 1, "brgb": 3}
+    op = deform_mlp if isinstance(packed, deform_mlp.DeformPack) \
+        else mlp_train
+    members = _members(packed, in_dim, view_dim)
     rel, pad_zero = {}, True
-    for (name, k), (_, p) in zip(_leaves(*out, packed), _leaves(*ref, packed)):
-        if name.startswith("b"):   # a bias: its padding is its tail
-            r, c = pad_cols.get(name, k.shape[0]), 1
-        else:
-            r, c = pad_rows.get(name, k.shape[0]), pad_cols.get(name,
-                                                                k.shape[1])
+    for (name, k, r, c), (_, p, _, _) in zip(_leaves(*out, members),
+                                             _leaves(*ref, members)):
         pad_zero &= not bool(k[r:].any()) and not bool(k[:, c:].any())
         rel[name] = _leaf_rel(k[:r, :c], p[:r, :c])
     diff = {}
     ref_d = _delta_planes(ref_planes)
     for name, d in _delta_planes(planes).items():
-        diff[name] = float((d.float() != ref_d[name].float()).float().mean())
+        differ = d.float() != ref_d[name].float()
+        diff[name] = float((differ if rows is None else differ[rows])
+                           .float().mean())
     wgrad = {}
     if x is not None:
         sums = 0
@@ -776,11 +844,12 @@ def backward_agreement(out, ref, planes, ref_planes, packed, in_dim: int,
             at = slice(p0, p0 + WGRAD_CHECK_POINTS)
             f64 = {k: ([t[at].double() for t in p] if isinstance(p, list)
                        else p[at].double()) for k, p in planes.items()}
-            sums = sums + mlp_train.weight_grads(f64, x[at].double(),
-                                                 v[at].double(), packed)
+            sums = sums + op.weight_grads(f64, x[at].double(),
+                                          v[at].double(), packed)
         zeros = torch.zeros_like(out[1])
-        for (name, k), (_, p) in zip(_leaves(out[0], zeros, packed),
-                                     _leaves(sums.float(), zeros, packed)):
+        for (name, k, _, _), (_, p, _, _) in zip(
+                _leaves(out[0], zeros, members),
+                _leaves(sums.float(), zeros, members)):
             if name.startswith("w"):
                 wgrad[name] = _leaf_rel(k, p)
     finite = bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all())
@@ -789,6 +858,7 @@ def backward_agreement(out, ref, planes, ref_planes, packed, in_dim: int,
              diff=max(diff.values()), diff_plane=worst(diff),
              wgrad=max(wgrad.values()) if wgrad else 0.0,
              wgrad_leaf=worst(wgrad), pad_zero=pad_zero,
+             delta_diff=delta_diff,
              max_abs_err=float(max((out[0] - ref[0]).abs().max(),
                                    (out[1] - ref[1]).abs().max())))
     a["ok"] = (finite and pad_zero and a["rel"] <= GRAD_REL
@@ -799,8 +869,9 @@ def backward_agreement(out, ref, planes, ref_planes, packed, in_dim: int,
 
 def describe_grad(a: dict) -> str:
     return (f"deltas: worst share differing {a['diff']:.2e} "
-            f"({a['diff_plane']}, <= "
-            f"{DELTA_DIFF}); weight-gradient sums vs f64 of the workspace "
+            f"({a['diff_plane']}, <= {a['delta_diff']}); weight-gradient "
+            f"sums vs "
+            f"f64 of the workspace "
             f"{a['wgrad']:.2e} ({a['wgrad_leaf']}, <= {WGRAD_REL}); leaves: "
             f"worst rel-norm err {a['rel']:.2e} ({a['rel_leaf']}, <= "
             f"{GRAD_REL}), padding exactly zero {a['pad_zero']}, max_abs_err "
@@ -824,18 +895,22 @@ def _counters():
     plain = ("fused_nerf_mlp_enc_reference", "fused_nerf_mlp_reference",
              "fused_nerf_mlp_bwd_reference", "brick_encode_eval_reference",
              "brick_encode_cells_reference", "fused_ngp_eval_reference",
-             "brick_encode_reference", "brick_encode_bwd_reference")
+             "brick_encode_reference", "brick_encode_bwd_reference",
+             "fused_deform_mlp_reference", "fused_deform_mlp_bwd_reference")
     return {
         "brick_fwd": ["brick_hash_encode.launches"],
         "brick_bwd": ["brick_hash_encode_bwd.launches"],
         "enc": ["fused_nerf_mlp_enc.launches"],
         "fwd": ["fused_nerf_mlp.launches"],
         "bwd": ["fused_nerf_mlp_bwd.launches"],
+        "deform_fwd": ["fused_deform_mlp.launches"],
+        "deform_bwd": ["fused_deform_mlp_bwd.launches"],
         "ngp_enc": ["brick_encode_eval.launches"],
         "ngp": ["fused_ngp_eval.launches"],
         "ngp_bf16": ["fused_ngp_eval.bf16_launches"],
         "plain": [f"{name}.calls" for name in plain],
         "module": ["Network.calls"],
+        "deform_module": ["DeformMLP.calls"],
         "mlp": ["NeRFMLP.calls"],
         "xla_encode": ["hash_encode.calls"],
     }
@@ -852,8 +927,9 @@ def reset_counts():
 
 def read_counts() -> dict:
     """Launches of each kernel; calls of the plain versions (summed), of
-    ``Network.forward`` (module), of ``NeRFMLP.forward`` (mlp) and of the
-    xla hash grid's encode (xla_encode, plain PyTorch: no kernel)."""
+    ``Network.forward`` (module), of ``DeformMLP.forward``
+    (deform_module), of ``NeRFMLP.forward`` (mlp) and of the xla hash
+    grid's encode (xla_encode, plain PyTorch: no kernel)."""
     from nerf_replication_tpu_torch.utils import tracing
 
     return {name: sum(tracing.counts[key] for key in keys)
@@ -1050,6 +1126,321 @@ def phase_train_kernels(cfg, arrays, step_shapes: bool = False) -> dict:
     del net
     torch.cuda.empty_cache()
     return res
+
+
+# D-NeRF's deformation MLP Psi_t (phase 4b): its kernels (ops/deform_mlp.py)
+# against their plain versions at a 4096-ray step's points, at the seed's
+# init of configs/nerf/hard_dnerf.yaml. The same rounding points, so the
+# checks are phase 4's: dx by :func:`agreement`; the backward by
+# :func:`backward_agreement` (bf16 deltas element by element within
+# DEFORM_DELTA_DIFF, weight-gradient sums against float64 sums of its own
+# workspace, every leaf in relative norm, exactly zero padding) against the
+# plain backward run on the kernels' own encodings (their workspace's x and
+# v planes), which are checked on their own (:func:`encoding_agreement`).
+# The encodings agree (0 points differ), yet the deltas differ more than
+# #5's, for two causes of the f32 summation order. At the seed's init
+# every bias is zero, so the pre-activations sit symmetric about zero and
+# the order flips a ReLU at 0.6% of the points (1,621 of 262,144), whose
+# deltas below the flip differ by their own size: the deltas are compared
+# at the points without a flip, and every flip must sit within FLIP_REL of
+# zero (:func:`relu_flips`). And a bf16 rounding the order moves in one
+# delta moves others in the layer below, down the chain to d0: the plain
+# backward against itself with every delta product's K reversed (the same
+# forward, no flip) differs at 1.6e-5 of d7 and 4.1e-3 of d0, the kernels
+# at 0 and 5.1e-3 (the H100, 262,144 points): so DEFORM_DELTA_DIFF, about
+# twice that, in place of phase 4's DELTA_DIFF, which sits at this floor.
+# DEFORM_CONTROLS are faulty plain versions the checks must reject
+# (0.37-0.52 of the deltas differ); FLIP_CONTROL_SHIFT raises every trunk
+# bias of one more, which the flip check must reject (it reads 2.3).
+DEFORM_DELTA_DIFF = 1e-2
+DEFORM_ARGV = ["--cfg_file", "configs/nerf/hard_dnerf.yaml", "device",
+               "cuda", "seed", "0"]
+DEFORM_CONTROLS = {
+    "f32 activations (no bf16 rounding)": ("fwd", {"_bf16": lambda x: x}),
+    "f32 deltas (no bf16 rounding)": (
+        "bwd", {"_round_delta": lambda d: d.float()}),
+    "the cotangent rounded to bf16 before the head's path": (
+        "bwd", {"_head_into_trunk": lambda g, w: g.to(torch.bfloat16).float()
+                @ w[:, :3].t()}),
+}
+FLIP_CONTROL_SHIFT = 0.05
+DEFORM_TRAIN_STEPS = 4                    # phase 4c's training steps
+DEFORM_TRAIN_VIEWS = list(range(0, 100, 10))
+
+
+def deform_inputs(n: int, gen: torch.Generator):
+    """Points along rays as :func:`ray_points` makes them, and times in
+    [0, 1] with every 150th at 0 (the canonical frame)."""
+    pts, _ = ray_points(n, gen)
+    t = torch.rand(n, device=gen.device, generator=gen)
+    t[::150] = 0.0
+    return pts, t.contiguous()
+
+
+def encoding_agreement(got, want) -> dict:
+    """The kernels' bf16 encodings ``got`` (x, v) against the plain ones
+    ``want``: ``ok`` when every element is within one bf16 step (2^-7 of
+    the larger magnitude); ``points``, the share of points with an element
+    that differs, and ``mask``, those points."""
+    ok, mask = True, None
+    for k, p in zip(got, want):
+        k, p = k.float(), p.float()
+        d = (k - p).abs()
+        ok &= bool((d <= 2.0 ** -7 * torch.maximum(k.abs(), p.abs())).all())
+        rows = (d > 0).any(dim=1)
+        mask = rows if mask is None else mask | rows
+    return dict(ok=ok, points=float(mask.float().mean()), mask=mask)
+
+
+def deform_plain_bwd(packed, x, v, g):
+    """The plain deformation backward on the encodings ``x``, ``v``: (its
+    weight-pack and bias-pack gradients, its planes)."""
+    from nerf_replication_tpu_torch.ops import deform_mlp
+
+    planes, grad_b = deform_mlp.backward_planes(packed, x, v, g)
+    return (deform_mlp.weight_grads(planes, x, v, packed), grad_b), planes
+
+
+def deform_library_ms(net, p, t, g) -> tuple[float, float]:
+    """The ``DeformMLP`` nn.Module in PyTorch (bf16 GEMMs, autograd), the
+    path the kernels replace: CUDA-event ms of its forward (with the
+    encodings and the t = 0 mask) and of its forward and backward."""
+    from nerf_replication_tpu_torch.models.encoding.freq import freq_encode
+
+    def forward():
+        dx = net.deform(net.xyz_encoder(p), freq_encode(t[:, None],
+                                                        net.time_freq))
+        return torch.where(t[:, None] == 0.0, 0.0, dx)
+
+    def step():
+        forward().backward(g)
+
+    with torch.no_grad():
+        fwd = cuda_ms(forward, 5)
+    both = cuda_ms(step, 5)
+    net.zero_grad(set_to_none=True)
+    return fwd, both
+
+
+def deform_at(net, packed, n: int) -> dict:
+    """The deformation kernels at ``n`` points against their plain
+    versions: dx (``fwd``, :func:`agreement`); the encodings in the
+    kernels' workspace (``enc``, :func:`encoding_agreement`); against the
+    plain backward on those encodings, the ReLU flips (``flips``,
+    :func:`relu_flips`) and the backward (``bwd``,
+    :func:`backward_agreement`, deltas within DEFORM_DELTA_DIFF at the
+    points without a flip); and
+    the controls. With the CUDA-event times beside the plain versions',
+    the ``nn.Module``'s and the bounds: the forward's and the backward's
+    operations (the recompute, the deltas less the input rows', the weight
+    gradients) at the bf16 peak, and the backward's workspace written and
+    read once at the memory rate."""
+    from nerf_replication_tpu_torch.ops import deform_mlp
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    p, t = deform_inputs(n, gen)
+    g = torch.randn(n, 3, device="cuda", generator=gen) * 1e-3
+    g[t == 0.0] = 0.0
+    freqs = (net.xyz_encoder.n_freqs, net.time_freq)
+    dims = (net.xyz_encoder.output_dim, 1 + 2 * net.time_freq)
+    args = (packed, p, t)
+    dx_k = deform_mlp.fused_deform_mlp(*args, *freqs)
+    dx_p = deform_mlp.fused_deform_mlp_reference(*args, *freqs)
+    keep_k = {}
+    grad_k = deform_mlp.fused_deform_mlp_bwd(*args, g, *freqs, keep=keep_k)
+    torch.cuda.synchronize()
+    fwd = agreement(dx_k, dx_p)
+    planes_k = keep_k["planes"]
+    xk, vk = planes_k["x"].float(), planes_k["v"].float()
+    enc = encoding_agreement((xk, vk), deform_mlp.encode_inputs(p, t,
+                                                                *freqs))
+    enc.pop("mask")
+    grad_e, planes_e = deform_plain_bwd(packed, xk, vk, g)
+    flips = relu_flips(planes_k, planes_e)
+    bwd = backward_agreement(grad_k, grad_e, planes_k, planes_e, packed,
+                             *dims, x=xk, v=vk,
+                             delta_diff=DEFORM_DELTA_DIFF,
+                             rows=~flips.pop("mask"))
+    controls = {}
+    for label, (kind, patches) in DEFORM_CONTROLS.items():
+        with contextlib.ExitStack() as stack:
+            for name, fn in patches.items():
+                stack.enter_context(mock.patch.object(deform_mlp, name, fn))
+            if kind == "fwd":
+                c = agreement(deform_mlp.fused_deform_mlp_reference(
+                    *args, *freqs), dx_p)
+            else:
+                grad_c, planes_c = deform_plain_bwd(packed, xk, vk, g)
+                c = backward_agreement(grad_c, grad_e, planes_c, planes_e,
+                                       packed, *dims,
+                                       delta_diff=DEFORM_DELTA_DIFF)
+        controls[label] = c
+    b = packed.b.clone()
+    b[:packed.depth * net.deform.width] += FLIP_CONTROL_SHIFT
+    _, planes_c = deform_plain_bwd(dataclasses.replace(packed, b=b), xk, vk,
+                                   g)
+    controls[f"every trunk bias raised by {FLIP_CONTROL_SHIFT}"] = \
+        relu_flips(planes_c, planes_e)
+    del planes_c
+    del keep_k, planes_k, grad_e, planes_e, xk, vk
+    torch.cuda.empty_cache()
+    fwd_ms = cuda_ms(lambda: deform_mlp.fused_deform_mlp(*args, *freqs), 20)
+    bwd_ms = cuda_ms(lambda: deform_mlp.fused_deform_mlp_bwd(*args, g,
+                                                             *freqs), 20)
+    plain_fwd = cuda_ms(lambda: deform_mlp.fused_deform_mlp_reference(
+        *args, *freqs), 1)
+    plain_bwd = cuda_ms(lambda: deform_mlp.fused_deform_mlp_bwd_reference(
+        *args, g, *freqs), 1)
+    lib_fwd, lib_both = deform_library_ms(net, p, t, g)
+    flops = mlp_flops(net.deform)
+    width, skip = net.deform.width, net.deform.skips[0]
+    input_side = 2 * width * sum(dims) + (
+        2 * width * dims[0] if skip + 1 < net.deform.depth else 0)
+    n_pad = -(-n // 128) * 128
+    workspace = 2 * n_pad * sum(map(sum, deform_mlp.workspace_columns(
+        packed.depth)))
+    return dict(
+        n=n, fwd=fwd, enc=enc, flips=flips, bwd=bwd, controls=controls,
+        ms=fwd_ms, bwd_ms=bwd_ms, plain_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+        library_ms=lib_fwd, library_bwd_ms=lib_both - lib_fwd,
+        err=max(fwd["max_abs_err"], bwd["max_abs_err"]),
+        **bound(nbytes(p, t, dx_k, packed.w, packed.b), n * flops, "bf16"),
+        bwd_bound=bound(nbytes(p, t, g, packed.w, packed.b, *grad_k),
+                        n * (3 * flops - input_side), "bf16"),
+        floor_ms=2 * workspace / PEAK_BYTES_PER_S * 1e3)
+
+
+def deform_entries(deform: dict, train: dict) -> list[dict]:
+    """The summary's entries of the deformation kernels: their readings at
+    the larger of phase 4b's sizes, their launches in phase 4c's training
+    steps. They replace no TPU kernel (the JAX package runs Psi_t in XLA);
+    library_ms is the ``nn.Module``'s time."""
+    big = deform["readings"][-1]
+    common = {"route": "cuda",
+              "source": "nerf_replication_tpu_torch/csrc/fused_deform_mlp.cu",
+              "replaces": "none: D-NeRF's deformation MLP in PyTorch "
+                          "(models/nerf/dnerf_network.py, DeformMLP)"}
+    return [
+        {"name": "fused_deform_mlp", **common,
+         "launches": train["deform_fwd"],
+         "max_abs_err": max(r["fwd"]["max_abs_err"]
+                            for r in deform["readings"]),
+         "ms": big["ms"], "plain_ms": big["plain_ms"],
+         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+         "library_ms": big["library_ms"]},
+        {"name": "fused_deform_mlp_bwd", **common,
+         "launches": train["deform_bwd"],
+         "max_abs_err": max(r["bwd"]["max_abs_err"]
+                            for r in deform["readings"]),
+         "ms": big["bwd_ms"], "plain_ms": big["plain_bwd_ms"],
+         "bound_ms": big["bwd_bound"]["bound_ms"],
+         "bound_by": big["bwd_bound"]["bound_by"],
+         "floor_ms": big["floor_ms"],
+         "library_ms": big["library_bwd_ms"]}]
+
+
+def phase_deform_kernels() -> dict:
+    """Phase 4b: the deformation kernels (:func:`deform_at`) at a 4096-ray
+    step's 262,144 and 786,432 points; fails where a check fails or a
+    control passes."""
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.ops import deform_mlp
+
+    net = make_network(make_cfg(parse_args(DEFORM_ARGV))).cuda()
+    x_dim, t_dim = net.xyz_encoder.output_dim, 1 + 2 * net.time_freq
+    with torch.no_grad():
+        w, b = deform_mlp.pack_params_torch(net.deform, x_dim, t_dim)
+    packed = deform_mlp.DeformPack(w.to(torch.bfloat16).contiguous(), b,
+                                   net.deform.depth, net.deform.skips[0])
+    smem = deform_mlp.shared_memory_bytes(packed.depth)
+    print(f"deformation kernels: dynamic shared memory a block: forward "
+          f"{smem['forward']} B, delta kernel {smem['delta']} B (depth "
+          f"{packed.depth}; of {SMEM_LIMIT} B)")
+    res = []
+    for n in STEP_POINTS:
+        r = deform_at(net, packed, n)
+        res.append(r)
+        b = r["bwd_bound"]
+        print(f"deformation forward vs plain, N={n}: {describe(r['fwd'])} | "
+              f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"nn.Module (library) {r['library_ms']:.3f} ms | bound "
+              f"{r['bound_ms']:.3f} ms by {r['bound_by']} "
+              f"({r['bound_ms'] / r['ms']:.1%} of it reached)")
+        print(f"deformation encodings vs plain, N={n}: within one bf16 step "
+              f"{r['enc']['ok']}, points differing {r['enc']['points']:.2e}")
+        print(f"deformation backward vs plain on the kernels' encodings, "
+              f"N={n}: {describe_flips(r['flips'])}; at the points without "
+              f"a flip {describe_grad(r['bwd'])} | kernel "
+              f"{r['bwd_ms']:.3f} ms, plain "
+              f"{r['plain_bwd_ms']:.3f} ms, nn.Module's backward (library) "
+              f"{r['library_bwd_ms']:.3f} ms | bound {b['bound_ms']:.3f} ms "
+              f"by {b['bound_by']} ({b['bound_ms'] / r['bwd_ms']:.1%}), the "
+              f"workspace's floor {r['floor_ms']:.3f} ms "
+              f"({r['floor_ms'] / r['bwd_ms']:.1%})")
+        for label, c in r["controls"].items():
+            text = (describe(c) if "col" in c else describe_flips(c)
+                    if "worst" in c else describe_grad(c))
+            print(f"control, plain deformation with {label}, N={n}: {text}")
+            if c["ok"]:
+                fail(f"the deformation check accepts the plain version with "
+                     f"{label}, so it cannot see such a fault")
+        if not r["fwd"]["ok"]:
+            fail(f"the deformation forward disagrees with plain at N={n}")
+        if not r["flips"]["ok"]:
+            fail(f"the deformation kernels flip a ReLU farther from zero "
+                 f"than the summation order can at N={n}")
+        if not r["enc"]["ok"]:
+            fail(f"the deformation kernels' encodings differ from the plain "
+                 f"ones by more than a bf16 step at N={n}")
+        if not r["bwd"]["ok"]:
+            fail(f"the deformation backward disagrees with plain at N={n}")
+        torch.cuda.empty_cache()
+    del net
+    torch.cuda.empty_cache()
+    return {"readings": res}
+
+
+def phase_deform_train(steps: int = DEFORM_TRAIN_STEPS) -> dict:
+    """Phase 4c: ``steps`` training steps of configs/nerf/hard_dnerf.yaml
+    at its published widths through ``Trainer.train_device`` from the
+    seed-0 init, on DEFORM_TRAIN_VIEWS of the dynamic hard scene: the
+    launches and calls counted from a reset (:func:`read_counts`). Fails
+    unless each step launched each deformation kernel, #3 and #5 twice
+    (the coarse and the fine pass) and called no plain version, neither
+    nn.Module and no other kernel, or where a loss is not finite."""
+    from nerf_replication_tpu_torch.config import make_cfg, parse_args
+    from nerf_replication_tpu_torch.models import make_network
+    from nerf_replication_tpu_torch.train import make_trainer
+    from nerf_replication_tpu_torch.train.cli import make_pipeline
+    from nerf_replication_tpu_torch.utils import synthetic_scene
+
+    cfg = make_cfg(parse_args(DEFORM_ARGV + ["ep_iter", str(steps)]))
+    H, W = int(cfg.train_dataset.H), int(cfg.train_dataset.W)
+    arrays = synthetic_scene.train_views("hard_dnerf", H, W,
+                                         DEFORM_TRAIN_VIEWS, device="cuda")
+    times = synthetic_scene.frame_times(synthetic_scene.N_TRAIN)[
+        DEFORM_TRAIN_VIEWS]
+    net = make_network(cfg).cuda()
+    trainer = make_trainer(cfg, net)
+    trainer.wrapper.renderer.train_apply   # builds the kernels now
+    pipeline = make_pipeline(cfg, (*arrays, times), "cuda")
+    reset_counts()
+    summary = trainer.train_device(0, pipeline, n_steps=steps)
+    counts = read_counts()
+    want = {k: (2 * steps if k in ("deform_fwd", "deform_bwd", "fwd", "bwd")
+                else 0) for k in counts}
+    print(f"D-NeRF training (hard_dnerf.yaml, {H}x{W}, {steps} steps): "
+          f"losses {[round(float(x), 5) for x in summary['loss']]}, counts "
+          f"{counts} (expected {want})")
+    if counts != want:
+        fail(f"the D-NeRF steps did not train through the kernels alone: "
+             f"{counts}")
+    if not np.isfinite(summary["loss"]).all():
+        fail("a D-NeRF training loss is not finite")
+    del trainer, net, pipeline
+    torch.cuda.empty_cache()
+    return counts
 
 
 # device-kernel name fragments -> the part of a step or frame they are
@@ -3700,8 +4091,9 @@ def main(argv=None):
     print(f"device: {name} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    libs = ["fused_nerf_mlp", "fused_nerf_mlp_bwd", "brick_encode_eval",
-            "fused_ngp", "brick_hash_encode", "probe_gather"]
+    libs = ["fused_nerf_mlp", "fused_nerf_mlp_bwd", "fused_deform_mlp",
+            "brick_encode_eval", "fused_ngp", "brick_hash_encode",
+            "probe_gather"]
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         firsts = pool.submit(build_first_designs, opts.first) \
             if opts.first else None
@@ -3841,6 +4233,12 @@ def main(argv=None):
         "pretrain_path", "data/pretrain/hard"]))
     train_checks = phase_train_kernels(train_cfg, arrays, step_shapes=True)
 
+    # -- 4b. the deformation kernels at a D-NeRF step's points -------------
+    deform = phase_deform_kernels()
+
+    # -- 4c. a few D-NeRF training steps: the route's launches -----------
+    deform_train = phase_deform_train()
+
     # -- 5. training ------------------------------------------------------
     counts = phase_train(arrays, views, opts.steps, opts.profile)
     torch.cuda.empty_cache()
@@ -3938,6 +4336,7 @@ def main(argv=None):
                  more=compact["train"]["bwd"]),
          "host_loader_launches": host_counts["bwd"],
          "step_shapes": train_checks["bwd_step"]},
+        *deform_entries(deform, deform_train),
         entry("brick_encode_eval", "brick_encode_eval.cu",
               "eval_encode.py:202 and :245", ngp["launches"]["encode"],
               ngp["encode"]),

@@ -20,12 +20,11 @@
 // in how a warpgroup's inputs arrive: encoded here into shared memory (one
 // precise sincosf per band and dimension), or loaded as bf16 features.
 //
-// The encoding uses the precise sincosf: the top band reaches |2^9 x| ~ 3000
-// rad, where the fast intrinsics lose all accuracy, so this file must never
-// be built with --use_fast_math. Packs, images and numerics:
+// The encoding (mlp_encode.cuh) uses the precise sincosf, so this file must
+// never be built with --use_fast_math. Packs, images and numerics:
 // nerf_mlp_tile.cuh.
 
-#include "nerf_mlp_tile.cuh"
+#include "mlp_encode.cuh"
 
 namespace {
 
@@ -40,47 +39,6 @@ struct Smem {
   alignas(128) unsigned char v[2][kVBytes];   // encoded directions
   float bias[2][2 * kWidth];                   // the running layer's biases
   bf16 wa[kWidth];                            // w_alpha
-};
-
-// Frequency encoding of a warpgroup's 64 rows into its tile, freq_encode's
-// layout: [x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...], each over all three
-// dims. Columns past the encoded width and rows past n are zero. A work item
-// is a row and either the raw coordinates (with the zero padding) or one
-// (band, dim): one precise sincosf gives both of its columns. A warp shares
-// its item kind, so it takes one branch.
-__device__ __forceinline__ void encode(const float* __restrict__ src, int n,
-                                       int row0, int freqs,
-                                       unsigned char* tile, int cols, int t) {
-  const int dim = 3 * (1 + 2 * freqs), units = 1 + 3 * freqs;
-  for (int e = t; e < kWgRows * units; e += kWgThreads) {
-    const int p = e % kWgRows, u = e / kWgRows;
-    const int gp = row0 + p;
-    const bool valid = gp < n;
-    unsigned char* row = tile + (p >> 3) * kCore + (p & 7) * 16;
-    auto put = [&](int j, float val) {
-      *reinterpret_cast<bf16*>(row + (j >> 3) * kALbo + (j & 7) * 2) =
-          __float2bfloat16_rn(val);
-    };
-    if (u == 0) {
-      for (int d = 0; d < 3; ++d)
-        put(d, valid ? src[static_cast<size_t>(gp) * 3 + d] : 0.0f);
-      for (int j = dim; j < cols; ++j) put(j, 0.0f);
-    } else {
-      const int band = (u - 1) / 3, d = (u - 1) % 3;
-      float sn = 0.0f, cs = 0.0f;
-      // scaling by 2^band is exact in f32, as in the reference
-      if (valid)
-        sincosf(src[static_cast<size_t>(gp) * 3 + d] *
-                    static_cast<float>(1 << band),
-                &sn, &cs);
-      put(3 + 6 * band + d, sn);
-      put(6 + 6 * band + d, cs);
-    }
-  }
-}
-
-struct NoHook {
-  __device__ void operator()(int) const {}
 };
 
 // A consumer warpgroup's share of a block: its 64 rows of every tile the

@@ -1,7 +1,8 @@
-// Tile core shared by fused_nerf_mlp.cu (forward) and fused_nerf_mlp_bwd.cu
-// (backward): constants, the weight packs and their kernel images, the
-// shared-memory weight ring, wgmma products against it, register epilogues
-// and the forward pass of one tile.
+// Tile core shared by fused_nerf_mlp.cu (forward), fused_nerf_mlp_bwd.cu
+// (backward) and fused_deform_mlp.cu (D-NeRF's deformation MLP): constants,
+// the weight packs and their kernel images, the shared-memory weight ring,
+// wgmma products against it, register epilogues and the forward pass of one
+// tile.
 //
 // What bounds it: about 1.19 MFLOP of bf16 tensor-core work a point against
 // a few hundred bytes of device memory, so the tensor cores should be the
@@ -427,6 +428,11 @@ __device__ __forceinline__ void load_rows(const bf16* __restrict__ src, int n,
   }
 }
 
+// forward_tile's `after` where nothing runs between layers.
+struct NoHook {
+  __device__ void operator()(int) const {}
+};
+
 // The forward pass of one warpgroup's 64 rows, whose encoded inputs are in
 // its tiles x and v, through the view layer: afterwards h holds the view
 // activations (columns 0..127) and, with kSigma, sigma the raw density of
@@ -440,7 +446,12 @@ __device__ __forceinline__ void load_rows(const bf16* __restrict__ src, int n,
 // 4 depth + 1. bias_s: 2 x kWidth floats of shared memory of the warpgroup's
 // own (layer l's biases in half l % 2, staged a layer ahead); wa: w_alpha in
 // shared memory.
-template <int kStages, bool kSigma, bool kMasks, typename After>
+// With kDeform (D-NeRF's deformation MLP, fused_deform_mlp.cu) the pass is
+// the trunk alone: layer 0 reads v too (x . W0x + v . W0t, the pack's first
+// two matrices), and the pass ends with trunk layer depth - 1 in h, where
+// after(depth - 1) runs last, with nothing in flight.
+template <int kStages, bool kSigma, bool kMasks, bool kDeform = false,
+          typename After>
 __device__ __forceinline__ void forward_tile(
     Ring<kStages>& ring, Pipe<kStages>& pipe, unsigned char* h,
     const unsigned char* x, const unsigned char* v,
@@ -462,6 +473,8 @@ __device__ __forceinline__ void forward_tile(
   named_barrier(bar_id, kWgThreads);
   float2 next = bias_fetch(bias_of(1), kWidth, t);
   consume<kWidth>(acc, ring, pipe, x_addr, kXDim, kSlabK, fresh, lane);
+  if (kDeform)
+    consume<kWidth>(acc, ring, pipe, smem_addr(v), kVDim, kVDim, fresh, lane);
   bias_stage(slot(1), next, kWidth, t);
   drain(acc, ring, pipe, lane);
   act_epilogue<kWidth, true, kMasks, false>(acc, slot(0), h, warp, lane, masks,
@@ -469,7 +482,9 @@ __device__ __forceinline__ void forward_tile(
   tile_sync(bar_id);
 
   for (int i = 1; i < depth; ++i) {
-    next = bias_fetch(bias_of(i + 1), kWidth, t);
+    // the next layer's biases: with kDeform the trunk's last has none
+    if (!kDeform || i + 1 < depth)
+      next = bias_fetch(bias_of(i + 1), kWidth, t);
     fresh = true;
     if (i == skip + 1)   // the [x, h] concat as a split product
       consume<kWidth>(acc, ring, pipe, x_addr, kXDim, kSlabK, fresh, lane);
@@ -487,6 +502,10 @@ __device__ __forceinline__ void forward_tile(
       act_epilogue<kWidth, true, kMasks, false>(acc, slot(i), h, warp, lane,
                                                 m, nullptr, sigma);
     tile_sync(bar_id);
+  }
+  if (kDeform) {
+    after(depth - 1);
+    return;
   }
   if (kSigma) {
     // the four lanes that share a row hold its partial sums

@@ -20,7 +20,12 @@ takes bf16 operands into an f32 product, so dx is not rounded to bf16.
 Every forward needs each point's time (``times``, broadcastable to the
 points' leading shape); a D-NeRF without one raises. Under a torch
 profiler Psi_t's forward is the span ``dnerf.deform`` (once per pass);
-``tracing.counts["DNeRF.deform_points"]`` counts the points it moves.
+``tracing.counts["DNeRF.deform_points"]`` counts the points it moves and
+``tracing.counts["DeformMLP.calls"]`` the forward calls of the
+``nn.Module``. The training route of a bf16 Psi_t runs it on its own kernels
+(``ops.deform_mlp``, through ``move``'s ``deform``), whose backward is the
+span ``dnerf.deform_backward``; a float32 one, and every eval path, run
+this ``nn.Module``.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ class DeformMLP(nn.Module):
 
     def forward(self, x_feat: torch.Tensor,
                 t_feat: torch.Tensor) -> torch.Tensor:
+        tracing.counts["DeformMLP.calls"] += 1
         dt = self.dtype
         x = x_feat.to(dt)
         h = torch.cat([x, t_feat.to(dt)], dim=-1)
@@ -95,9 +101,12 @@ class DNeRFNetwork(nn.Module):
     def fine(self) -> NeRFMLP:
         return self.canonical
 
-    def move(self, pts: torch.Tensor, times) -> torch.Tensor:
+    def move(self, pts: torch.Tensor, times, deform=None) -> torch.Tensor:
         """Points (..., 3) at ``times`` (broadcastable to their leading
-        shape) -> their canonical positions x + dx, f32 (M, 3)."""
+        shape) -> their canonical positions x + dx, f32 (M, 3). ``deform``
+        (p (M, 3), t (M, 1)) -> dx computes Psi_t in place of the
+        ``nn.Module`` (the training route's kernels,
+        ``ops.deform_mlp.make_train_deform``)."""
         if times is None:
             raise ValueError("a D-NeRF network needs each ray's time "
                              "(the batch's 'times')")
@@ -107,8 +116,11 @@ class DNeRFNetwork(nn.Module):
         t = t.expand(shape).reshape(-1, 1)
         with tracing.span("dnerf.deform"):
             tracing.counts["DNeRF.deform_points"] += p.shape[0]
-            dx = self.deform(self.xyz_encoder(p), freq_encode(
-                t, self.time_freq))
+            if deform is None:
+                dx = self.deform(self.xyz_encoder(p), freq_encode(
+                    t, self.time_freq))
+            else:
+                dx = deform(p, t)
             return p + torch.where(t == 0.0, 0.0, dx)
 
     def forward(self, pts: torch.Tensor, viewdirs: torch.Tensor | None = None,

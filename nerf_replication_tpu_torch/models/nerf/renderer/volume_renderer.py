@@ -472,11 +472,11 @@ class Renderer:
                     raise ValueError(
                         "network.use_pallas_mlp_train is on, but the fused "
                         "MLP kernels do not cover "
-                        f"{mlp_kernel.unsupported(self.net)}; set "
+                        f"{mlp_train.train_unsupported(self.net)}; set "
                         "network.use_pallas_mlp_train False for the "
                         "nn.Module MLP")
                 if self.device.type == "cuda":
-                    mlp_train.build()
+                    mlp_train.build(self.net)
                 self._train_apply = fused
         return self._train_apply
 

@@ -30,13 +30,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 import torch.nn.functional as F
 
 from ..utils import tracing
-from . import _build, mlp_kernel
+from . import _build, deform_mlp, mlp_kernel
+from .bwd_workspace import BIAS_ROWS, CHUNK, PAD, planes_of, two_pass_group
 from .mlp_kernel import (
     ALPHA_PAD,
     HALF,
@@ -48,11 +48,6 @@ from .mlp_kernel import (
     _bf16,
     _take,
 )
-
-PAD = 128          # the delta kernel takes whole 128-point tiles
-BIAS_ROWS = 64     # points per bias partial (one of a tile's two warpgroups)
-CHUNK = 4096       # points per partial of the weight-gradient kernel
-GROUP = 64         # points per group of a tile-order workspace plane
 
 
 def pack_params_torch(mlp, in_dim: int, view_dim: int):
@@ -207,12 +202,17 @@ def _kernel():
     return lib
 
 
-def build() -> None:
-    """Build (both sources concurrently) and load the forward and backward
-    kernels now, so that a failed build raises here."""
-    _build.build_all(["fused_nerf_mlp", "fused_nerf_mlp_bwd"])
+def build(net=None) -> None:
+    """Build (every source concurrently) and load the forward and backward
+    kernels now, so that a failed build raises here; with ``net``, also
+    those of its bf16 deformation MLP where it has one."""
+    deform = net is not None and deform_mlp.runs_on_kernels(net)
+    _build.build_all(["fused_nerf_mlp", "fused_nerf_mlp_bwd"]
+                     + ([deform_mlp.SOURCE] if deform else []))
     mlp_kernel.build()
     _kernel()
+    if deform:
+        deform_mlp.build()
 
 
 def shared_memory_bytes(depth: int) -> dict:
@@ -221,11 +221,6 @@ def shared_memory_bytes(depth: int) -> dict:
     lib = _kernel()
     return {"delta": lib.fused_nerf_mlp_bwd_delta_smem_bytes(depth),
             "wgrad": lib.fused_nerf_mlp_bwd_wgrad_smem_bytes()}
-
-
-def _two_pass_group(rows: int) -> int:
-    """Rows summed per group in the first of the two reduction passes."""
-    return max(1, math.ceil(math.sqrt(rows)))
 
 
 def workspace_columns(depth: int) -> tuple:
@@ -238,28 +233,13 @@ def workspace_columns(depth: int) -> tuple:
             (WIDTH,) * depth + (WIDTH + ALPHA_PAD, HALF, RGB_COLS))
 
 
-def _detile(buf: torch.Tensor, n: int, n_pad: int, cols: int):
-    """A tile-order plane (64-point groups, each ``[col / 8][point][col %
-    8]``) as the row-major (n, cols) matrix of its first ``n`` points."""
-    return buf.view(n_pad // GROUP, cols // 8, GROUP, 8).permute(0, 2, 1, 3) \
-        .reshape(n_pad, cols)[:n]
-
-
-def _planes_of(buf: torch.Tensor, columns, n: int, n_pad: int) -> list:
-    out, at = [], 0
-    for cols in columns:
-        out.append(_detile(buf[at:at + n_pad * cols], n, n_pad, cols))
-        at += n_pad * cols
-    return out
-
-
 def workspace_planes(act: torch.Tensor, dlt: torch.Tensor, n: int,
                      n_pad: int, depth: int) -> dict:
     """The backward kernel's workspaces, de-tiled, as the row-major planes
     of :func:`backward_planes` (first ``n`` rows)."""
     a_cols, d_cols = workspace_columns(depth)
-    a = _planes_of(act, a_cols, n, n_pad)
-    d = _planes_of(dlt, d_cols, n, n_pad)
+    a = planes_of(act, a_cols, n, n_pad)
+    d = planes_of(dlt, d_cols, n, n_pad)
     return {"h": a[:depth], "feat": a[depth], "g_act": a[depth + 1],
             "d": d[:depth], "d_af": d[depth], "d_gpre": d[depth + 1],
             "d_rgb": d[depth + 2]}
@@ -305,7 +285,7 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     act = torch.empty(n_pad * sum(a_cols), **bf)
     dlt = torch.empty(n_pad * sum(d_cols), **bf)
     chunks, bias_rows = -(-n_pad // CHUNK), n_pad // BIAS_ROWS
-    group_w, group_b = _two_pass_group(chunks), _two_pass_group(bias_rows)
+    group_w, group_b = two_pass_group(chunks), two_pass_group(bias_rows)
     part_w = torch.empty(chunks * e_w, **kw)
     tmp_w = torch.empty(-(-chunks // group_w) * e_w, **kw)
     part_b = torch.empty(bias_rows * e_b, **kw)
@@ -371,24 +351,34 @@ def fused_nerf_mlp_diff(mlp, x: torch.Tensor, v: torch.Tensor, in_dim: int,
     return FusedNeRFMLPFn.apply(w, b, x, v, mlp.depth, mlp.skips[0])
 
 
+def train_unsupported(net) -> str | None:
+    """What of ``net`` the training route's kernels do not cover: the
+    canonical MLP's (``mlp_kernel.unsupported``), then a bf16 deformation
+    MLP's (``deform_mlp.unsupported``); None when they cover all of it."""
+    return mlp_kernel.unsupported(net) or deform_mlp.unsupported(net)
+
+
 def make_fused_train_apply(net):
     """Training ``apply_fn(pts, viewdirs, model) -> raw (..., 4)`` that runs
     both branches of ``net`` (a port Network) through the differentiable
     kernels. For a D-NeRF, ``apply_fn(pts, viewdirs, model, times)`` moves
-    the points through its deformation MLP (PyTorch, autograd) and runs the
-    kernels on x + dx, whose f32 gradient the backward's input gradient arm
-    returns: the one path by which the deformation learns. None exactly
-    where ``mlp_kernel.unsupported(net)`` names a part of the network that
-    the kernels do not cover."""
-    if mlp_kernel.unsupported(net) is not None:
+    the points through its deformation MLP and runs the kernels on x + dx,
+    whose f32 gradient the backward's input gradient arm returns: the one
+    path by which the deformation learns. A bf16 deformation MLP runs on
+    its own kernels (``deform_mlp.make_train_deform``), a float32 one as
+    the ``nn.Module`` under autograd. None exactly where
+    :func:`train_unsupported` names a part of the network that the kernels
+    do not cover."""
+    if train_unsupported(net) is not None:
         return None
     xyz, dirs = net.xyz_encoder, net.dir_encoder
     move = getattr(net, "move", None)
     x_dtype = torch.bfloat16 if move is None else torch.float32
+    deform = deform_mlp.make_train_deform(net)
 
     def apply_fn(pts, viewdirs, model="", times=None):
         shape = pts.shape[:-1]
-        p = pts if move is None else move(pts, times)
+        p = pts if move is None else move(pts, times, deform)
         p = p.reshape(-1, 3).float()
         d = viewdirs.expand(*shape, 3).reshape(-1, 3).float()
         x, v = mlp_kernel.encode_features(p, d, xyz.n_freqs, dirs.n_freqs,
@@ -404,4 +394,5 @@ __all__ = ["pack_params_torch", "fused_nerf_mlp_bwd",
            "fused_nerf_mlp_bwd_reference", "backward_planes", "weight_grads",
            "input_grad",
            "workspace_columns", "workspace_planes", "FusedNeRFMLPFn",
-           "fused_nerf_mlp_diff", "make_fused_train_apply", "build"]
+           "fused_nerf_mlp_diff", "train_unsupported",
+           "make_fused_train_apply", "build"]

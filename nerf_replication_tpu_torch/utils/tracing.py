@@ -27,7 +27,10 @@ plain version's calls, under ``"<owner>.<what>"``: e.g.
 adds the span ``dnerf.deform`` (its deformation MLP's forward, once per
 pass), the count of the points it moves (``"DNeRF.deform_points"``) and
 the backward's input-gradient launches
-(``"fused_nerf_mlp_bwd.input_grad_launches"``).
+(``"fused_nerf_mlp_bwd.input_grad_launches"``); its deformation's kernels
+add the span ``dnerf.deform_backward`` (their backward, once per pass)
+and ``"fused_deform_mlp.launches"``, ``"fused_deform_mlp_bwd.launches"``
+and their plain versions' ``.calls``.
 """
 
 from __future__ import annotations

@@ -290,6 +290,69 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 262144])
+def test_deformation_kernels_match_plain_versions(cuda, monkeypatch, n):
+    """D-NeRF's deformation kernels (``ops.deform_mlp``) at ragged point
+    counts around the 128-point tile and at a 4096-ray step's coarse
+    262,144, at the seed's init of configs/nerf/hard_dnerf.yaml, times in
+    [0, 1] with every 150th at 0 and a cotangent zero there: dx to 1e-2 of
+    each column's range; the encodings in the backward's workspace within
+    one bf16 step of the plain ones; the backward to chip_smoke.py's check
+    against the plain backward on those encodings (every flipped ReLU
+    within FLIP_REL of zero; at the points without one, the deltas within
+    DEFORM_DELTA_DIFF, or two points' worth at a few points as for #5, and
+    exactly equal at one point; workspace sums; leaves within GRAD_REL;
+    padding exactly zero). One launch each, no plain call."""
+    from nerf_replication_tpu_torch.ops import deform_mlp
+
+    net = make_network(make_cfg(parse_args(chip_smoke.DEFORM_ARGV))).to(cuda)
+    with torch.no_grad():
+        w, b = deform_mlp.pack_params_torch(net.deform, 63, 21)
+    packed = deform_mlp.DeformPack(w.to(torch.bfloat16).contiguous(), b, 8,
+                                   4)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    p, t = chip_smoke.deform_inputs(n, gen)
+    g = torch.randn(n, 3, device=cuda, generator=gen) * 1e-3
+    g[t == 0.0] = 0.0
+    keys = ("fused_deform_mlp.launches", "fused_deform_mlp_bwd.launches",
+            "fused_deform_mlp_reference.calls",
+            "fused_deform_mlp_bwd_reference.calls")
+    before = [tracing.counts[k] for k in keys]
+    keep = {}
+    dx = deform_mlp.fused_deform_mlp(packed, p, t, 10, 10)
+    grads = deform_mlp.fused_deform_mlp_bwd(packed, p, t, g, 10, 10,
+                                            keep=keep)
+    torch.cuda.synchronize()
+    assert [tracing.counts[k] - c for k, c in zip(keys, before)] == \
+        [1, 1, 0, 0]
+    ref = deform_mlp.fused_deform_mlp_reference(packed, p, t, 10, 10)
+    assert dx.shape == (n, 3) and bool(torch.isfinite(dx).all())
+    scale = ref.abs().amax(dim=0).clamp_min(1e-3)
+    assert float(((dx - ref).abs() / scale).max()) <= 1e-2
+    planes = keep["planes"]
+    x, v = planes["x"].float(), planes["v"].float()
+    enc = chip_smoke.encoding_agreement(
+        (x, v), deform_mlp.encode_inputs(p, t, 10, 10))
+    assert enc["ok"], enc["points"]
+    ref_grads, ref_planes = chip_smoke.deform_plain_bwd(packed, x, v, g)
+    flips = chip_smoke.relu_flips(planes, ref_planes)
+    a = chip_smoke.backward_agreement(
+        grads, ref_grads, planes, ref_planes, packed, 63, 21, x=x, v=v,
+        delta_diff=0.0 if n == 1 else max(chip_smoke.DEFORM_DELTA_DIFF,
+                                          2 / n),
+        rows=~flips["mask"])
+    print(f"deformation, N={n}: encodings differing at {enc['points']:.2e} "
+          f"of the points; {chip_smoke.describe_flips(flips)}; "
+          f"{chip_smoke.describe_grad(a)}")
+    assert flips["ok"], chip_smoke.describe_flips(flips)
+    assert a["ok"], chip_smoke.describe_grad(a)
+    with pytest.raises(ValueError):
+        deform_mlp.fused_deform_mlp_bwd(packed, p, t, g.double(), 10, 10)
+    with pytest.raises(ValueError):
+        deform_mlp.fused_deform_mlp(packed, p, t[:, None], 10, 10)
+
+
+@pytest.mark.cuda
 def test_train_step_on_gpu_matches_cpu(cuda, monkeypatch):
     """One deterministic loss_fn of the fused train path on 64 rays of
     hard view 0, trained weights: the kernels on the GPU against the plain

@@ -21,7 +21,7 @@ from nerf_replication_tpu_torch.datasets.nerf.blender import Dataset
 from nerf_replication_tpu_torch.models import make_network
 from nerf_replication_tpu_torch.models.nerf.dnerf_network import DNeRFNetwork
 from nerf_replication_tpu_torch.models.nerf.network import NeRFMLP
-from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+from nerf_replication_tpu_torch.ops import deform_mlp, mlp_kernel, mlp_train
 from nerf_replication_tpu_torch.train import make_trainer
 from nerf_replication_tpu_torch.train.trainers.nerf import NetworkWrapper
 from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
@@ -159,13 +159,16 @@ def test_fused_path_follows_the_reference(batch):
 
 
 def test_bf16_training_loss_follows_the_reference(batch):
-    """The card's configuration as it is (the deformation in bf16 too):
-    the training loss to 2e-2 of the reference's. Its gradients are not
-    compared here: bf16 moves dx by up to ~3e-3 at this init, which the
-    10th band turns into phase shifts of ~1.4 rad, so the deformation's
-    gradients differ by their own size (the benchmark's limits, set on the
-    card, hold that path)."""
-    _, w, loss, _, _ = _port((), batch)
+    """The card's configuration as it is (the deformation in bf16 too, at
+    its published width 256, so on the route of its kernels, here their
+    plain versions): the training loss to 2e-2 of the reference's. Its
+    gradients are not compared here: bf16 moves dx by ~1e-3 at this init,
+    which the 10th band turns into phase shifts of ~0.5 rad, so the
+    deformation's gradients differ by their own size (the benchmark's
+    limits, set on the card, hold that path;
+    test_fused_bf16_deformation_follows_the_reference holds it at the
+    route's own moved points)."""
+    _, w, loss, _, _ = _port(("network.deform.W", "256"), batch)
     r_loss, _, _ = _reference(w, batch)
     assert float(abs(loss - r_loss) / r_loss) < 2e-2
 
@@ -410,3 +413,264 @@ def test_benchmark_stand_ins_plant_the_input_gradient_faults():
             assert a == pytest.approx(reads, abs=1e-6), (fault, a)
     torch.testing.assert_close(grads("flip_input_grad")[1]["deform."],
                                -want["deform."], rtol=0, atol=0)
+
+
+# The deformation MLP at its published widths (W 256), as its kernels take
+# it; on the CPU the route runs their plain versions.
+DEFORM_256 = ("network.deform.W", "256")
+
+
+def _deform_batch(n=384, seed=21):
+    """Points around the scene, times with every third at t = 0, and a
+    cotangent of dx."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch.rand(n, 3, generator=g) * 4.0 - 2.0
+    t = torch.rand(n, generator=g)
+    t[::3] = 0.0
+    return p, t, torch.randn(n, 3, generator=g)
+
+
+def _moved_grads(net, p, t, cot, deform=None):
+    """(dx, every deform.* leaf's gradient) of the moved points under the
+    cotangent ``cot``, through ``move`` with ``deform`` (None: the
+    nn.Module)."""
+    net.zero_grad(set_to_none=True)
+    dx = net.move(p, t, deform) - p
+    (dx * cot).sum().backward()
+    return dx.detach(), {k: p_.grad.clone() for k, p_ in
+                         net.deform.named_parameters(prefix="deform")}
+
+
+@pytest.mark.parametrize("against", ["module", "reference"])
+def test_deformation_kernels_plain_versions_follow(against):
+    """The deformation kernels' plain versions (the training route on the
+    CPU: ``deform_mlp.make_train_deform``, 384 points, a third at t = 0,
+    the seed's init at W 256) against ``DeformMLP`` with autograd in bf16
+    (``module``: the same bf16 operands and activations, rounded at other
+    points: the biases in bf16, the weight gradients in bf16, other sums'
+    orders) and against the f32 ``reference/dnerf.py`` (``reference``): dx
+    in relative norm and every ``deform.*`` leaf's gradient under a random
+    cotangent on dx. Read: against the module dx 9.1e-5 and leaves up to
+    2.6e-3 (the bounds 2e-3 and 2e-2); against f32, bf16's own error, dx
+    4.8e-3 and leaves up to 0.13 on the first layers' (the bounds 2e-2
+    and test_fused_path_follows_the_reference's 0.25: the deltas of 8
+    bf16 layers at a random init)."""
+    net = make_network(_cfg(*DEFORM_256))
+    p, t, cot = _deform_batch()
+    dx, grads = _moved_grads(net, p, t, cot,
+                             deform_mlp.make_train_deform(net))
+    if against == "module":
+        want_dx, want = _moved_grads(net, p, t, cot)
+        dx_bound, leaf_bound = 2e-3, 2e-2
+    else:
+        w = {k: v.detach().clone().requires_grad_(True)
+             for k, v in net.state_dict().items() if k.startswith("deform.")}
+        want_dx = ref.deform(w, MODEL, p, t)
+        want = dict(zip(w, torch.autograd.grad((want_dx * cot).sum(),
+                                               list(w.values()))))
+        want_dx = want_dx.detach()
+        dx_bound, leaf_bound = 2e-2, 0.25
+    dx_err = float((dx - want_dx).norm() / want_dx.norm())
+    errs = _leaf_errors(grads, want)
+    print(f"against the {against}: dx {dx_err:.2e}, worst leaves",
+          sorted(errs.items(), key=lambda kv: -kv[1])[:3])
+    assert set(errs) == {k for k in net.state_dict()
+                         if k.startswith("deform.")}
+    assert dx_err < dx_bound
+    assert max(errs.values()) < leaf_bound, errs
+
+
+def test_fused_bf16_deformation_follows_the_reference(batch):
+    """The training apply with the deformation in bf16 at W 256, as the
+    card runs it (Psi_t through ``FusedDeformMLPFn``, the canonical MLP
+    through #3/#4/#5; their plain versions here), against the f32
+    reference's field at test_fused_path_follows_the_reference's bounds:
+    raw outputs to 1e-2 and every leaf's gradient to 0.25 of its norm.
+    bf16 moves dx by ~1e-3, which the 10th band turns into phase shifts of
+    ~0.5 rad (read 0.056 on raw and 0.62 on leaves), so the reference's
+    canonical field is evaluated at the route's moved points: its
+    deformation's value is swapped for the route's dx, its gradients kept
+    (straight through). Read: raw 2.7e-3, worst leaf 0.17 (deform.*; the
+    f32 path reads 0.14). Counts one plain call of each deformation
+    kernel and no launch."""
+    net = make_network(_cfg(*DEFORM_256))
+    w = {k: v.detach().clone().requires_grad_(True)
+         for k, v in net.state_dict().items()}
+    g = torch.Generator().manual_seed(3)
+    d = batch["rays_d"][:, None]
+    pts = batch["rays_o"][:, None] + d * torch.linspace(2.5, 5.5, 16)[:, None]
+    cot = torch.randn(N_RAYS, 16, 4, generator=g)
+    t = batch["times"][:, None]
+    deform = deform_mlp.make_train_deform(net)
+    with torch.no_grad():
+        dx = net.move(pts, t, deform) - pts.reshape(-1, 3)
+    plain = ref.deform
+
+    def at_route_points(w_, m, x, tt):
+        r_dx = plain(w_, m, x, tt)
+        return r_dx + (dx - r_dx).detach()
+
+    with mock.patch.object(ref, "deform", at_route_points):
+        want = ref.field(w, MODEL, pts, d, t)
+    r_grads = dict(zip(w, torch.autograd.grad((want * cot).sum(),
+                                              list(w.values()))))
+    keys = ("fused_deform_mlp_reference.calls",
+            "fused_deform_mlp_bwd_reference.calls",
+            "fused_deform_mlp.launches", "fused_deform_mlp_bwd.launches")
+    before = [tracing.counts[k] for k in keys]
+    raw = mlp_train.make_fused_train_apply(net)(pts, d, "", t)
+    (raw * cot).sum().backward()
+    assert [tracing.counts[k] - b for k, b in zip(keys, before)] == \
+        [1, 1, 0, 0]
+    assert float((raw.detach() - want.detach()).abs().max()) < 1e-2
+    errs = _leaf_errors({k: p.grad for k, p in net.named_parameters()},
+                        r_grads)
+    print("bf16 deformation route, worst leaves:",
+          sorted(errs.items(), key=lambda kv: -kv[1])[:3])
+    assert max(errs.values()) < 0.25, errs
+
+
+def test_fused_deformation_gives_canonical_rows_no_gradient():
+    """Rows at t = 0 through the route: their points come back bit for
+    bit, the plain backward's deltas are exactly zero on them (the mask's
+    zero cotangent), and a batch all at t = 0 gives every deform.* leaf
+    an exactly zero gradient."""
+    net = make_network(_cfg(*DEFORM_256))
+    deform = deform_mlp.make_train_deform(net)
+    p, t, cot = _deform_batch(n=200)
+    seen = {}
+    bwd = deform_mlp.fused_deform_mlp_bwd
+
+    def keep_planes(*args, **kw):
+        seen["g"] = args[3]
+        return bwd(*args, **kw, keep=seen)
+
+    with mock.patch.object(deform_mlp, "fused_deform_mlp_bwd", keep_planes):
+        dx, _ = _moved_grads(net, p, t, cot, deform)
+    zero = t == 0.0
+    assert bool(zero.any()) and bool((dx[zero] == 0).all())
+    assert float(seen["g"][zero].abs().max()) == 0.0
+    for d in seen["planes"]["d"]:
+        assert float(d[zero].abs().max()) == 0.0
+    assert float(seen["planes"]["d"][0][~zero].abs().max()) > 0.0
+    dx, grads = _moved_grads(net, p, torch.zeros_like(t), cot, deform)
+    assert float(dx.abs().max()) == 0.0
+    assert all(float(g.abs().max()) == 0.0 for g in grads.values())
+
+
+def test_deformation_pack_maps_back_to_the_parameters():
+    """``deform_mlp.pack_params_torch`` lays each ``deform.*`` parameter at
+    its place of the pack (W0x and W0t the split of pts.0, W_5x and W_5 of
+    pts.5, W_out the head, each transposed, zero-padded): the gradient of
+    <pack, R> is R read back at those places, and ``pack_index``'s
+    inverse, which ``FusedDeformMLPFn``'s backward gathers by, reads it
+    back the same. Both images are permutations of the pack. The route
+    packs once a parameter version: two passes share one pack, and an
+    in-place update (the optimizer's) makes a new one."""
+    net = make_network(_cfg(*DEFORM_256))
+    deform = net.deform
+    w, b = deform_mlp.pack_params_torch(deform, 63, 21)
+    assert w.numel() == 503_808 and b.numel() == 8 * 256 + 16
+    state = dict(deform.named_parameters())
+    at, got = 0, {}
+    for name, rows, cols in deform_mlp.pack_matrices(8, 4):
+        got[name] = w[at:at + rows * cols].view(rows, cols)
+        at += rows * cols
+    w0 = state["pts.0.weight"].t()
+    torch.testing.assert_close(got["0x"][:63], w0[:63], rtol=0, atol=0)
+    torch.testing.assert_close(got["0t"][:21], w0[63:], rtol=0, atol=0)
+    w5 = state["pts.5.weight"].t()
+    torch.testing.assert_close(got["5x"][:63], w5[:63], rtol=0, atol=0)
+    torch.testing.assert_close(got["5"], w5[63:], rtol=0, atol=0)
+    torch.testing.assert_close(got["7"], state["pts.7.weight"].t(), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(got["out"][:, :3], state["out.weight"].t(),
+                               rtol=0, atol=0)
+    pads = (got["0x"][63:], got["0t"][21:], got["5x"][63:],
+            got["out"][:, 3:], b[8 * 256 + 3:])
+    assert all(float(pad.detach().abs().max()) == 0.0 for pad in pads)
+    torch.testing.assert_close(b[:256], state["pts.0.bias"], rtol=0, atol=0)
+    torch.testing.assert_close(b[8 * 256:8 * 256 + 3], state["out.bias"],
+                               rtol=0, atol=0)
+    r_w, r_b = torch.randn_like(w), torch.randn_like(b)
+    grads = dict(zip(state, torch.autograd.grad(
+        (w * r_w).sum() + (b * r_b).sum(), list(state.values()))))
+    r, at = {}, 0
+    for name, rows, cols in deform_mlp.pack_matrices(8, 4):
+        r[name] = r_w[at:at + rows * cols].view(rows, cols)
+        at += rows * cols
+    for key, want in (("pts.0.weight", torch.cat([r["0x"][:63],
+                                                  r["0t"][:21]])),
+                      ("pts.5.weight", torch.cat([r["5x"][:63], r["5"]])),
+                      ("pts.3.weight", r["3"]),
+                      ("out.weight", r["out"][:, :3]),
+                      ("pts.2.bias", r_b[512:768]),
+                      ("out.bias", r_b[8 * 256:8 * 256 + 3])):
+        torch.testing.assert_close(grads[key].t(), want, rtol=0, atol=0)
+    *_, inverse = deform_mlp.pack_index(8, 4, 63, 21)
+    assert int(inverse.min()) >= 0
+    mapped = torch.cat([r_w, r_b])[inverse].split(
+        [q.numel() for q in deform_mlp.parameters_in_order(deform)])
+    for q, got in zip(deform_mlp.parameters_in_order(deform), mapped):
+        name = next(k for k, v in state.items() if v is q)
+        torch.testing.assert_close(got.view(q.shape), grads[name], rtol=0,
+                                   atol=0)
+    for transposed in (False, True):
+        perm = deform_mlp.image_index(8, 4, transposed)
+        assert torch.equal(perm.sort().values, torch.arange(w.numel()))
+    made, real = [], deform_mlp.DeformPack
+
+    def counted(**kw):
+        made.append(real(**kw))
+        return made[-1]
+
+    p, t, _ = _deform_batch(n=32)
+    deform_fn = deform_mlp.make_train_deform(net)
+    with mock.patch.object(deform_mlp, "DeformPack", counted):
+        before = deform_fn(p, t[:, None]).detach()
+        deform_fn(p, t[:, None])
+        assert len(made) == 1
+        with torch.no_grad():
+            deform.out.bias.add_(1.0)
+        after = deform_fn(p, t[:, None]).detach()
+    assert len(made) == 2
+    torch.testing.assert_close(after - before, torch.ones_like(before),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["bf16 at W 256", "float32", "bf16 at W 32",
+                                  "bf16 at W 32, flag off"])
+def test_deformation_route_follows_the_network(case):
+    """The training route picks Psi_t's path from what it observes: a bf16
+    deformation at the kernels' shape goes through ``FusedDeformMLPFn``
+    (its plain versions here: they count a call), a float32 one keeps the
+    ``nn.Module`` (nothing counted), and a bf16 one of a width the kernels
+    do not cover makes ``network.use_pallas_mlp_train`` raise, naming it,
+    as the canonical MLP's does; with the flag off the module trains it."""
+    opts = {"bf16 at W 256": DEFORM_256,
+            "float32": ("network.dtype", "float32"),
+            "bf16 at W 32": (),
+            "bf16 at W 32, flag off": ("network.use_pallas_mlp_train",
+                                       "False", "network.nerf.W", "32")}[case]
+    cfg = _cfg(*opts)
+    net = make_network(cfg)
+    renderer = NetworkWrapper(net, cfg).renderer
+    if case == "bf16 at W 32":
+        assert "width 32" in mlp_train.train_unsupported(net)
+        assert mlp_train.make_fused_train_apply(net) is None
+        with pytest.raises(ValueError, match="width 32"):
+            renderer.train_apply
+        return
+    p, t, cot = _deform_batch(n=64)
+    calls = tracing.counts["fused_deform_mlp_reference.calls"]
+    fused = case == "bf16 at W 256"
+    if case == "bf16 at W 32, flag off":
+        assert renderer.train_apply is net
+    else:
+        assert (deform_mlp.make_train_deform(net) is not None) == fused
+    raw = renderer.train_apply(p[:, None], F.normalize(p, dim=-1)[:, None],
+                               "", t[:, None])
+    (raw * cot.sum(-1, keepdim=True)[:, None]).sum().backward()
+    assert tracing.counts["fused_deform_mlp_reference.calls"] == \
+        calls + int(fused)
+    assert all(q.grad is not None for q in net.deform.parameters())
