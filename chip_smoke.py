@@ -700,29 +700,15 @@ def _leaf_rel(k: torch.Tensor, p: torch.Tensor) -> float:
     return float((k - p).norm() / p.norm().clamp_min(1e-30))
 
 
-def _members(packed, in_dim: int, view_dim: int):
-    """The leaves of a weight pack and a bias pack, in pack order: (name,
-    rows, cols, rows kept, cols kept), a bias as a column; the rest of each
-    leaf is padding. ``packed`` is #5's (``in_dim``, ``view_dim``: the
-    encoded point and view widths) or the deformation's (``in_dim``,
-    ``view_dim``: the encoded point and time widths)."""
-    from nerf_replication_tpu_torch.ops import deform_mlp, mlp_train
-
-    if isinstance(packed, deform_mlp.DeformPack):
-        rows = {"w0x": in_dim, "w0t": view_dim,
-                f"w{packed.skip + 1}x": in_dim}
-        cols = {"wout": 3, "bout": 3}
-        shapes = deform_mlp.pack_matrices(packed.depth, packed.skip)
-        sizes = deform_mlp.bias_sizes(packed.depth)
-    else:
-        rows = {"w0": in_dim, f"w{packed.skip + 1}x": in_dim,
-                "wvd": view_dim}
-        cols = {"wrgb": 3, "balpha": 1, "brgb": 3}
-        shapes, _, sizes, _ = mlp_train._unpack(packed)
-    return ([(f"w{n}", r, c, rows.get(f"w{n}", r), cols.get(f"w{n}", c))
-             for n, r, c in shapes]
-            + [(f"b{n}", size, 1, cols.get(f"b{n}", size), 1)
-               for n, size in sizes])
+def _members(packed):
+    """The leaves of a weight pack and a bias pack, in pack order, as the
+    pack's layout gives them: (name, rows, cols, rows kept, cols kept), a
+    bias as a column, "w" or "b" before its member's name; the rest of
+    each leaf is padding."""
+    lay = packed.layout
+    return [(f"{kind}{m.name}", m.rows, m.cols, m.keep_rows, m.keep_cols)
+            for kind, members in (("w", lay.weights), ("b", lay.biases))
+            for m in members]
 
 
 def _leaves(flat_w, flat_b, members):
@@ -809,23 +795,21 @@ def _delta_planes(planes: dict) -> dict:
     return out
 
 
-def backward_agreement(out, ref, planes, ref_planes, packed, in_dim: int,
-                       view_dim: int, x=None, v=None,
-                       delta_diff: float = DELTA_DIFF, rows=None) -> dict:
+def backward_agreement(out, ref, planes, ref_planes, packed, x=None, v=None,
+                       weight_grads=None, delta_diff: float = DELTA_DIFF,
+                       rows=None) -> dict:
     """The backward check of ``out`` (weight-pack grad, bias-pack grad) and
     its delta ``planes`` against the plain ``ref`` and ``ref_planes``, for
     #5's packs or the deformation's (:func:`_members`); with the encodings
     ``x``, ``v`` (a kernel's input or its workspace's) also the
-    weight-gradient products against float64 sums of ``planes`` (summed
-    over slices of WGRAD_CHECK_POINTS points, so that a training step's
-    points fit). ``ok`` when every part holds, at most ``delta_diff`` of
-    the deltas differing at the points ``rows`` (a bool mask; all points
-    without it); the worst plane or leaf of each statistic."""
-    from nerf_replication_tpu_torch.ops import deform_mlp, mlp_train
-
-    op = deform_mlp if isinstance(packed, deform_mlp.DeformPack) \
-        else mlp_train
-    members = _members(packed, in_dim, view_dim)
+    weight-gradient products against float64 sums of ``planes`` by the
+    network's ``weight_grads`` (``mlp_train``'s or ``deform_mlp``'s),
+    summed over slices of WGRAD_CHECK_POINTS points, so that a training
+    step's points fit. ``ok`` when every part holds, at most
+    ``delta_diff`` of the deltas differing at the points ``rows`` (a bool
+    mask; all points without it); the worst plane or leaf of each
+    statistic."""
+    members = _members(packed)
     rel, pad_zero = {}, True
     for (name, k, r, c), (_, p, _, _) in zip(_leaves(*out, members),
                                              _leaves(*ref, members)):
@@ -844,8 +828,8 @@ def backward_agreement(out, ref, planes, ref_planes, packed, in_dim: int,
             at = slice(p0, p0 + WGRAD_CHECK_POINTS)
             f64 = {k: ([t[at].double() for t in p] if isinstance(p, list)
                        else p[at].double()) for k, p in planes.items()}
-            sums = sums + op.weight_grads(f64, x[at].double(),
-                                          v[at].double(), packed)
+            sums = sums + weight_grads(f64, x[at].double(), v[at].double(),
+                                       packed)
         zeros = torch.zeros_like(out[1])
         for (name, k, _, _), (_, p, _, _) in zip(
                 _leaves(out[0], zeros, members),
@@ -985,7 +969,7 @@ def backward_at_step_shape(net, mlp, packed, n: int) -> dict:
     counter (more: D planes of 256-wide gradients read twice, mostly from
     L2), and the input gradient arm (``input_grad``:
     :func:`input_grad_agreement`) with its time (``input_grad_ms``)."""
-    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train, tile_mlp
     from nerf_replication_tpu_torch.utils import tracing
 
     gen = torch.Generator(device="cuda").manual_seed(n)
@@ -1001,7 +985,8 @@ def backward_at_step_shape(net, mlp, packed, n: int) -> dict:
     grad_p = mlp_train.fused_nerf_mlp_bwd_reference(packed, x, v, g, keep_p)
     torch.cuda.synchronize()
     check = backward_agreement(grad_k, grad_p, keep_k["planes"],
-                               keep_p["planes"], packed, *enc, x=x, v=v)
+                               keep_p["planes"], packed, x=x, v=v,
+                               weight_grads=mlp_train.weight_grads)
     del keep_k, keep_p, grad_p
     torch.cuda.empty_cache()
     arm = input_grad_agreement(packed, x, v, g, grad_k)
@@ -1011,9 +996,8 @@ def backward_at_step_shape(net, mlp, packed, n: int) -> dict:
     arm_ms = cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(
         packed, x, v, g, with_input_grad=True), 20)
     flops = n * (3 * mlp_flops(mlp) - input_side_flops(mlp, *enc))
-    n_pad = -(-n // mlp_train.PAD) * mlp_train.PAD
-    workspace = 2 * n_pad * sum(map(sum, mlp_train.workspace_columns(
-        packed.depth)))
+    workspace = 2 * tile_mlp.padded(n) * sum(
+        map(sum, tile_mlp.workspace_columns(packed.layout)))
     return dict(n=n, ms=ms, **bound(nbytes(x, v, g, packed.w, packed.b),
                                     flops, "bf16"),
                 floor_ms=2 * workspace / PEAK_BYTES_PER_S * 1e3,
@@ -1026,7 +1010,7 @@ def phase_train_kernels(cfg, arrays, step_shapes: bool = False) -> dict:
     plain versions at the training shapes; returns errors and times. With
     ``step_shapes``, also #5 alone at a training step's points
     (``bwd_step``, :func:`backward_at_step_shape`)."""
-    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train, tile_mlp
     from nerf_replication_tpu_torch.run import load_model
 
     net = load_model(cfg, torch.device("cuda"))
@@ -1034,8 +1018,7 @@ def phase_train_kernels(cfg, arrays, step_shapes: bool = False) -> dict:
     res = {"fwd": [], "bwd": []}
     for branch, (x, v, g) in real_batch(cfg, net, arrays).items():
         mlp = getattr(net, branch)
-        packed = mlp_kernel.pack_nerf_params(mlp.state_dict(), *enc,
-                                             mlp.depth, mlp.skips[0])
+        packed = tile_mlp.pack(mlp_kernel.layout_of(net), mlp.state_dict())
         n = x.shape[0]
         out_k = mlp_kernel.fused_nerf_mlp(packed, x, v)
         out_p = mlp_kernel.fused_nerf_mlp_reference(packed, x, v)
@@ -1046,7 +1029,8 @@ def phase_train_kernels(cfg, arrays, step_shapes: bool = False) -> dict:
         torch.cuda.synchronize()
         a = agreement(out_k, out_p)
         b = backward_agreement(grad_k, grad_p, keep_k["planes"],
-                               keep_p["planes"], packed, *enc, x=x, v=v)
+                               keep_p["planes"], packed, x=x, v=v,
+                               weight_grads=mlp_train.weight_grads)
         times = {
             "fwd": (cuda_ms(lambda: mlp_kernel.fused_nerf_mlp(packed, x, v), 20),
                     cuda_ms(lambda: mlp_kernel.fused_nerf_mlp_reference(
@@ -1091,16 +1075,15 @@ def phase_train_kernels(cfg, arrays, step_shapes: bool = False) -> dict:
         for label, patches in GRAD_CONTROLS.items():
             grad_c, planes_c = control_bwd(patches, packed, x, v, g)
             c = backward_agreement(grad_c, grad_p, planes_c,
-                                   keep_p["planes"], packed, *enc)
+                                   keep_p["planes"], packed)
             print(f"control, plain backward with {label}, {branch} N={n}: "
                   f"{describe_grad(c)}")
             if c["ok"]:
                 fail(f"the backward check accepts the plain backward with "
                      f"{label}, so it cannot see such a fault")
     if step_shapes:
-        packed = mlp_kernel.pack_nerf_params(net.fine.state_dict(), *enc,
-                                             net.fine.depth,
-                                             net.fine.skips[0])
+        packed = tile_mlp.pack(mlp_kernel.layout_of(net),
+                               net.fine.state_dict())
         res["bwd_step"] = []
         for n in STEP_POINTS:
             r = backward_at_step_shape(net, net.fine, packed, n)
@@ -1235,7 +1218,7 @@ def deform_at(net, packed, n: int) -> dict:
     operations (the recompute, the deltas less the input rows', the weight
     gradients) at the bf16 peak, and the backward's workspace written and
     read once at the memory rate."""
-    from nerf_replication_tpu_torch.ops import deform_mlp
+    from nerf_replication_tpu_torch.ops import deform_mlp, tile_mlp
 
     gen = torch.Generator(device="cuda").manual_seed(n)
     p, t = deform_inputs(n, gen)
@@ -1258,7 +1241,8 @@ def deform_at(net, packed, n: int) -> dict:
     grad_e, planes_e = deform_plain_bwd(packed, xk, vk, g)
     flips = relu_flips(planes_k, planes_e)
     bwd = backward_agreement(grad_k, grad_e, planes_k, planes_e, packed,
-                             *dims, x=xk, v=vk,
+                             x=xk, v=vk,
+                             weight_grads=deform_mlp.weight_grads,
                              delta_diff=DEFORM_DELTA_DIFF,
                              rows=~flips.pop("mask"))
     controls = {}
@@ -1272,8 +1256,7 @@ def deform_at(net, packed, n: int) -> dict:
             else:
                 grad_c, planes_c = deform_plain_bwd(packed, xk, vk, g)
                 c = backward_agreement(grad_c, grad_e, planes_c, planes_e,
-                                       packed, *dims,
-                                       delta_diff=DEFORM_DELTA_DIFF)
+                                       packed, delta_diff=DEFORM_DELTA_DIFF)
         controls[label] = c
     b = packed.b.clone()
     b[:packed.depth * net.deform.width] += FLIP_CONTROL_SHIFT
@@ -1296,9 +1279,8 @@ def deform_at(net, packed, n: int) -> dict:
     width, skip = net.deform.width, net.deform.skips[0]
     input_side = 2 * width * sum(dims) + (
         2 * width * dims[0] if skip + 1 < net.deform.depth else 0)
-    n_pad = -(-n // 128) * 128
-    workspace = 2 * n_pad * sum(map(sum, deform_mlp.workspace_columns(
-        packed.depth)))
+    workspace = 2 * tile_mlp.padded(n) * sum(
+        map(sum, tile_mlp.workspace_columns(packed.layout)))
     return dict(
         n=n, fwd=fwd, enc=enc, flips=flips, bwd=bwd, controls=controls,
         ms=fwd_ms, bwd_ms=bwd_ms, plain_ms=plain_fwd, plain_bwd_ms=plain_bwd,
@@ -1345,14 +1327,10 @@ def phase_deform_kernels() -> dict:
     control passes."""
     from nerf_replication_tpu_torch.config import make_cfg, parse_args
     from nerf_replication_tpu_torch.models import make_network
-    from nerf_replication_tpu_torch.ops import deform_mlp
+    from nerf_replication_tpu_torch.ops import deform_mlp, tile_mlp
 
     net = make_network(make_cfg(parse_args(DEFORM_ARGV))).cuda()
-    x_dim, t_dim = net.xyz_encoder.output_dim, 1 + 2 * net.time_freq
-    with torch.no_grad():
-        w, b = deform_mlp.pack_params_torch(net.deform, x_dim, t_dim)
-    packed = deform_mlp.DeformPack(w.to(torch.bfloat16).contiguous(), b,
-                                   net.deform.depth, net.deform.skips[0])
+    packed = tile_mlp.pack(deform_mlp.layout_of(net), net.deform.state_dict())
     smem = deform_mlp.shared_memory_bytes(packed.depth)
     print(f"deformation kernels: dynamic shared memory a block: forward "
           f"{smem['forward']} B, delta kernel {smem['delta']} B (depth "
@@ -4069,6 +4047,7 @@ def main(argv=None):
         fused_ngp,
         mlp_kernel,
         mlp_train,
+        tile_mlp,
     )
     from nerf_replication_tpu_torch.run import load_model, run_evaluate
     from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
@@ -4121,14 +4100,13 @@ def main(argv=None):
             "device", "cuda"]
     cfg = make_cfg(parse_args(argv))
     net = load_model(cfg, torch.device("cuda"))
-    enc = net.xyz_encoder.output_dim, net.dir_encoder.output_dim
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {}
     for n in POINTS:
         for branch in ("coarse", "fine"):
             mlp = getattr(net, branch)
-            packed = mlp_kernel.pack_nerf_params(
-                mlp.state_dict(), *enc, mlp.depth, mlp.skips[0])
+            packed = tile_mlp.pack(mlp_kernel.layout_of(net),
+                                   mlp.state_dict())
             pts, dirs = ray_points(n, gen)
             args = (packed, pts, dirs, net.xyz_encoder.n_freqs,
                     net.dir_encoder.n_freqs)

@@ -10,9 +10,10 @@ The counterpart of nerf_replication_tpu/ops/pallas/mlp_train.py, whose
   launches ``mlp_kernel.fused_nerf_mlp`` (csrc/fused_nerf_mlp.cu), its
   backward :func:`fused_nerf_mlp_bwd` (csrc/fused_nerf_mlp_bwd.cu). On CPU
   tensors both take their plain versions.
-* :func:`pack_params_torch` packs a branch's f32 parameters every step,
-  differentiably, so the kernels' gradients of the packs reach the
-  ``nn.Linear`` parameters (``pack_params_jnp``, mlp_train.py:249-278).
+* The ``nn.Linear`` parameters are its inputs: their packs
+  (``pack_params_jnp``, mlp_train.py:249-278) are one concatenation and
+  two gathers (``tile_mlp.packer``), made once a parameter version, and
+  its backward maps the packs' gradients back by the inverse gather.
 * :func:`make_fused_train_apply` is the training ``apply_fn``; encoders
   stay in PyTorch (``freq_encode``), as they stay in XLA on the TPU.
 
@@ -35,33 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import tracing
-from . import _build, deform_mlp, mlp_kernel
-from .bwd_workspace import BIAS_ROWS, CHUNK, PAD, planes_of, two_pass_group
-from .mlp_kernel import (
-    ALPHA_PAD,
-    HALF,
-    RGB_COLS,
-    V_DIM,
-    WIDTH,
-    X_DIM,
-    PackedMLP,
-    _bf16,
-    _take,
-)
-
-
-def pack_params_torch(mlp, in_dim: int, view_dim: int):
-    """A NeRFMLP's parameters -> the (f32 weight pack, f32 bias pack) of
-    the kernels' layout, differentiable with respect to the parameters."""
-    state = mlp.state_dict(keep_vars=True)
-    return mlp_kernel.pack_tensors(lambda n: state[f"{n}.weight"],
-                                   lambda n: state[f"{n}.bias"], in_dim,
-                                   view_dim, mlp.depth, mlp.skips[0])
-
-
-def _round_delta(d: torch.Tensor) -> torch.Tensor:
-    """The bf16 rounding of a delta before a product."""
-    return _bf16(d)
+from . import _build, deform_mlp, mlp_kernel, tile_mlp
+from .mlp_kernel import ALPHA_PAD, RGB_COLS, WIDTH, X_DIM
+from .tile_mlp import Pack, _bf16, _round_delta
 
 
 def _sigma_into_trunk(d_sigma: torch.Tensor, w_alpha: torch.Tensor):
@@ -69,24 +46,8 @@ def _sigma_into_trunk(d_sigma: torch.Tensor, w_alpha: torch.Tensor):
     return d_sigma @ w_alpha.t()
 
 
-def _unpack(packed: PackedMLP):
-    """The pack's matrices (f32, (in, out)) and biases by name."""
-    d = packed.depth
-    shapes = mlp_kernel.pack_matrices(d, packed.skip)
-    w, at = {}, 0
-    for name, rows, cols in shapes:
-        w[name], at = _take(packed.w, at, rows, cols)
-    sizes = [(str(i), WIDTH) for i in range(d)] + [
-        ("feat", WIDTH), ("alpha", ALPHA_PAD), ("v", HALF), ("rgb", RGB_COLS)]
-    b, at = {}, 0
-    for name, size in sizes:
-        b[name] = packed.b[at:at + size].to(w["0"].dtype)
-        at += size
-    return shapes, w, sizes, b
-
-
 def weight_grads(planes: dict, x: torch.Tensor, v: torch.Tensor,
-                 packed: PackedMLP) -> torch.Tensor:
+                 packed: Pack) -> torch.Tensor:
     """The weight-pack gradient as the products A^T . D of the planes
     (see :func:`backward_planes`), in the planes' dtype: the sums the
     weight-gradient kernel computes."""
@@ -102,11 +63,10 @@ def weight_grads(planes: dict, x: torch.Tensor, v: torch.Tensor,
     gw["vf"] = planes["feat"].t() @ planes["d_gpre"]
     gw["vd"] = v.t() @ planes["d_gpre"]
     gw["rgb"] = planes["g_act"].t() @ planes["d_rgb"]
-    shapes, _, _, _ = _unpack(packed)
-    return torch.cat([gw[name].reshape(-1) for name, _, _ in shapes])
+    return torch.cat([gw[m.name].reshape(-1) for m in packed.layout.weights])
 
 
-def backward_planes(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
+def backward_planes(packed: Pack, x: torch.Tensor, v: torch.Tensor,
                     g: torch.Tensor):
     """The plain backward up to the weight-gradient products, with the TPU
     kernel's rounding points written out (mlp_train.py:54-145): the forward
@@ -119,8 +79,8 @@ def backward_planes(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     deltas d[0..depth-1], d_af = [d_feat | d_sigma | 0] (N, 272), d_gpre,
     d_rgb (N, 16)."""
     depth, skip = packed.depth, packed.skip
-    _, w, sizes, b = _unpack(packed)
-    dt = w["0"].dtype   # f32 (``_take``'s)
+    w, b = tile_mlp.unpack(packed)
+    dt = w["0"].dtype   # f32 (``tile_mlp.unpack``'s)
     x, v, g = x.to(dt), v.to(dt), g.to(dt)
     rd = _round_delta
 
@@ -155,20 +115,20 @@ def backward_planes(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
               "d_af": F.pad(torch.cat([rd(d_feat), rd(d_sigma)], dim=1),
                             (0, ALPHA_PAD - 1)),
               "d_gpre": rd(d_gpre), "d_rgb": rd(d_rgb)}
-    return planes, torch.cat([gb[name] for name, _ in sizes])
+    return planes, torch.cat([gb[m.name] for m in packed.layout.biases])
 
 
-def input_grad(planes: dict, packed: PackedMLP) -> torch.Tensor:
+def input_grad(planes: dict, packed: Pack) -> torch.Tensor:
     """The encoded points' gradient (N, 64) from the planes' bf16 deltas:
     d_0 . W_0^T + d_{skip+1} . W_ix^T, the products the kernel's input
     gradient arm computes."""
-    _, w, _, _ = _unpack(packed)
+    w, _ = tile_mlp.unpack(packed)
     s = packed.skip + 1
     d = planes["d"]
     return d[s] @ w[f"{s}x"].t() + d[0] @ w["0"].t()
 
 
-def fused_nerf_mlp_bwd_reference(packed: PackedMLP, x: torch.Tensor,
+def fused_nerf_mlp_bwd_reference(packed: Pack, x: torch.Tensor,
                                  v: torch.Tensor, g: torch.Tensor,
                                  keep: dict | None = None,
                                  with_input_grad: bool = False):
@@ -223,29 +183,7 @@ def shared_memory_bytes(depth: int) -> dict:
             "wgrad": lib.fused_nerf_mlp_bwd_wgrad_smem_bytes()}
 
 
-def workspace_columns(depth: int) -> tuple:
-    """The column counts of the backward kernel's workspace planes, in
-    order: the activation workspace (h_0 .. h_{depth-1}, feat, g_act and
-    the encoded x, v) and the delta workspace (d_0 .. d_{depth-1}, d_af =
-    [d_feat | d_sigma | 0], d_gpre, d_rgb); csrc/fused_nerf_mlp_bwd.cu
-    names them."""
-    return ((WIDTH,) * (depth + 1) + (HALF, X_DIM, V_DIM),
-            (WIDTH,) * depth + (WIDTH + ALPHA_PAD, HALF, RGB_COLS))
-
-
-def workspace_planes(act: torch.Tensor, dlt: torch.Tensor, n: int,
-                     n_pad: int, depth: int) -> dict:
-    """The backward kernel's workspaces, de-tiled, as the row-major planes
-    of :func:`backward_planes` (first ``n`` rows)."""
-    a_cols, d_cols = workspace_columns(depth)
-    a = planes_of(act, a_cols, n, n_pad)
-    d = planes_of(dlt, d_cols, n, n_pad)
-    return {"h": a[:depth], "feat": a[depth], "g_act": a[depth + 1],
-            "d": d[:depth], "d_af": d[depth], "d_gpre": d[depth + 1],
-            "d_rgb": d[depth + 2]}
-
-
-def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
+def fused_nerf_mlp_bwd(packed: Pack, x: torch.Tensor, v: torch.Tensor,
                        g: torch.Tensor, keep: dict | None = None,
                        with_input_grad: bool = False):
     """Gradients of the f32 weight and bias packs from bf16 features x
@@ -253,7 +191,7 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     and with ``with_input_grad`` the f32 gradient of x (N, 64), which the
     delta kernel's input gradient arm forms. With ``keep``, stores the
     kernel's workspace there as ``keep["planes"]`` (see
-    :func:`workspace_planes`), for checks. Counts the launch (and an
+    ``tile_mlp.workspace_planes``), for checks. Counts the launch (and an
     input-gradient launch apart), and the bytes its workspace's bulk
     copies move as the C launcher reports them, in ``tracing.counts``.
 
@@ -265,32 +203,21 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused kernel: unsupported device {x.device}")
     n = mlp_kernel.check_features(x, v)
-    mlp_kernel.check_pack(packed, x.device)
+    tile_mlp.check_pack(packed, x.device)
     if g.dtype != torch.float32 or tuple(g.shape) != (n, 4) \
             or not g.is_contiguous() or g.device != x.device:
         raise ValueError(f"fused kernel: g must be a contiguous float32 "
                          f"({n}, 4) tensor on {x.device}")
     kw = dict(dtype=torch.float32, device=x.device)
-    e_w, e_b = packed.w.numel(), packed.b.numel()
     if n == 0:
-        empty = (torch.zeros(e_w, **kw), torch.zeros(e_b, **kw))
+        empty = (torch.zeros(packed.w.numel(), **kw),
+                 torch.zeros(packed.b.numel(), **kw))
         return empty + ((torch.zeros(0, X_DIM, **kw),) if with_input_grad
                         else ())
-    d = packed.depth
-    n_pad = -(-n // PAD) * PAD
+    n_pad = tile_mlp.padded(n)
     x_pad = F.pad(x, (0, 0, 0, n_pad - n)).contiguous()
     v_pad = F.pad(v, (0, 0, 0, n_pad - n)).contiguous()
-    bf = dict(dtype=torch.bfloat16, device=x.device)
-    a_cols, d_cols = workspace_columns(d)
-    act = torch.empty(n_pad * sum(a_cols), **bf)
-    dlt = torch.empty(n_pad * sum(d_cols), **bf)
-    chunks, bias_rows = -(-n_pad // CHUNK), n_pad // BIAS_ROWS
-    group_w, group_b = two_pass_group(chunks), two_pass_group(bias_rows)
-    part_w = torch.empty(chunks * e_w, **kw)
-    tmp_w = torch.empty(-(-chunks // group_w) * e_w, **kw)
-    part_b = torch.empty(bias_rows * e_b, **kw)
-    tmp_b = torch.empty(-(-bias_rows // group_b) * e_b, **kw)
-    grad_w, grad_b = torch.empty(e_w, **kw), torch.empty(e_b, **kw)
+    buffers, sizes = tile_mlp.backward_workspace(packed, n_pad, x.device)
     grad_x = torch.empty(n_pad, X_DIM, **kw) if with_input_grad else None
     lib = _kernel()
     moved = ctypes.c_longlong(0)
@@ -298,18 +225,18 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
         err = lib.fused_nerf_mlp_bwd(
             x_pad.data_ptr(), v_pad.data_ptr(), g.data_ptr(), n, n_pad,
             packed.img.data_ptr(), packed.img_t.data_ptr(),
-            packed.b.data_ptr(), d, packed.skip, act.data_ptr(),
-            dlt.data_ptr(), part_w.data_ptr(), tmp_w.data_ptr(),
-            part_b.data_ptr(), tmp_b.data_ptr(),
-            grad_w.data_ptr(), grad_b.data_ptr(),
-            None if grad_x is None else grad_x.data_ptr(), e_w, e_b, CHUNK,
-            group_w, group_b, torch.cuda.current_stream(x.device).cuda_stream,
+            packed.b.data_ptr(), packed.depth, packed.skip,
+            *(buf.data_ptr() for buf in buffers),
+            None if grad_x is None else grad_x.data_ptr(), *sizes,
+            torch.cuda.current_stream(x.device).cuda_stream,
             ctypes.byref(moved))
-    mlp_kernel.check_launch(err, "fused_nerf_mlp_bwd")
+    _build.check_launch(lib, err, "fused_nerf_mlp_bwd")
     tracing.counts["fused_nerf_mlp_bwd.launches"] += 1
     tracing.counts["fused_nerf_mlp_bwd.bulk_bytes"] += moved.value
+    act, dlt, *_, grad_w, grad_b = buffers
     if keep is not None:
-        keep["planes"] = workspace_planes(act, dlt, n, n_pad, d)
+        keep["planes"] = tile_mlp.workspace_planes(packed.layout, act, dlt,
+                                                   n, n_pad)
     if grad_x is None:
         return grad_w, grad_b
     tracing.counts["fused_nerf_mlp_bwd.input_grad_launches"] += 1
@@ -317,16 +244,18 @@ def fused_nerf_mlp_bwd(packed: PackedMLP, x: torch.Tensor, v: torch.Tensor,
 
 
 class FusedNeRFMLPFn(torch.autograd.Function):
-    """raw (N, 4) = MLP(x, v) with f32 packs ``w``, ``b`` as the
-    differentiable inputs; x (bf16, or f32 that the forward rounds to
-    bf16) gets its f32 gradient where it needs one (the backward's input
-    gradient arm; an f32 x keeps it unrounded), v a zero one."""
+    """raw (N, 4) = MLP(x, v) with the branch's parameters ``params`` (in
+    the layout's order) as the differentiable inputs and ``packed`` their
+    pack; x (bf16, or f32 that the forward rounds to bf16) gets its f32
+    gradient where it needs one (the backward's input gradient arm; an f32
+    x keeps it unrounded), v a zero one. The backward maps the packs'
+    gradients back to the parameters by ``inverse``
+    (``tile_mlp.pack_index``)."""
 
     @staticmethod
-    def forward(ctx, w, b, x, v, depth: int, skip: int):
-        packed = PackedMLP(w=w.detach().to(torch.bfloat16).contiguous(),
-                           b=b.detach().contiguous(), depth=depth, skip=skip)
-        ctx.packed = packed
+    def forward(ctx, packed: Pack, inverse: torch.Tensor, x, v, *params):
+        ctx.packed, ctx.inverse = packed, inverse
+        ctx.shapes = [q.shape for q in params]
         x = x.to(torch.bfloat16).contiguous()
         ctx.save_for_backward(x, v)
         return mlp_kernel.fused_nerf_mlp(packed, x, v)
@@ -339,16 +268,23 @@ class FusedNeRFMLPFn(torch.autograd.Function):
             ctx.packed, x, v, g.float().contiguous(), with_input_grad=want_x)
         gx = gx[0] if want_x else None
         zv = torch.zeros_like(v) if ctx.needs_input_grad[3] else None
-        return grad_w, grad_b, gx, zv, None, None
+        return (None, None, gx, zv) + tile_mlp.param_grads(
+            grad_w, grad_b, ctx.inverse, ctx.shapes)
+
+
+def _fused_branch(pack_of, mlp, x: torch.Tensor, v: torch.Tensor):
+    packed, inverse, params = pack_of(dict(mlp.named_parameters()))
+    return FusedNeRFMLPFn.apply(packed, inverse, x, v, *params)
 
 
 def fused_nerf_mlp_diff(mlp, x: torch.Tensor, v: torch.Tensor, in_dim: int,
                         view_dim: int) -> torch.Tensor:
-    """One branch through the differentiable kernels: features x (N, 64;
-    bf16, or f32 for an f32 gradient), bf16 v (N, 32) -> raw (N, 4), with
-    gradients to ``mlp``'s parameters (and to x where it needs one)."""
-    w, b = pack_params_torch(mlp, in_dim, view_dim)
-    return FusedNeRFMLPFn.apply(w, b, x, v, mlp.depth, mlp.skips[0])
+    """One branch through the differentiable kernels, packed now: features
+    x (N, 64; bf16, or f32 for an f32 gradient), bf16 v (N, 32) -> raw
+    (N, 4), with gradients to ``mlp``'s parameters (and to x where it
+    needs one)."""
+    lay = mlp_kernel.layout(mlp.depth, mlp.skips[0], in_dim, view_dim)
+    return _fused_branch(tile_mlp.packer(lay), mlp, x, v)
 
 
 def train_unsupported(net) -> str | None:
@@ -366,7 +302,9 @@ def make_fused_train_apply(net):
     whose f32 gradient the backward's input gradient arm returns: the one
     path by which the deformation learns. A bf16 deformation MLP runs on
     its own kernels (``deform_mlp.make_train_deform``), a float32 one as
-    the ``nn.Module`` under autograd. None exactly where
+    the ``nn.Module`` under autograd. Each MLP is packed once a parameter
+    version (``tile_mlp.packer``): a D-NeRF's one canonical MLP once for
+    both passes. None exactly where
     :func:`train_unsupported` names a part of the network that the kernels
     do not cover."""
     if train_unsupported(net) is not None:
@@ -375,6 +313,9 @@ def make_fused_train_apply(net):
     move = getattr(net, "move", None)
     x_dtype = torch.bfloat16 if move is None else torch.float32
     deform = deform_mlp.make_train_deform(net)
+    coarse = tile_mlp.packer(mlp_kernel.layout_of(net))
+    packers = {"coarse": coarse, "fine": coarse if net.fine is net.coarse
+               else tile_mlp.packer(mlp_kernel.layout_of(net))}
 
     def apply_fn(pts, viewdirs, model="", times=None):
         shape = pts.shape[:-1]
@@ -383,16 +324,14 @@ def make_fused_train_apply(net):
         d = viewdirs.expand(*shape, 3).reshape(-1, 3).float()
         x, v = mlp_kernel.encode_features(p, d, xyz.n_freqs, dirs.n_freqs,
                                           x_dtype)
-        mlp = net.fine if model == "fine" else net.coarse
-        raw = fused_nerf_mlp_diff(mlp, x, v, xyz.output_dim, dirs.output_dim)
+        branch = "fine" if model == "fine" else "coarse"
+        raw = _fused_branch(packers[branch], getattr(net, branch), x, v)
         return raw.reshape(*shape, 4)
 
     return apply_fn
 
 
-__all__ = ["pack_params_torch", "fused_nerf_mlp_bwd",
-           "fused_nerf_mlp_bwd_reference", "backward_planes", "weight_grads",
-           "input_grad",
-           "workspace_columns", "workspace_planes", "FusedNeRFMLPFn",
+__all__ = ["fused_nerf_mlp_bwd", "fused_nerf_mlp_bwd_reference",
+           "backward_planes", "weight_grads", "input_grad", "FusedNeRFMLPFn",
            "fused_nerf_mlp_diff", "train_unsupported",
            "make_fused_train_apply", "build"]

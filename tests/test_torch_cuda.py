@@ -22,11 +22,13 @@ from nerf_replication_tpu_torch.ops import (
     hashgrid_kernel,
     mlp_kernel,
     mlp_train,
+    tile_mlp,
 )
 from nerf_replication_tpu_torch.run import build_renderer, load_model
 from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HARD = mlp_kernel.layout(8, 4, 63, 27)   # configs/nerf/hard.yaml's MLPs
 ARGV = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard.yaml",
         "pretrain_path", "data/pretrain/hard", "save_result", "False"]
 NGP_ARGV = ["--type", "evaluate", "--cfg_file", "configs/nerf/hard_ngp.yaml",
@@ -68,7 +70,7 @@ def test_kernel_matches_plain_version(cuda, monkeypatch, n):
     rounding, outputs move by up to ~1e-2 of their column's range."""
     net = load_model(_cfg(monkeypatch), cuda)
     for mlp in (net.coarse, net.fine):
-        packed = mlp_kernel.pack_nerf_params(mlp.state_dict(), 63, 27, 8, 4)
+        packed = tile_mlp.pack(HARD, mlp.state_dict())
         pts, dirs = _ray_points(n, seed=n, device=cuda)
         launches = tracing.counts["fused_nerf_mlp_enc.launches"]
         out = mlp_kernel.fused_nerf_mlp_enc(packed, pts, dirs, 10, 4)
@@ -83,7 +85,7 @@ def test_kernel_matches_plain_version(cuda, monkeypatch, n):
 @pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, monkeypatch):
     net = load_model(_cfg(monkeypatch), cuda)
-    packed = mlp_kernel.pack_nerf_params(net.fine.state_dict(), 63, 27, 8, 4)
+    packed = tile_mlp.pack(HARD, net.fine.state_dict())
     pts, dirs = _ray_points(8, seed=0, device=cuda)
     with pytest.raises(ValueError):
         mlp_kernel.fused_nerf_mlp_enc(packed, pts.double(), dirs, 10, 4)
@@ -162,7 +164,7 @@ def test_training_kernels_match_plain_versions(cuda, monkeypatch, n):
     net = load_model(_cfg(monkeypatch), cuda)
     g = torch.Generator(device=cuda).manual_seed(n)
     for mlp in (net.coarse, net.fine):
-        packed = mlp_kernel.pack_nerf_params(mlp.state_dict(), 63, 27, 8, 4)
+        packed = tile_mlp.pack(HARD, mlp.state_dict())
         pts, dirs = _ray_points(n, seed=n, device=cuda)
         x, v = mlp_kernel.encode_features(pts, dirs, 10, 4)
         cot = torch.randn(n, 4, device=cuda, generator=g) * torch.tensor(
@@ -185,13 +187,14 @@ def test_training_kernels_match_plain_versions(cuda, monkeypatch, n):
         planes_k, planes_p = keep_k["planes"], keep_p["planes"]
         delta_diff = max(chip_smoke.DELTA_DIFF, 2 / n)
         a = chip_smoke.backward_agreement(grads, ref_grads, planes_k,
-                                          planes_p, packed, 63, 27, x=x, v=v,
+                                          planes_p, packed, x=x, v=v,
+                                          weight_grads=mlp_train.weight_grads,
                                           delta_diff=delta_diff)
         flipped = _flipped_points(planes_k, planes_p)
         kept = chip_smoke.backward_agreement(
             _less_points(grads, planes_k, flipped, x, v, packed),
             _less_points(ref_grads, planes_p, flipped, x, v, packed),
-            planes_k, planes_p, packed, 63, 27, delta_diff=delta_diff)
+            planes_k, planes_p, packed, delta_diff=delta_diff)
         print(f"backward, N={n}: {int(flipped.sum())} points with a flipped "
               f"ReLU; leaves, worst rel-norm err: all points {a['rel']:.2e} "
               f"({a['rel_leaf']}), without those {kept['rel']:.2e} "
@@ -217,7 +220,7 @@ def test_input_grad_arm_matches_plain_backward(cuda, monkeypatch, n):
     deltas differ where a summation-order flip moved one across zero, see
     test_training_kernels_match_plain_versions)."""
     net = load_model(_cfg(monkeypatch), cuda)
-    packed = mlp_kernel.pack_nerf_params(net.fine.state_dict(), 63, 27, 8, 4)
+    packed = tile_mlp.pack(HARD, net.fine.state_dict())
     pts, dirs = _ray_points(n, seed=n, device=cuda)
     x, v = mlp_kernel.encode_features(pts, dirs, 10, 4)
     g = torch.Generator(device=cuda).manual_seed(n)
@@ -233,7 +236,7 @@ def test_input_grad_arm_matches_plain_backward(cuda, monkeypatch, n):
         before + 1
     assert torch.equal(gw, off[0]) and torch.equal(gb, off[1])
     assert gx.shape == (n, 64) and bool((gx[:, 63] == 0).all())
-    _, w, _, _ = mlp_train._unpack(packed)
+    w, _ = tile_mlp.unpack(packed)
     d0, d5 = (keep["planes"]["d"][i].double() for i in (0, 5))
     w0, w5 = w["0"].double(), w["5x"].double()
     want = d5 @ w5.t() + d0 @ w0.t()
@@ -262,7 +265,7 @@ def test_backward_counts_its_bulk_bytes(cuda, monkeypatch):
     the products), for each of the points padded to whole 128-point
     tiles."""
     net = load_model(_cfg(monkeypatch), cuda)
-    packed = mlp_kernel.pack_nerf_params(net.fine.state_dict(), 63, 27, 8, 4)
+    packed = tile_mlp.pack(HARD, net.fine.state_dict())
     x, v = mlp_kernel.encode_features(*_ray_points(1000, seed=0, device=cuda),
                                       10, 4)
     g = torch.zeros(1000, 4, device=cuda)
@@ -277,7 +280,7 @@ def test_backward_counts_its_bulk_bytes(cuda, monkeypatch):
 def test_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda,
                                                                  monkeypatch):
     net = load_model(_cfg(monkeypatch), cuda)
-    packed = mlp_kernel.pack_nerf_params(net.fine.state_dict(), 63, 27, 8, 4)
+    packed = tile_mlp.pack(HARD, net.fine.state_dict())
     x, v = mlp_kernel.encode_features(*_ray_points(8, seed=0, device=cuda),
                                       10, 4)
     g = torch.zeros(8, 4, device=cuda)
@@ -306,10 +309,7 @@ def test_deformation_kernels_match_plain_versions(cuda, monkeypatch, n):
     from nerf_replication_tpu_torch.ops import deform_mlp
 
     net = make_network(make_cfg(parse_args(chip_smoke.DEFORM_ARGV))).to(cuda)
-    with torch.no_grad():
-        w, b = deform_mlp.pack_params_torch(net.deform, 63, 21)
-    packed = deform_mlp.DeformPack(w.to(torch.bfloat16).contiguous(), b, 8,
-                                   4)
+    packed = tile_mlp.pack(deform_mlp.layout_of(net), net.deform.state_dict())
     gen = torch.Generator(device=cuda).manual_seed(n)
     p, t = chip_smoke.deform_inputs(n, gen)
     g = torch.randn(n, 3, device=cuda, generator=gen) * 1e-3
@@ -337,8 +337,8 @@ def test_deformation_kernels_match_plain_versions(cuda, monkeypatch, n):
     ref_grads, ref_planes = chip_smoke.deform_plain_bwd(packed, x, v, g)
     flips = chip_smoke.relu_flips(planes, ref_planes)
     a = chip_smoke.backward_agreement(
-        grads, ref_grads, planes, ref_planes, packed, 63, 21, x=x, v=v,
-        delta_diff=0.0 if n == 1 else max(chip_smoke.DEFORM_DELTA_DIFF,
+        grads, ref_grads, planes, ref_planes, packed, x=x, v=v,
+        weight_grads=deform_mlp.weight_grads, delta_diff=0.0 if n == 1 else max(chip_smoke.DEFORM_DELTA_DIFF,
                                           2 / n),
         rows=~flips["mask"])
     print(f"deformation, N={n}: encodings differing at {enc['points']:.2e} "

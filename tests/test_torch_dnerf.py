@@ -21,7 +21,12 @@ from nerf_replication_tpu_torch.datasets.nerf.blender import Dataset
 from nerf_replication_tpu_torch.models import make_network
 from nerf_replication_tpu_torch.models.nerf.dnerf_network import DNeRFNetwork
 from nerf_replication_tpu_torch.models.nerf.network import NeRFMLP
-from nerf_replication_tpu_torch.ops import deform_mlp, mlp_kernel, mlp_train
+from nerf_replication_tpu_torch.ops import (
+    deform_mlp,
+    mlp_kernel,
+    mlp_train,
+    tile_mlp,
+)
 from nerf_replication_tpu_torch.train import make_trainer
 from nerf_replication_tpu_torch.train.trainers.nerf import NetworkWrapper
 from nerf_replication_tpu_torch.utils import synthetic_scene, tracing
@@ -214,12 +219,11 @@ def test_one_adam_step_matches_the_reference(batch):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=5e-7)
 
 
-def _packs(depth=4, skip=1, seed=0):
-    """The f32 weight and bias packs of a seeded NeRFMLP."""
+def _mlp(depth=4, skip=1, seed=0):
+    """A seeded NeRFMLP and its layout."""
     g = torch.Generator().manual_seed(seed)
     mlp = NeRFMLP(63, 27, depth=depth, skips=(skip,), generator=g)
-    w, b = mlp_train.pack_params_torch(mlp, 63, 27)
-    return w.detach(), b.detach()
+    return mlp, mlp_kernel.layout(depth, skip, 63, 27)
 
 
 def test_plain_input_gradient_is_autograds_in_f64():
@@ -227,8 +231,11 @@ def test_plain_input_gradient_is_autograds_in_f64():
     W_ix^T from the plain backward's deltas, with every bf16 rounding
     replaced by float64, is autograd's gradient of the plain forward in
     float64 (1e-10): a missing skip term or a wrong transpose fails."""
-    w, b = _packs()
-    packed = mlp_kernel.PackedMLP(w.double(), b.double(), 4, 1)
+    mlp, lay = _mlp()
+    with torch.no_grad():
+        w, b = tile_mlp.gather(lay, tile_mlp.params_of(
+            lay, dict(mlp.named_parameters())))
+    packed = tile_mlp.Pack(w.double(), b.double(), lay)
     g = torch.Generator().manual_seed(1)
     x = F.pad(torch.randn(130, 63, generator=g, dtype=torch.float64),
               (0, 1)).requires_grad_(True)
@@ -242,10 +249,9 @@ def test_plain_input_gradient_is_autograds_in_f64():
 
     to64 = lambda t: t.double()  # noqa: E731
     with mock.patch.object(mlp_kernel, "_bf16", to64), \
-            mock.patch.object(mlp_kernel, "_take", take), \
+            mock.patch.object(tile_mlp, "_take", take), \
             mock.patch.object(mlp_train, "_bf16", to64), \
-            mock.patch.object(mlp_train, "_round_delta", to64), \
-            mock.patch.object(mlp_train, "_take", take):
+            mock.patch.object(mlp_train, "_round_delta", to64):
         raw = mlp_kernel._mlp_body(packed, x, v)
         (want,) = torch.autograd.grad((raw * cot).sum(), x)
         *_, got = mlp_train.fused_nerf_mlp_bwd_reference(
@@ -260,17 +266,18 @@ def test_fused_fn_returns_the_input_gradient_when_asked():
     moved points' encoding, which the forward rounds to bf16) exactly that,
     unrounded, and for a bf16 x rounded to bf16. v's stays zero by
     contract, and without x needing one no input gradient is formed."""
-    w, b = _packs(depth=8, skip=4)
+    mlp, lay = _mlp(depth=8, skip=4)
+    packed, inverse, params = tile_mlp.packer(lay)(
+        dict(mlp.named_parameters()))
     g = torch.Generator().manual_seed(2)
     x, v = mlp_kernel.encode_features(torch.randn(200, 3, generator=g),
                                       torch.randn(200, 3, generator=g),
                                       10, 4)
     cot = torch.randn(200, 4, generator=g)
-    packed = mlp_kernel.PackedMLP(w.to(torch.bfloat16), b, 8, 4)
     *_, want = mlp_train.fused_nerf_mlp_bwd_reference(
         packed, x, v, cot, with_input_grad=True)
     xg, vg = x.clone().requires_grad_(True), v.clone().requires_grad_(True)
-    raw = mlp_train.FusedNeRFMLPFn.apply(w, b, xg, vg, 8, 4)
+    raw = mlp_train.FusedNeRFMLPFn.apply(packed, inverse, xg, vg, *params)
     (raw * cot).sum().backward()
     assert float(xg.grad.float().abs().max()) > 0
     assert torch.equal(xg.grad, want.to(torch.bfloat16))
@@ -281,18 +288,19 @@ def test_fused_fn_returns_the_input_gradient_when_asked():
     *_, want32 = mlp_train.fused_nerf_mlp_bwd_reference(
         packed, x32.to(torch.bfloat16), v, cot, with_input_grad=True)
     xg = x32.clone().requires_grad_(True)
-    raw32 = mlp_train.FusedNeRFMLPFn.apply(w, b, xg, v, 8, 4)
+    raw32 = mlp_train.FusedNeRFMLPFn.apply(packed, inverse, xg, v, *params)
     torch.testing.assert_close(raw32, mlp_train.FusedNeRFMLPFn.apply(
-        w, b, x32.to(torch.bfloat16), v, 8, 4), rtol=0, atol=0)
+        packed, inverse, x32.to(torch.bfloat16), v, *params), rtol=0, atol=0)
     (raw32 * cot).sum().backward()
     assert xg.grad.dtype == torch.float32
     assert torch.equal(xg.grad, want32)
     assert not torch.equal(want32, want32.to(torch.bfloat16).float())
     calls = tracing.counts["fused_nerf_mlp_bwd_reference.calls"]
-    wg = w.clone().requires_grad_(True)
-    (mlp_train.FusedNeRFMLPFn.apply(wg, b, x, v, 8, 4) * cot).sum().backward()
+    mlp.zero_grad(set_to_none=True)
+    (mlp_train.FusedNeRFMLPFn.apply(packed, inverse, x, v, *params)
+     * cot).sum().backward()
     assert tracing.counts["fused_nerf_mlp_bwd_reference.calls"] == calls + 1
-    assert wg.grad is not None
+    assert all(q.grad is not None for q in params)
 
 
 def test_dynamic_scene_times_reach_every_batch(tmp_path):
@@ -558,84 +566,38 @@ def test_fused_deformation_gives_canonical_rows_no_gradient():
     assert all(float(g.abs().max()) == 0.0 for g in grads.values())
 
 
-def test_deformation_pack_maps_back_to_the_parameters():
-    """``deform_mlp.pack_params_torch`` lays each ``deform.*`` parameter at
-    its place of the pack (W0x and W0t the split of pts.0, W_5x and W_5 of
-    pts.5, W_out the head, each transposed, zero-padded): the gradient of
-    <pack, R> is R read back at those places, and ``pack_index``'s
-    inverse, which ``FusedDeformMLPFn``'s backward gathers by, reads it
-    back the same. Both images are permutations of the pack. The route
-    packs once a parameter version: two passes share one pack, and an
-    in-place update (the optimizer's) makes a new one."""
+def test_training_step_packs_each_mlp_once_a_version():
+    """The training route on a D-NeRF at its published widths (its plain
+    versions here) makes two packs a step, whose coarse and fine passes
+    share them: Psi_t's, and the one canonical MLP's for both passes;
+    after an in-place update (the optimizer's) two new ones, and the new
+    parameters reach the kernels' pack."""
     net = make_network(_cfg(*DEFORM_256))
-    deform = net.deform
-    w, b = deform_mlp.pack_params_torch(deform, 63, 21)
-    assert w.numel() == 503_808 and b.numel() == 8 * 256 + 16
-    state = dict(deform.named_parameters())
-    at, got = 0, {}
-    for name, rows, cols in deform_mlp.pack_matrices(8, 4):
-        got[name] = w[at:at + rows * cols].view(rows, cols)
-        at += rows * cols
-    w0 = state["pts.0.weight"].t()
-    torch.testing.assert_close(got["0x"][:63], w0[:63], rtol=0, atol=0)
-    torch.testing.assert_close(got["0t"][:21], w0[63:], rtol=0, atol=0)
-    w5 = state["pts.5.weight"].t()
-    torch.testing.assert_close(got["5x"][:63], w5[:63], rtol=0, atol=0)
-    torch.testing.assert_close(got["5"], w5[63:], rtol=0, atol=0)
-    torch.testing.assert_close(got["7"], state["pts.7.weight"].t(), rtol=0,
-                               atol=0)
-    torch.testing.assert_close(got["out"][:, :3], state["out.weight"].t(),
-                               rtol=0, atol=0)
-    pads = (got["0x"][63:], got["0t"][21:], got["5x"][63:],
-            got["out"][:, 3:], b[8 * 256 + 3:])
-    assert all(float(pad.detach().abs().max()) == 0.0 for pad in pads)
-    torch.testing.assert_close(b[:256], state["pts.0.bias"], rtol=0, atol=0)
-    torch.testing.assert_close(b[8 * 256:8 * 256 + 3], state["out.bias"],
-                               rtol=0, atol=0)
-    r_w, r_b = torch.randn_like(w), torch.randn_like(b)
-    grads = dict(zip(state, torch.autograd.grad(
-        (w * r_w).sum() + (b * r_b).sum(), list(state.values()))))
-    r, at = {}, 0
-    for name, rows, cols in deform_mlp.pack_matrices(8, 4):
-        r[name] = r_w[at:at + rows * cols].view(rows, cols)
-        at += rows * cols
-    for key, want in (("pts.0.weight", torch.cat([r["0x"][:63],
-                                                  r["0t"][:21]])),
-                      ("pts.5.weight", torch.cat([r["5x"][:63], r["5"]])),
-                      ("pts.3.weight", r["3"]),
-                      ("out.weight", r["out"][:, :3]),
-                      ("pts.2.bias", r_b[512:768]),
-                      ("out.bias", r_b[8 * 256:8 * 256 + 3])):
-        torch.testing.assert_close(grads[key].t(), want, rtol=0, atol=0)
-    *_, inverse = deform_mlp.pack_index(8, 4, 63, 21)
-    assert int(inverse.min()) >= 0
-    mapped = torch.cat([r_w, r_b])[inverse].split(
-        [q.numel() for q in deform_mlp.parameters_in_order(deform)])
-    for q, got in zip(deform_mlp.parameters_in_order(deform), mapped):
-        name = next(k for k, v in state.items() if v is q)
-        torch.testing.assert_close(got.view(q.shape), grads[name], rtol=0,
-                                   atol=0)
-    for transposed in (False, True):
-        perm = deform_mlp.image_index(8, 4, transposed)
-        assert torch.equal(perm.sort().values, torch.arange(w.numel()))
-    made, real = [], deform_mlp.DeformPack
+    apply_fn = mlp_train.make_fused_train_apply(net)
+    p, t, _ = _deform_batch(n=32)
+    made, real = [], tile_mlp.Pack
 
-    def counted(**kw):
-        made.append(real(**kw))
+    def counted(*args, **kw):
+        made.append(real(*args, **kw))
         return made[-1]
 
-    p, t, _ = _deform_batch(n=32)
-    deform_fn = deform_mlp.make_train_deform(net)
-    with mock.patch.object(deform_mlp, "DeformPack", counted):
-        before = deform_fn(p, t[:, None]).detach()
-        deform_fn(p, t[:, None])
-        assert len(made) == 1
+    def step():
+        for model in ("coarse", "fine"):
+            raw = apply_fn(p[:, None], F.normalize(p, dim=-1)[:, None],
+                           model, t[:, None])
+            raw.sum().backward()
+
+    with mock.patch.object(tile_mlp, "Pack", counted):
+        step()
+        assert len(made) == 2
         with torch.no_grad():
-            deform.out.bias.add_(1.0)
-        after = deform_fn(p, t[:, None]).detach()
-    assert len(made) == 2
-    torch.testing.assert_close(after - before, torch.ones_like(before),
-                               rtol=0, atol=1e-6)
+            net.deform.out.bias.add_(1.0)
+            net.canonical.rgb.bias.add_(1.0)
+        step()
+    assert len(made) == 4
+    for old, new in zip(made[:2], made[2:]):
+        assert new.layout == old.layout
+        assert float((new.b - old.b).max()) == 1.0
 
 
 @pytest.mark.parametrize("case", ["bf16 at W 256", "float32", "bf16 at W 32",

@@ -23,8 +23,14 @@ from nerf_replication_tpu.ops.pallas.mlp_train import (
 )
 from nerf_replication_tpu.ops.pallas.mlp_train import pack_params_jnp
 from nerf_replication_tpu_torch.config import default_cfg, load_cfg_tree
+from nerf_replication_tpu_torch.models.nerf.dnerf_network import DeformMLP
 from nerf_replication_tpu_torch.models.nerf.network import NeRFMLP, make_network
-from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+from nerf_replication_tpu_torch.ops import (
+    deform_mlp,
+    mlp_kernel,
+    mlp_train,
+    tile_mlp,
+)
 from nerf_replication_tpu_torch.utils import tracing
 from nerf_replication_tpu_torch.utils.ckpt_utils import (
     load_pretrain,
@@ -125,10 +131,11 @@ def test_param_grads_match_jax_kernel(setup):
 
 def test_backward_structure_exact_in_f64(setup):
     """STRUCTURAL oracle: the plain backward with every bf16 rounding
-    replaced by float64, mapped to the parameters by autograd through
-    pack_params_torch, against jax.grad of the Flax net: a missing term
-    (such as the density head's path into the trunk), a wrong transpose,
-    a relu-mask off-by-one or a wrong pack offset fails at 1e-5."""
+    replaced by float64, mapped to the parameters by autograd through the
+    pack's gathers (``tile_mlp.gather``), against jax.grad of the Flax
+    net: a missing term (such as the density head's path into the trunk),
+    a wrong transpose, a relu-mask off-by-one or a wrong pack offset fails
+    at 1e-5."""
     jmlp, params, x, v, cot = setup
     g_ref = jax.grad(lambda p: jnp.sum(
         jmlp.apply({"params": p}, jnp.asarray(x), jnp.asarray(v))
@@ -139,14 +146,16 @@ def test_backward_structure_exact_in_f64(setup):
             at + rows * cols
 
     mlp = _port_mlp(params, torch.float64)
-    w, b = mlp_train.pack_params_torch(mlp, IN, VIEW)
-    packed = mlp_kernel.PackedMLP(w.detach(), b.detach(), DEPTH, SKIP)
+    lay = mlp_kernel.layout(DEPTH, SKIP, IN, VIEW)
+    w, b = tile_mlp.gather(lay, tile_mlp.params_of(
+        lay, dict(mlp.named_parameters())))
+    packed = tile_mlp.Pack(w.detach(), b.detach(), lay)
     xd = F.pad(torch.from_numpy(x).double(), (0, 64 - IN))
     vd = F.pad(torch.from_numpy(v).double(), (0, 32 - VIEW))
     to64 = lambda t: t.double()  # noqa: E731
     with mock.patch.object(mlp_train, "_bf16", to64), \
             mock.patch.object(mlp_train, "_round_delta", to64), \
-            mock.patch.object(mlp_train, "_take", take):
+            mock.patch.object(tile_mlp, "_take", take):
         gw, gb = mlp_train.fused_nerf_mlp_bwd_reference(
             packed, xd, vd, torch.from_numpy(cot).double())
     torch.autograd.backward((w, b), (gw, gb))
@@ -159,20 +168,19 @@ def test_padding_grads_are_exactly_zero(setup):
     b_alpha[1:] and b_rgb[3:] get exactly zero gradient."""
     _, params, x, v, cot = setup
     mlp = _port_mlp(params)
-    packed = mlp_kernel.pack_nerf_params(mlp.state_dict(), IN, VIEW, DEPTH,
-                                         SKIP)
+    packed = tile_mlp.pack(mlp_kernel.layout(DEPTH, SKIP, IN, VIEW),
+                           mlp.state_dict())
     keep = {}
     grads = mlp_train.fused_nerf_mlp_bwd(packed, *_features(x, v),
                                          torch.from_numpy(cot), keep)
     planes = keep["planes"]
-    a = chip_smoke.backward_agreement(grads, grads, planes, planes, packed,
-                                      IN, VIEW)
+    a = chip_smoke.backward_agreement(grads, grads, planes, planes, packed)
     assert a["pad_zero"] and a["ok"]
     for leaf, at in (("b_rgb[15]", -1), ("W0 row 63", 63 * 256)):
         bumped = (grads[0].clone(), grads[1].clone())
         bumped[1 if leaf.startswith("b") else 0][at] = 1e-30
         assert not chip_smoke.backward_agreement(
-            bumped, grads, planes, planes, packed, IN, VIEW)["pad_zero"], leaf
+            bumped, grads, planes, planes, packed)["pad_zero"], leaf
 
 
 def test_input_grads_are_zero_by_contract(setup):
@@ -186,8 +194,8 @@ def test_input_grads_are_zero_by_contract(setup):
     raw = mlp_train.fused_nerf_mlp_diff(_port_mlp(params), xb, vb, IN, VIEW)
     raw.sum().backward()
     assert vb.grad is not None and float(vb.grad.abs().max()) == 0.0
-    packed = mlp_kernel.pack_nerf_params(_port_mlp(params).state_dict(), IN,
-                                         VIEW, DEPTH, SKIP)
+    packed = tile_mlp.pack(mlp_kernel.layout(DEPTH, SKIP, IN, VIEW),
+                           _port_mlp(params).state_dict())
     *_, want = mlp_train.fused_nerf_mlp_bwd_reference(
         packed, xb.detach(), vb.detach(), torch.ones(N, 4),
         with_input_grad=True)
@@ -252,7 +260,7 @@ def _plain_bwd_f64_sums(packed, x, v, g):
 
     bf = lambda t: t.to(torch.bfloat16).double()  # noqa: E731
     keep = {}
-    with mock.patch.object(mlp_train, "_take", take), \
+    with mock.patch.object(tile_mlp, "_take", take), \
             mock.patch.object(mlp_train, "_bf16", bf), \
             mock.patch.object(mlp_train, "_round_delta", bf):
         gw, gb = mlp_train.fused_nerf_mlp_bwd_reference(
@@ -269,8 +277,7 @@ def trained_batch():
     net = make_network(cfg)
     net.load_state_dict(params_from_jax(
         load_pretrain(os.path.join(ROOT, "data", "pretrain", "hard"))))
-    packed = mlp_kernel.pack_nerf_params(net.coarse.state_dict(), IN, VIEW,
-                                         8, 4)
+    packed = tile_mlp.pack(mlp_kernel.layout_of(net), net.coarse.state_dict())
     g = np.random.default_rng(5)
     eye = g.normal(size=(4096, 3))
     eye = 4.0 * eye / np.linalg.norm(eye, axis=-1, keepdims=True)
@@ -298,13 +305,14 @@ def test_smoke_backward_check_sees_faults(trained_batch, variant):
     if variant == "f64 sums":
         out, out_planes = _plain_bwd_f64_sums(packed, x, v, cot)
         a = chip_smoke.backward_agreement(out, ref, out_planes, planes,
-                                          packed, IN, VIEW, x=x, v=v)
+                                          packed, x=x, v=v,
+                                          weight_grads=mlp_train.weight_grads)
         assert a["ok"], a
     else:
         out, out_planes = chip_smoke.control_bwd(
             chip_smoke.GRAD_CONTROLS[variant], packed, x, v, cot)
         assert not chip_smoke.backward_agreement(
-            out, ref, out_planes, planes, packed, IN, VIEW)["ok"]
+            out, ref, out_planes, planes, packed)["ok"]
 
 
 def _tile_offset(p, c, cols):
@@ -318,16 +326,17 @@ def _tile_offset(p, c, cols):
 
 
 def test_workspace_planes_layout():
-    """workspace_planes reads the kernel's tile-order workspace (the C
-    function's comment): elements of a hand-filled workspace land where
-    the kernel writes them."""
+    """workspace_planes reads #5's tile-order workspace (the C function's
+    comment) by the canonical layout: elements of a hand-filled workspace
+    land where the kernel writes them."""
     n, n_pad, depth = 70, 128, 2
     plane = n_pad * 256
     act = torch.arange((depth + 1) * plane + n_pad * (128 + 64 + 32),
                        dtype=torch.float64)
     dlt = torch.arange(depth * plane + n_pad * (272 + 128 + 16),
                        dtype=torch.float64)
-    p = mlp_train.workspace_planes(act, dlt, n, n_pad, depth)
+    p = tile_mlp.workspace_planes(mlp_kernel.layout(depth, 0, IN, VIEW), act,
+                                  dlt, n, n_pad)
     # h_1 (point 2, column 5): core matrix 0 of group 0, row 2, element 5
     assert p["h"][1][2, 5] == plane + 2 * 8 + 5
     # point 69: group 1 (64 * 256 elements on), row 5; column 17: block 2
@@ -354,11 +363,11 @@ def test_workspace_planes_detile_every_element(depth, n_pad):
     n = n_pad - 61
     a_cols = [256] * (depth + 1) + [128, 64, 32]
     d_cols = [256] * depth + [272, 128, 16]
-    assert mlp_train.workspace_columns(depth) == (tuple(a_cols),
-                                                 tuple(d_cols))
+    lay = mlp_kernel.layout(depth, 0, IN, VIEW)
+    assert tile_mlp.workspace_columns(lay) == (tuple(a_cols), tuple(d_cols))
     act = torch.arange(n_pad * sum(a_cols), dtype=torch.int64)
     dlt = torch.arange(n_pad * sum(d_cols), dtype=torch.int64)
-    got = mlp_train.workspace_planes(act, dlt, n, n_pad, depth)
+    got = tile_mlp.workspace_planes(lay, act, dlt, n, n_pad)
     names = ([("h", i) for i in range(depth)] + [("feat", None),
              ("g_act", None)], [("d", i) for i in range(depth)]
              + [("d_af", None), ("d_gpre", None), ("d_rgb", None)])
@@ -386,64 +395,251 @@ def test_bulk_bytes_counts_the_workspace_traffic():
     read = 2 * (2 * (64 + 256) + 8 * (256 + 2 * 256) + (256 + 2 * 16)
                 + (256 + 2 * 128) + (32 + 128) + (128 + 16))
     assert (written, read) == (9984, 15776)
-    assert 2 * sum(map(sum, mlp_train.workspace_columns(8))) == written
-    products = mlp_kernel.pack_matrices(8, 4)
-    assert 2 * sum(k + (16 if name == "alpha" else m) * -(-k // 128)
-                   for name, k, m in products) == read
+    lay = mlp_kernel.layout(8, 4, IN, VIEW)
+    assert 2 * sum(map(sum, tile_mlp.workspace_columns(lay))) == written
+    assert 2 * sum(m.rows + (16 if m.name == "alpha" else m.cols)
+                   * -(-m.rows // 128) for m in lay.weights) == read
 
 
 def _staged_offset(k, n, cols, slab_k):
     """Where the kernels expect element (k, n) of a (K, cols) matrix inside
     its region of an image: K-slabs of ``slab_k`` rows, a slab as 8 x 8
     core matrices ``[k / 8][n / 8][n % 8][k % 8]`` (csrc/nerf_mlp_tile.cuh,
-    written out independently of ``mlp_kernel._slab_order``)."""
+    written out independently of ``tile_mlp._slab_order``)."""
     slab, kk = divmod(k, slab_k)
     return (slab * slab_k * cols + ((kk // 8) * (cols // 8) + n // 8) * 64
             + (n % 8) * 8 + kk % 8)
 
 
-@pytest.mark.parametrize("transposed", [False, True])
-def test_weight_image_maps_back_to_the_canonical_pack(setup, transposed):
-    """The kernels' permuted (and transposed) weight image, made from the
-    canonical pack by one indexing op: a permutation that maps back to the
-    pack exactly, with every element where the kernels' slab and
-    core-matrix arithmetic looks for it; and gradients taken through the
-    image still reach every parameter of the module."""
-    _, params, *_ = setup
-    mlp = _port_mlp(params)
-    w, _ = mlp_train.pack_params_torch(mlp, IN, VIEW)
-    perm = mlp_kernel.image_index(DEPTH, SKIP, transposed)
-    img = mlp_kernel.weight_image(w, DEPTH, SKIP, transposed)
-    assert perm.sort().values.equal(torch.arange(w.numel()))
-    back = torch.empty_like(img)
-    back[perm] = img
-    assert torch.equal(back, w)
-    packed = mlp_kernel.PackedMLP(w=w.detach().to(torch.bfloat16),
-                                  b=torch.zeros(1), depth=DEPTH, skip=SKIP)
-    kernel_img = packed.img_t if transposed else packed.img
-    assert torch.equal(kernel_img, img.detach().to(torch.bfloat16))
+def _pack_members(part):
+    """A module at its published shape (the canonical MLP of hard.yaml,
+    or hard_dnerf.yaml's deformation: 8 x 256, skip 4, 10 point bands and
+    4 direction or 10 time bands), every parameter element a distinct
+    nonzero value, its layout, and its packs' members written out from
+    the kernels' comments (csrc/nerf_mlp_tile.cuh,
+    csrc/fused_deform_mlp.cu): (name, rows, cols, parameter, its columns)
+    of each matrix, (name, size, parameter) of each bias, in pack order."""
+    if part == "canonical":
+        module = NeRFMLP(IN, VIEW, depth=8, skips=(4,), dtype=torch.float32)
+        lay = mlp_kernel.layout(8, 4, IN, VIEW)
+        first = [("0", 64, 256, "pts.0", slice(None))]
+        heads = [("feat", 256, 256, "feature", slice(None)),
+                 ("alpha", 256, 1, "alpha", slice(None)),
+                 ("vf", 256, 128, "views.0", slice(0, 256)),
+                 ("vd", 32, 128, "views.0", slice(256, None)),
+                 ("rgb", 128, 16, "rgb", slice(None))]
+        bias_heads = [("feat", 256, "feature"), ("alpha", 16, "alpha"),
+                      ("v", 128, "views.0"), ("rgb", 16, "rgb")]
+    else:
+        module = DeformMLP(IN, 21, depth=8, width=256, skips=(4,))
+        lay = deform_mlp.layout(8, 4, IN, 21)
+        first = [("0x", 64, 256, "pts.0", slice(0, IN)),
+                 ("0t", 32, 256, "pts.0", slice(IN, None))]
+        heads = [("out", 256, 16, "out", slice(None))]
+        bias_heads = [("out", 16, "out")]
+    trunk = []
+    for i in range(1, 8):
+        if i == 5:
+            trunk.append(("5x", 64, 256, "pts.5", slice(0, IN)))
+        trunk.append((str(i), 256, 256, f"pts.{i}",
+                      slice(IN, None) if i == 5 else slice(None)))
+    biases = [(str(i), 256, f"pts.{i}") for i in range(8)] + bias_heads
+    with torch.no_grad():
+        at = 1
+        for q in module.parameters():
+            q.copy_(torch.arange(at, at + q.numel()).view(q.shape))
+            at += q.numel()
+    return module, lay, first + trunk + heads, biases
 
+
+def _image_slab(part, name, k_dim, transposed):
+    """The rows of the K-slabs in which an image stages a member, as the
+    kernels' comments give them; None where it keeps the member as in the
+    pack."""
+    if part == "canonical":
+        if name == "alpha" or (transposed and name == "vd"):
+            return None   # w_alpha, and what the backward never multiplies by
+        return k_dim if name == "rgb" and not transposed else min(k_dim, 64)
+    if transposed:
+        return 64 if name.isdigit() and name != "0" else None
+    return k_dim if name == "out" else min(k_dim, 64)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("part", ["canonical", "deformation"])
+def test_packs_and_images_map_back_to_the_parameters(part, transposed):
+    """Both tile-core MLPs' packs, by their layouts' two gathers
+    (``tile_mlp.gather``): each matrix and bias is its parameter's block,
+    transposed, where the kernels look for it and zero-padded; the
+    gradient of <pack, R> is R read back at those places, and the
+    inverse gather (``tile_mlp.param_grads``) maps it back the same, for
+    every parameter element. The image (forward, or transposed) is a
+    permutation of the pack with every element where the kernels' slab and
+    core-matrix arithmetic looks for it, and the kernels' pack reads it.
+    ``tile_mlp.packer`` makes the pack once a parameter version: two calls
+    share one, and an in-place update (the optimizer's) makes a new one."""
+    module, lay, matrices, biases = _pack_members(part)
+    named = dict(module.named_parameters())
+    params = tile_mlp.params_of(lay, named)
+    w, b = tile_mlp.gather(lay, params)
+    r_w, r_b = torch.randn_like(w), torch.randn_like(b)
+    grads = dict(zip(named, torch.autograd.grad(
+        (w * r_w).sum() + (b * r_b).sum(), list(named.values()))))
+    assert [m.name for m in lay.weights] == [m[0] for m in matrices]
+    assert [m.name for m in lay.biases] == [m[0] for m in biases]
+    at = 0
+    for name, rows, cols, param, cut in matrices:
+        block = named[f"{param}.weight"][:, cut].t()
+        k, c = block.shape
+        region = w[at:at + rows * cols].view(rows, cols)
+        assert torch.equal(region[:k, :c], block), name
+        assert not region[k:].any() and not region[:, c:].any(), name
+        assert torch.equal(grads[f"{param}.weight"][:, cut].t(),
+                           r_w[at:at + rows * cols].view(rows, cols)[:k, :c])
+        at += rows * cols
+    assert at == w.numel()
+    at = 0
+    for name, size, param in biases:
+        bias = named[f"{param}.bias"]
+        assert torch.equal(b[at:at + bias.numel()], bias), name
+        assert not b[at + bias.numel():at + size].any(), name
+        assert torch.equal(grads[f"{param}.bias"],
+                           r_b[at:at + bias.numel()])
+        at += size
+    assert at == b.numel()
+    inverse = tile_mlp.pack_index(lay)[2]
+    assert int(inverse.min()) >= 0
+    mapped = tile_mlp.param_grads(r_w, r_b, inverse,
+                                  [q.shape for q in params])
+    keys = [key for key, _ in tile_mlp.parameters(lay)]
+    assert sorted(keys) == sorted(named)
+    for key, got in zip(keys, mapped):
+        assert torch.equal(got, grads[key]), key
+
+    perm = tile_mlp.image_index(lay, transposed)
+    assert torch.equal(perm.sort().values, torch.arange(w.numel()))
+    img = w.detach()[perm]
     g = np.random.default_rng(3)
     at = 0
-    for name, rows, cols in mlp_kernel.pack_matrices(DEPTH, SKIP):
-        m = w[at:at + rows * cols].view(rows, cols)
+    for name, rows, cols, _, _ in matrices:
+        m = w.detach()[at:at + rows * cols].view(rows, cols)
         region = img[at:at + rows * cols]
         at += rows * cols
-        moved = name != "alpha" and not (transposed and name == "vd")
-        if not moved:   # w_alpha, and what the backward never multiplies by
-            assert torch.equal(region, m.reshape(-1))
+        slab_k = _image_slab(part, name, cols if transposed else rows,
+                             transposed)
+        if slab_k is None:
+            assert torch.equal(region, m.reshape(-1)), name
             continue
-        if transposed:
-            m = m.t()
+        m = m.t() if transposed else m
         k_dim, n_dim = m.shape
-        slab_k = k_dim if name == "rgb" and not transposed else min(k_dim, 64)
         for k, n in zip(g.integers(0, k_dim, 200), g.integers(0, n_dim, 200)):
             assert region[_staged_offset(int(k), int(n), n_dim, slab_k)] \
                 == m[k, n], (name, k, n)
-    assert at == w.numel()
 
-    weights = torch.as_tensor(g.normal(size=img.numel()), dtype=img.dtype)
-    (img * weights).sum().backward()
-    for name, p in mlp.named_parameters():
-        if name.endswith("weight"):
-            assert p.grad is not None and bool((p.grad != 0).all()), name
+    pack_of = tile_mlp.packer(lay)
+    first, inv, got = pack_of(named)
+    assert torch.equal(inv, inverse)
+    assert all(q is named[key] for q, key in zip(got, keys))
+    assert torch.equal(first.w, w.detach().to(torch.bfloat16))
+    assert torch.equal(first.b, b.detach())
+    assert torch.equal(first.img_t if transposed else first.img,
+                       img.to(torch.bfloat16))
+    assert pack_of(named)[0] is first
+    last = biases[-1][2]
+    with torch.no_grad():
+        named[f"{last}.bias"].add_(1.0)
+    second = pack_of(named)[0]
+    assert second is not first
+    moved = torch.zeros_like(b)
+    moved[b.numel() - biases[-1][1]:][:named[f"{last}.bias"].numel()] = 1.0
+    assert torch.equal(second.b - first.b, moved)
+
+
+class _ExplicitPackFn(torch.autograd.Function):
+    """raw = MLP(x, v) with the f32 packs ``w``, ``b`` as the
+    differentiable inputs: the kernels' pack gradients (the plain versions
+    on the CPU) go back to the parameters by autograd through whatever
+    made the packs."""
+
+    @staticmethod
+    def forward(ctx, w, b, x, v, lay):
+        ctx.packed = tile_mlp.Pack(w.detach().to(torch.bfloat16),
+                                   b.detach(), lay)
+        ctx.save_for_backward(x, v)
+        return mlp_kernel.fused_nerf_mlp(ctx.packed, x, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, v = ctx.saved_tensors
+        grad_w, grad_b = mlp_train.fused_nerf_mlp_bwd(
+            ctx.packed, x, v, g.float().contiguous())
+        return grad_w, grad_b, None, None, None
+
+
+def _explicit_pack(mlp):
+    """The canonical pack of a depth-8, skip-4 NeRFMLP on 63 / 27 encoded
+    features, written out by transposes, pads and joins (the layout of
+    csrc/nerf_mlp_tile.cuh), differentiable."""
+    p = dict(mlp.named_parameters())
+
+    def w(name, rows=None):
+        m = p[f"{name}.weight"].t()
+        return m if rows is None else F.pad(m, (0, 0, 0, rows - m.shape[0]))
+
+    ws = [w("pts.0", 64)]
+    for i in range(1, 8):
+        if i == 5:
+            ws += [F.pad(w("pts.5")[:IN], (0, 0, 0, 64 - IN)),
+                   w("pts.5")[IN:]]
+        else:
+            ws.append(w(f"pts.{i}"))
+    ws += [w("feature"), w("alpha"), w("views.0")[:256],
+           F.pad(w("views.0")[256:], (0, 0, 0, 32 - VIEW)),
+           F.pad(w("rgb"), (0, 13))]
+    bs = [p[f"pts.{i}.bias"] for i in range(8)] + [
+        p["feature.bias"], F.pad(p["alpha.bias"], (0, 15)),
+        p["views.0.bias"], F.pad(p["rgb.bias"], (0, 13))]
+    return torch.cat([m.reshape(-1) for m in ws]), torch.cat(bs)
+
+
+def test_param_grads_bit_equal_through_an_explicit_pack():
+    """A hard.yaml-shaped NeRF MLP (8 x 256, skip 4, 63 / 27 encoded
+    widths) run twice, as a D-NeRF's canonical MLP is a step: every
+    parameter gradient through ``FusedNeRFMLPFn`` (the packs by gathers,
+    their gradients mapped back by the inverse gather) equals, bit for
+    bit, the gradient of the same loss by autograd through the pack
+    written out by transposes, pads and joins, as are the raw outputs and
+    the packs: both routes only permute elements."""
+    g = torch.Generator().manual_seed(4)
+    mlp = NeRFMLP(IN, VIEW, depth=8, skips=(4,), dtype=torch.float32,
+                  generator=g)
+    with torch.no_grad():
+        for name, q in mlp.named_parameters():
+            if name.endswith("bias"):
+                q.copy_(0.1 * torch.randn(q.shape, generator=g))
+    batches = [(*mlp_kernel.encode_features(
+        torch.randn(300, 3, generator=g), torch.randn(300, 3, generator=g),
+        10, 4), torch.randn(300, 4, generator=g)) for _ in range(2)]
+    lay = mlp_kernel.layout(8, 4, IN, VIEW)
+
+    def run(route):
+        mlp.zero_grad(set_to_none=True)
+        raws = [route(x, v) for x, v, _ in batches]
+        sum((raw * cot).sum() for raw, (_, _, cot) in
+            zip(raws, batches)).backward()
+        return raws, {k: q.grad.clone() for k, q in mlp.named_parameters()}
+
+    raws, grads = run(lambda x, v: mlp_train.fused_nerf_mlp_diff(
+        mlp, x, v, IN, VIEW))
+    want_raws, want = run(lambda x, v: _ExplicitPackFn.apply(
+        *_explicit_pack(mlp), x, v, lay))
+    for a, b in zip(raws, want_raws):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for key in want:
+        assert torch.equal(grads[key].view(torch.int32),
+                           want[key].view(torch.int32)), key
+    packed = tile_mlp.pack(lay, dict(mlp.named_parameters()))
+    w, b = _explicit_pack(mlp)
+    assert torch.equal(packed.w.view(torch.int16),
+                       w.detach().to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(packed.b.view(torch.int32), b.detach().view(torch.int32))

@@ -21,7 +21,7 @@ from nerf_replication_tpu.models.nerf.network import init_params
 from nerf_replication_tpu.ops.pallas import mlp_kernel as jax_mlp
 from nerf_replication_tpu.utils.ckpt_utils import load_pretrain as jax_load
 from nerf_replication_tpu_torch.models.nerf.network import make_network
-from nerf_replication_tpu_torch.ops import mlp_kernel
+from nerf_replication_tpu_torch.ops import mlp_kernel, tile_mlp
 from nerf_replication_tpu_torch.utils import tracing
 from nerf_replication_tpu_torch.utils.ckpt_utils import (
     load_network,
@@ -144,7 +144,7 @@ def test_fused_reference_matches_jax_kernel(hard, branch):
         packed_j, jnp.asarray(pts), jnp.asarray(dirs), 10, 4, tile_n=32,
         interpret=True))
     mlp = getattr(net, branch)
-    packed = mlp_kernel.pack_nerf_params(mlp.state_dict(), 63, 27, 8, 4)
+    packed = tile_mlp.pack(mlp_kernel.layout(8, 4, 63, 27), mlp.state_dict())
     out = mlp_kernel.fused_nerf_mlp_enc_reference(
         packed, torch.from_numpy(pts), torch.from_numpy(dirs), 10, 4).numpy()
     err = np.abs(out - ref) / np.abs(ref).max(axis=0)
@@ -174,7 +174,7 @@ def _plain_with_f64_sums(packed, pts, dirs):
         return flat[at:at + rows * cols].view(rows, cols).double(), \
             at + rows * cols
 
-    with mock.patch.object(mlp_kernel, "_take", take), \
+    with mock.patch.object(tile_mlp, "_take", take), \
             mock.patch.object(mlp_kernel, "_bf16",
                               lambda x: x.to(torch.bfloat16).double()):
         return mlp_kernel.fused_nerf_mlp_enc_reference(
@@ -189,8 +189,8 @@ def test_smoke_check_sees_precision_faults(hard, variant):
     lower-precision control, which the looser column-range and
     elementwise bounds alone let through."""
     _, _, _, net = hard
-    packed = mlp_kernel.pack_nerf_params(net.coarse.state_dict(), 63, 27, 8,
-                                         4)
+    packed = tile_mlp.pack(mlp_kernel.layout(8, 4, 63, 27),
+                           net.coarse.state_dict())
     pts, dirs = map(torch.from_numpy, ray_points(16384, seed=4))
     ref = mlp_kernel.fused_nerf_mlp_enc_reference(packed, pts, dirs, 10, 4)
     if variant == "f64 sums":
@@ -215,7 +215,7 @@ def test_pack_rejects_what_the_kernel_does_not_cover(hard, change):
     else:
         in_dim = 75
     with pytest.raises(ValueError):
-        mlp_kernel.pack_nerf_params(sd, in_dim, 27, depth, skip)
+        tile_mlp.pack(mlp_kernel.layout(depth, skip, in_dim, 27), sd)
 
 
 def test_init_matches_flax_dense():
