@@ -35,7 +35,18 @@ Phases (any failure exits non-zero):
    check. CUDA-event times of kernel and plain at both shapes; then the
    backward alone at a 4096-ray step's 262144 and 786432 points (random
    rays and cotangent, held to the same check against the plain backward),
-   beside its bound, its workspace's floor and its bulk copies' bytes.
+   beside its bound, its workspace's floor and its bulk copies' bytes, and
+   the training route's arms on the same points: the encode arm (the
+   delta kernel encodes the points itself) bit for bit against the
+   features-in arm on ``encode_features`` (every workspace plane, grad_w,
+   grad_b, and #1 against #3 in the forward; where an encoding differs,
+   the elements counted and the encode arm held to the same check), and
+   with the input gradient: its dL/dx bit for bit against the features-in
+   arm's where the encodings agree, and the encoding-gradient kernel's
+   dL/dp against the plain backward's on the points (phase 4's input
+   gradient rule) and against the chain rule in float64; each arm's time
+   beside the features-in arm's, and the encoding-gradient kernel alone
+   beside its plain version and its bound.
 4b. the deformation kernels (D-NeRF's Psi_t, configs/nerf/hard_dnerf.yaml
    at the seed's init) against their plain versions at a 4096-ray step's
    262144 and 786432 points along random rays at random times: dx by
@@ -48,8 +59,9 @@ Phases (any failure exits non-zero):
    kernels, and again through the nn.Module MLP. Per arm: rays/s, the
    smoothed loss and train PSNR, peak memory, and the eval PSNR on hard
    test views 0 and 4 through the eval renderer; the kernel arm makes 2
-   forward and 2 backward launches a step and no plain call, the
-   nn.Module arm no launch; both final PSNRs above the floor stated in
+   forward (#1, which encodes on chip) and 2 backward launches (the encode
+   arm) a step, no plain call and no ``freq_encode`` call, the nn.Module
+   arm no launch; both final PSNRs above the floor stated in
    PERF.md, and the arms' mean PSNR at the ends of the last two epochs
    within 0.5 dB of each other; a checkpoint of the kernel arm loads back
    through load_network and renders the same image.
@@ -258,6 +270,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -329,6 +342,11 @@ FLIP_REL = 2.0 ** -4
 WGRAD_REL = 1e-5
 WGRAD_CHECK_POINTS = 65536   # points per float64 partial of that check
 GRAD_REL = 2e-2
+# The encoding-gradient kernel against the chain rule in float64 of its own
+# dL/dx, over the terms' absolute sum: f32 sines (the precise sincosf),
+# products and sums of 21 terms (the plain version reads 7.8e-8 on the
+# CPU); a wrong sign, band scale or column reads O(1).
+ENCODE_GRAD_REL = 1e-5
 TRAIN_VIEWS = list(range(0, 100, 5))  # 20 of the 100 train views
 TRAIN_STEPS = 2000                    # four epochs of ep_iter steps
 TRAIN_PSNR_FLOOR_DB = 18.0            # the prediction in PERF.md section 6
@@ -429,6 +447,40 @@ FIRST_VERSION_MS = {
 # first designs, built from ``--first DIR`` (:func:`build_first_designs`)
 FIRST_DESIGNS: dict = {}
 SMEM_LIMIT = 232_448   # dynamic shared memory a block may use on the card
+
+
+def _kernel_name(mangled: str) -> str:
+    """The short name of a mangled kernel: its identifier that ends in
+    ``_kernel`` (the length-prefixed names read in order), with its bool
+    and int template arguments as <0, 1>; the mangled name otherwise."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + len(m.group())
+        i = start + int(m.group())
+        name = mangled[start:i]
+        if name.endswith("_kernel"):
+            args = re.match(r"I((?:L[bi]\d+E)+)E", mangled[i:])
+            return name + (f"<{', '.join(re.findall(r'\d+', args.group(1)))}>"
+                           if args else "")
+    return mangled
+
+
+def ptxas_report(log: str) -> list[str]:
+    """ptxas's register, spill and performance lines of a build log, each
+    after the short name of its kernel (:func:`_kernel_name`)."""
+    out, kernel = [], "?"
+    for line in log.splitlines():
+        entry = re.search(r"entry function '([^']+)'", line)
+        if entry:
+            kernel = _kernel_name(entry.group(1))
+        elif ("Used" in line or "spill" in line
+              or "Potential Performance Loss" in line):
+            out.append(f"{kernel}: {line.strip()}")
+    return out
 
 
 def against_first(kind: str, n: int, reading: dict) -> str:
@@ -787,6 +839,131 @@ def input_grad_agreement(packed, x, v, g, grads_off) -> dict:
                 ok=bit_equal and rel <= GRAD_REL)
 
 
+def _plane_items(planes: dict):
+    """(name, plane) of a backward's planes: h0 .., d0 .. and the rest."""
+    for name, p in planes.items():
+        if isinstance(p, list):
+            yield from ((f"{name}{i}", q) for i, q in enumerate(p))
+        else:
+            yield name, p
+
+
+def _bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The elements of two tensors of one dtype that differ bit for bit."""
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.contiguous().view(view) != b.contiguous().view(view)).sum())
+
+
+def encode_arm_agreement(packed, pts, dirs, x, v, g, grads,
+                         planes) -> dict:
+    """#5's encode arm (the training route's: the delta kernel encodes the
+    points and directions itself) against the features-in arm's
+    ``grads`` and ``planes`` on x, v = ``encode_features`` of the same
+    points: ``differ``, the elements of each workspace plane that differ
+    bit for bit (x and v are the two encodings: libdevice's sincosf
+    against PyTorch's sin and cos, each rounded to bf16); ``bit_equal``,
+    grad_w and grad_b; ``fwd_differ``, #1 on the points against #3 on the
+    features. ``ok`` when all of it is bit-equal; where an encoding
+    differs, when the encode arm passes the features-in arm's check
+    (:func:`backward_agreement`, ``check``) against the plain backward on
+    x, v and #1 phase 2's (:func:`agreement`) against #3. ``grads``: the
+    encode arm's own (grad_w, grad_b)."""
+    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+
+    keep = {}
+    gw, gb = mlp_train.fused_nerf_mlp_bwd(packed, pts, dirs, g, keep)
+    out_e = mlp_kernel.fused_nerf_mlp_enc(packed, pts, dirs,
+                                          *mlp_kernel.bands(packed.layout))
+    out_f = mlp_kernel.fused_nerf_mlp(packed, x, v)
+    torch.cuda.synchronize()
+    mine = dict(_plane_items(keep["planes"]))
+    differ = {name: _bits_differ(p, mine[name])
+              for name, p in _plane_items(planes)}
+    bit_equal = _bits_differ(gw, grads[0]) + _bits_differ(gb, grads[1]) == 0
+    fwd_differ = _bits_differ(out_e, out_f)
+    res = dict(differ=differ, bit_equal=bit_equal, fwd_differ=fwd_differ,
+               grads=(gw, gb), check=None)
+    if differ["x"] == differ["v"] == 0:
+        res["ok"] = bit_equal and fwd_differ == 0 and not any(differ.values())
+        return res
+    keep_p = {}
+    ref = mlp_train.fused_nerf_mlp_bwd_reference(packed, x, v, g, keep_p)
+    res["check"] = backward_agreement(
+        (gw, gb), ref, keep["planes"], keep_p["planes"], packed, x=mine["x"],
+        v=mine["v"], weight_grads=mlp_train.weight_grads)
+    res["fwd_check"] = agreement(out_e, out_f)
+    res["ok"] = res["check"]["ok"] and res["fwd_check"]["ok"]
+    return res
+
+
+def encode_grad_agreement(packed, pts, dirs, g, grads_enc, gx_features,
+                          encodings_agree: bool) -> dict:
+    """The encode arm with the input gradient (a D-NeRF's training route):
+    ``bit_equal``, its grad_w and grad_b against the encode arm off's
+    ``grads_enc``; ``gx_differ``, the elements of its dL/dx that differ
+    bit for bit from the features-in arm's ``gx_features`` (which
+    :func:`input_grad_agreement` holds against the plain backward), none
+    where the two arms' encodings agree (``encodings_agree``); ``plain``,
+    the norm of the encoding-gradient kernel's dL/dp's difference from the
+    plain backward's on the same points (``fused_nerf_mlp_bwd_reference``:
+    PyTorch's encode, its own dL/dx, ``encode_grad_reference``) over the
+    plain one's, at the points whose ReLUs agree (``flipped``, the
+    others), within GRAD_REL as :func:`input_grad_agreement` holds dL/dx;
+    ``rel``, dL/dp against the chain rule in float64 of the arm's own
+    dL/dx through ``freq_encode``, the worst element over its terms'
+    absolute sum, within ENCODE_GRAD_REL. ``ok`` when all of it holds."""
+    from nerf_replication_tpu_torch.models.encoding.freq import freq_encode
+    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+
+    keep, keep_p = {}, {}
+    gw, gb, gp = mlp_train.fused_nerf_mlp_bwd(packed, pts, dirs, g, keep,
+                                              with_input_grad=True)
+    *_, ref_gp = mlp_train.fused_nerf_mlp_bwd_reference(
+        packed, pts, dirs, g, keep_p, with_input_grad=True)
+    torch.cuda.synchronize()
+    flipped = flipped_points(keep["planes"], keep_p["planes"])
+    agree = ~flipped
+    plain = float((gp[agree] - ref_gp[agree]).norm()
+                  / ref_gp[agree].norm().clamp_min(1e-30))
+    del keep_p, ref_gp
+    gx = keep["grad_x"].double()
+    freqs = mlp_kernel.bands(packed.layout)[0]
+    cols = 3 * (1 + 2 * freqs)
+    p64 = pts.double().requires_grad_(True)
+    (want,) = torch.autograd.grad(freq_encode(p64, freqs), p64, gx[:, :cols])
+    scale = gx[:, :3].abs() + sum(
+        2.0 ** b * (gx[:, 3 + 6 * b:6 + 6 * b].abs()
+                    + gx[:, 6 + 6 * b:9 + 6 * b].abs()) for b in range(freqs))
+    rel = float(((gp.double() - want).abs() / scale.clamp_min(1e-30)).max())
+    bit_equal = (_bits_differ(gw, grads_enc[0])
+                 + _bits_differ(gb, grads_enc[1])) == 0
+    gx_differ = _bits_differ(keep["grad_x"], gx_features)
+    return dict(bit_equal=bit_equal, rel=rel, gx_differ=gx_differ,
+                plain=plain, flipped=int(flipped.sum()),
+                ok=(bit_equal and rel <= ENCODE_GRAD_REL
+                    and plain <= GRAD_REL
+                    and (gx_differ == 0 or not encodings_agree)))
+
+
+def describe_encode(e: dict, c: dict) -> str:
+    """One line of :func:`encode_arm_agreement` ``e`` and
+    :func:`encode_grad_agreement` ``c``."""
+    held = "all bit-equal" if e["check"] is None else (
+        f"held to the features-in check: {describe_grad(e['check'])}; "
+        f"forward {describe(e['fwd_check'])}")
+    return (f"encodings differ at {e['differ']['x']} + {e['differ']['v']} "
+            f"elements (x + v), other planes at "
+            f"{sum(e['differ'].values()) - e['differ']['x'] - e['differ']['v']}"
+            f", grad_w and grad_b bit-equal {e['bit_equal']}, #1 against #3 "
+            f"differs at {e['fwd_differ']} outputs ({held}) | with the input "
+            f"gradient: grad_w, grad_b bit-equal to the arm off's "
+            f"{c['bit_equal']}, dL/dx differs from the features-in arm's at "
+            f"{c['gx_differ']} elements, dL/dp against plain {c['plain']:.2e}"
+            f" of its norm (<= {GRAD_REL}; {c['flipped']} points with a "
+            f"flipped ReLU left out) and against float64 {c['rel']:.2e} of "
+            f"the terms (<= {ENCODE_GRAD_REL})")
+
+
 def _delta_planes(planes: dict) -> dict:
     """The delta planes by name: d0 .. d{depth-1} and the heads' (named
     ``d_...``)."""
@@ -880,13 +1057,16 @@ def _counters():
              "fused_nerf_mlp_bwd_reference", "brick_encode_eval_reference",
              "brick_encode_cells_reference", "fused_ngp_eval_reference",
              "brick_encode_reference", "brick_encode_bwd_reference",
-             "fused_deform_mlp_reference", "fused_deform_mlp_bwd_reference")
+             "fused_deform_mlp_reference", "fused_deform_mlp_bwd_reference",
+             "encode_grad_reference")
     return {
         "brick_fwd": ["brick_hash_encode.launches"],
         "brick_bwd": ["brick_hash_encode_bwd.launches"],
         "enc": ["fused_nerf_mlp_enc.launches"],
         "fwd": ["fused_nerf_mlp.launches"],
         "bwd": ["fused_nerf_mlp_bwd.launches"],
+        "bwd_encode": ["fused_nerf_mlp_bwd.encode_launches"],
+        "encode_grad": ["fused_nerf_mlp_bwd.encode_grad_launches"],
         "deform_fwd": ["fused_deform_mlp.launches"],
         "deform_bwd": ["fused_deform_mlp_bwd.launches"],
         "ngp_enc": ["brick_encode_eval.launches"],
@@ -897,6 +1077,7 @@ def _counters():
         "deform_module": ["DeformMLP.calls"],
         "mlp": ["NeRFMLP.calls"],
         "xla_encode": ["hash_encode.calls"],
+        "freq_encode": ["freq_encode.calls"],
     }
 
 
@@ -910,10 +1091,13 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    """Launches of each kernel; calls of the plain versions (summed), of
-    ``Network.forward`` (module), of ``DeformMLP.forward``
-    (deform_module), of ``NeRFMLP.forward`` (mlp) and of the xla hash
-    grid's encode (xla_encode, plain PyTorch: no kernel)."""
+    """Launches of each kernel (bwd_encode and encode_grad: #5's encode arm
+    and its encoding-gradient kernel); calls of the plain versions
+    (summed), of ``Network.forward`` (module), of ``DeformMLP.forward``
+    (deform_module), of ``NeRFMLP.forward`` (mlp), of the xla hash grid's
+    encode (xla_encode, plain PyTorch: no kernel) and of ``freq_encode``
+    (a frequency encoding in PyTorch, which the kernels' routes make
+    none of)."""
     from nerf_replication_tpu_torch.utils import tracing
 
     return {name: sum(tracing.counts[key] for key in keys)
@@ -968,13 +1152,20 @@ def backward_at_step_shape(net, mlp, packed, n: int) -> dict:
     one launch's bulk copies move by the ``fused_nerf_mlp_bwd.bulk_bytes``
     counter (more: D planes of 256-wide gradients read twice, mostly from
     L2), and the input gradient arm (``input_grad``:
-    :func:`input_grad_agreement`) with its time (``input_grad_ms``)."""
+    :func:`input_grad_agreement`) with its time (``input_grad_ms``). Then
+    the training route's arms on the same points: the encode arm against
+    the features-in arm (``encode``: :func:`encode_arm_agreement`) and
+    with the input gradient (``encode_grad``:
+    :func:`encode_grad_agreement`), with their times (``encode_ms``,
+    ``encode_grad_ms``: the delta kernel's encode arm and, after it, the
+    encoding-gradient kernel), and the encoding-gradient kernel alone
+    (``grad_kernel``: :func:`encode_grad_at`)."""
     from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train, tile_mlp
     from nerf_replication_tpu_torch.utils import tracing
 
     gen = torch.Generator(device="cuda").manual_seed(n)
-    x, v = mlp_kernel.encode_features(*ray_points(n, gen),
-                                      net.xyz_encoder.n_freqs,
+    pts, dirs = ray_points(n, gen)
+    x, v = mlp_kernel.encode_features(pts, dirs, net.xyz_encoder.n_freqs,
                                       net.dir_encoder.n_freqs)
     g = torch.randn(n, 4, device="cuda", generator=gen) * 1e-4
     enc = net.xyz_encoder.output_dim, net.dir_encoder.output_dim
@@ -987,14 +1178,28 @@ def backward_at_step_shape(net, mlp, packed, n: int) -> dict:
     check = backward_agreement(grad_k, grad_p, keep_k["planes"],
                                keep_p["planes"], packed, x=x, v=v,
                                weight_grads=mlp_train.weight_grads)
-    del keep_k, keep_p, grad_p
+    del keep_p, grad_p
+    torch.cuda.empty_cache()
+    encode = encode_arm_agreement(packed, pts, dirs, x, v, g, grad_k,
+                                  keep_k["planes"])
+    del keep_k
     torch.cuda.empty_cache()
     arm = input_grad_agreement(packed, x, v, g, grad_k)
-    del grad_k
+    *_, gx = mlp_train.fused_nerf_mlp_bwd(packed, x, v, g,
+                                          with_input_grad=True)
+    encode_grad = encode_grad_agreement(
+        packed, pts, dirs, g, encode.pop("grads"), gx,
+        encode["differ"]["x"] == encode["differ"]["v"] == 0)
+    del grad_k, gx
     torch.cuda.empty_cache()
+    grad_kernel = encode_grad_at(packed, pts, dirs, g)
     ms = cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(packed, x, v, g), 20)
     arm_ms = cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(
         packed, x, v, g, with_input_grad=True), 20)
+    encode_ms = cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(
+        packed, pts, dirs, g), 20)
+    encode_grad_ms = cuda_ms(lambda: mlp_train.fused_nerf_mlp_bwd(
+        packed, pts, dirs, g, with_input_grad=True), 20)
     flops = n * (3 * mlp_flops(mlp) - input_side_flops(mlp, *enc))
     workspace = 2 * tile_mlp.padded(n) * sum(
         map(sum, tile_mlp.workspace_columns(packed.layout)))
@@ -1002,7 +1207,37 @@ def backward_at_step_shape(net, mlp, packed, n: int) -> dict:
                                     flops, "bf16"),
                 floor_ms=2 * workspace / PEAK_BYTES_PER_S * 1e3,
                 bulk_bytes=moved, check=check, input_grad=arm,
-                input_grad_ms=arm_ms)
+                input_grad_ms=arm_ms, encode=encode,
+                encode_grad=encode_grad, encode_ms=encode_ms,
+                encode_grad_ms=encode_grad_ms, grad_kernel=grad_kernel)
+
+
+def encode_grad_at(packed, pts, dirs, g) -> dict:
+    """The encoding-gradient kernel alone (``mlp_train.encode_grad``) on
+    the encode arm's dL/dx of ``pts``: its CUDA-event time (``ms``), its
+    plain version's (``plain_ms``, ``encode_grad_reference``), ``err``,
+    its largest difference from that plain version in float64, and its
+    bound: 256 bytes a point of dL/dx read (63 of 64 f32 columns: every
+    sector), 12 of points read and 12 of dL/dp written; six f32 operations
+    a band and dimension besides its sincosf."""
+    from nerf_replication_tpu_torch.ops import mlp_kernel, mlp_train
+
+    keep = {}
+    mlp_train.fused_nerf_mlp_bwd(packed, pts, dirs, g, keep,
+                                 with_input_grad=True)
+    gx = keep.pop("grad_x")
+    del keep
+    freqs = mlp_kernel.bands(packed.layout)[0]
+    n = pts.shape[0]
+    got = mlp_train.encode_grad(pts, gx, freqs)
+    want = mlp_train.encode_grad_reference(pts.double(), gx.double(), freqs)
+    err = float((got.double() - want).abs().max())
+    ms = cuda_ms(lambda: mlp_train.encode_grad(pts, gx, freqs), 20)
+    plain_ms = cuda_ms(
+        lambda: mlp_train.encode_grad_reference(pts, gx, freqs), 20)
+    return dict(n=n, ms=ms, plain_ms=plain_ms, err=err,
+                **bound(n * (4 * gx.shape[1] + 24), 6 * 3 * n * freqs,
+                        "f32"))
 
 
 def phase_train_kernels(cfg, arrays, step_shapes: bool = False) -> dict:
@@ -1101,10 +1336,27 @@ def phase_train_kernels(cfg, arrays, step_shapes: bool = False) -> dict:
                   f"to the arm off's: {a['bit_equal']} | grad_x vs plain "
                   f"{a['rel']:.2e} of its norm ({a['flipped']} points with "
                   f"a flipped ReLU left out)")
+            k = r["grad_kernel"]
+            print(f"the training route's encode arm at N={n}: "
+                  f"{r['encode_ms']:.3f} ms (features in {r['ms']:.3f} ms); "
+                  f"with the input gradient and the encoding-gradient kernel "
+                  f"{r['encode_grad_ms']:.3f} ms (features in "
+                  f"{r['input_grad_ms']:.3f} ms), the encoding-gradient "
+                  f"kernel alone {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} "
+                  f"ms; bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
+                  f"{k['bound_ms'] / k['ms']:.1%}; max abs err against "
+                  f"float64 {k['err']:.2e}) | "
+                  f"{describe_encode(r['encode'], r['encode_grad'])}")
             if not r["check"]["ok"]:
                 fail(f"backward disagrees with plain at a step's N={n}")
             if not a["ok"]:
                 fail(f"the input gradient arm disagrees at a step's N={n}")
+            if not r["encode"]["ok"]:
+                fail(f"the encode arm disagrees with the features-in arm at "
+                     f"a step's N={n}")
+            if not r["encode_grad"]["ok"]:
+                fail(f"the encoding-gradient kernel disagrees at a step's "
+                     f"N={n}")
             torch.cuda.empty_cache()
     del net
     torch.cuda.empty_cache()
@@ -1321,6 +1573,26 @@ def deform_entries(deform: dict, train: dict) -> list[dict]:
          "library_ms": big["library_bwd_ms"]}]
 
 
+def encode_grad_entry(steps: list[dict], train: dict) -> dict:
+    """The summary's entry of the encoding-gradient kernel: its reading
+    alone (:func:`encode_grad_at`) at the larger of a step's point counts,
+    its launches in phase 4c's D-NeRF training steps. It replaces no TPU
+    kernel (the JAX package leaves the encoding's gradient to XLA)."""
+    big = steps[-1]["grad_kernel"]
+    return {"name": "nerf_encode_grad", "route": "cuda",
+            "source": "nerf_replication_tpu_torch/csrc/fused_nerf_mlp_bwd.cu",
+            "replaces": "none: the frequency encoding's gradient in XLA "
+                        "(nerf_replication_tpu/models/encoding/freq.py)",
+            "launches": train["encode_grad"],
+            "max_abs_err": max(r["grad_kernel"]["err"] for r in steps),
+            "n": big["n"], "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+            "library_ms": None,
+            "readings": [{k: r["grad_kernel"][k]
+                          for k in ("n", "ms", "plain_ms", "bound_ms")}
+                         for r in steps]}
+
+
 def phase_deform_kernels() -> dict:
     """Phase 4b: the deformation kernels (:func:`deform_at`) at a 4096-ray
     step's 262,144 and 786,432 points; fails where a check fails or a
@@ -1384,9 +1656,11 @@ def phase_deform_train(steps: int = DEFORM_TRAIN_STEPS) -> dict:
     at its published widths through ``Trainer.train_device`` from the
     seed-0 init, on DEFORM_TRAIN_VIEWS of the dynamic hard scene: the
     launches and calls counted from a reset (:func:`read_counts`). Fails
-    unless each step launched each deformation kernel, #3 and #5 twice
-    (the coarse and the fine pass) and called no plain version, neither
-    nn.Module and no other kernel, or where a loss is not finite."""
+    unless each step launched each deformation kernel, #1 and #5 twice
+    (the coarse and the fine pass), #5 in its encode arm with the
+    encoding-gradient kernel, and called no plain version, neither
+    nn.Module, no ``freq_encode`` and no other kernel, or where a loss is
+    not finite."""
     from nerf_replication_tpu_torch.config import make_cfg, parse_args
     from nerf_replication_tpu_torch.models import make_network
     from nerf_replication_tpu_torch.train import make_trainer
@@ -1406,7 +1680,8 @@ def phase_deform_train(steps: int = DEFORM_TRAIN_STEPS) -> dict:
     reset_counts()
     summary = trainer.train_device(0, pipeline, n_steps=steps)
     counts = read_counts()
-    want = {k: (2 * steps if k in ("deform_fwd", "deform_bwd", "fwd", "bwd")
+    want = {k: (2 * steps if k in ("deform_fwd", "deform_bwd", "enc", "bwd",
+                                   "bwd_encode", "encode_grad")
                 else 0) for k in counts}
     print(f"D-NeRF training (hard_dnerf.yaml, {H}x{W}, {steps} steps): "
           f"losses {[round(float(x), 5) for x in summary['loss']]}, counts "
@@ -1582,8 +1857,9 @@ def phase_train(arrays, views, steps: int, profile: int) -> dict:
     """Phase 5: the two arms and the checkpoint round trip."""
     k = train_arm(True, arrays, views, steps, profile)
     c = k["counts"]
-    if (c["fwd"], c["bwd"], c["plain"], c["module"], c["enc"]) != \
-            (2 * steps, 2 * steps, 0, 0, 0):
+    if (c["enc"], c["bwd"], c["bwd_encode"], c["encode_grad"], c["fwd"],
+            c["plain"], c["module"], c["freq_encode"]) != \
+            (2 * steps, 2 * steps, 2 * steps, 0, 0, 0, 0, 0):
         fail(f"the kernel arm did not train through the kernels alone: {c}")
     del k["net"], k["trainer"]
     torch.cuda.empty_cache()
@@ -2725,9 +3001,11 @@ def masked_batch_checks(cfg, arrays) -> dict:
           f"/ {loss_m:.6f} (rel {loss_rel:.2e} <= {ARMS_LOSS_REL}), all "
           f"leaves rel-norm {grad_rel:.2e} (<= {ARMS_GRAD_REL}); the fused "
           f"arm's counts {counts}")
-    if (counts["fwd"], counts["bwd"], counts["plain"], counts["module"]) \
-            != (2, 2, 0, 0):
-        fail(f"the masked batch did not run through #3-#5 alone: {counts}")
+    if (counts["enc"], counts["bwd"], counts["bwd_encode"], counts["fwd"],
+            counts["plain"], counts["module"], counts["freq_encode"]) \
+            != (2, 2, 2, 0, 0, 0, 0):
+        fail(f"the masked batch did not run through #1 and #5 alone: "
+             f"{counts}")
     if loss_rel > ARMS_LOSS_REL or grad_rel > ARMS_GRAD_REL:
         fail("the masked batch's fused arm disagrees with the nn.Module arm")
     torch.cuda.empty_cache()
@@ -3437,7 +3715,8 @@ def host_loader_img_fit(profile: bool) -> dict:
           f"{peak_gb:.3f} GB, counts {counts}")
     if len(psnrs) != IMG_FIT_EPOCHS or not np.isfinite(psnrs).all():
         fail(f"img_fit gave no finite eval PSNR each epoch: {psnrs}")
-    if any(counts.values()):
+    # img_fit's own model encodes its pixels with freq_encode in PyTorch
+    if any(n for k, n in counts.items() if k != "freq_encode"):
         fail(f"img_fit ran a kernel or a NeRF module: {counts}")
     if abs(psnrs[-1] - IMG_FIT_JAX_PSNR_DB[-1]) > IMG_FIT_GATE_DB:
         fail(f"img_fit epoch-2 PSNR {psnrs[-1]:.4f} dB is not within "
@@ -3501,9 +3780,10 @@ def host_loader_nerf(arrays, profile: bool) -> dict:
           f"loss {loss_k:.6f} / {loss_m:.6f} (rel {loss_rel:.2e} <= "
           f"{ARMS_LOSS_REL}), all leaves rel-norm {grad_rel:.2e} (<= "
           f"{ARMS_GRAD_REL}); the kernel arm's counts {first}")
-    if (first["fwd"], first["bwd"], first["plain"], first["module"]) != \
-            (2, 2, 0, 0):
-        fail(f"the host batch did not run through #3-#5 alone: {first}")
+    if (first["enc"], first["bwd"], first["bwd_encode"], first["fwd"],
+            first["plain"], first["module"], first["freq_encode"]) != \
+            (2, 2, 2, 0, 0, 0, 0):
+        fail(f"the host batch did not run through #1 and #5 alone: {first}")
     if loss_rel > ARMS_LOSS_REL or grad_rel > ARMS_GRAD_REL:
         fail("the host batch's kernel arm disagrees with the nn.Module arm")
 
@@ -3526,9 +3806,10 @@ def host_loader_nerf(arrays, profile: bool) -> dict:
           f"{100 * data_share:.1f}% of the wall, loss first/last "
           f"{summary['loss'][0]:.5f} / {summary['loss'][-1]:.5f}, counts "
           f"{counts}")
-    if (counts["fwd"], counts["bwd"], counts["plain"], counts["module"]) != \
-            (2 * steps, 2 * steps, 0, 0):
-        fail(f"the host-loader run did not train through #3-#5 alone: "
+    if (counts["enc"], counts["bwd"], counts["bwd_encode"], counts["fwd"],
+            counts["plain"], counts["module"], counts["freq_encode"]) != \
+            (2 * steps, 2 * steps, 2 * steps, 0, 0, 0, 0):
+        fail(f"the host-loader run did not train through #1 and #5 alone: "
              f"{counts}")
     if not np.isfinite(summary["loss"]).all():
         fail("the host-loader run's loss is not finite")
@@ -3972,7 +4253,7 @@ def phase_dp(arrays, views, dense: dict, frame_specs: dict) -> dict:
     one = {"fused_nerf_mlp_enc": 2 * math.ceil(
                views[0]["H"] * views[0]["W"] / chunk)
            + ref_frames["compact_counts"]["enc"],
-           "fused_nerf_mlp": ref["counts"]["fwd"],
+           "fused_nerf_mlp_enc.train": ref["counts"]["enc"],
            "fused_nerf_mlp_bwd": ref["counts"]["bwd"],
            "brick_hash_encode": ref_ngp["counts"]["brick_fwd"],
            "brick_hash_encode_bwd": ref_ngp["counts"]["brick_bwd"],
@@ -3980,7 +4261,8 @@ def phase_dp(arrays, views, dense: dict, frame_specs: dict) -> dict:
     launches = {
         "fused_nerf_mlp_enc": [r["eval"]["counts"]["enc"]
                                + r["compact_counts"]["enc"] for r in res],
-        "fused_nerf_mlp": [r["hard"]["counts"]["fwd"] for r in res],
+        "fused_nerf_mlp_enc.train": [r["hard"]["counts"]["enc"]
+                                     for r in res],
         "fused_nerf_mlp_bwd": [r["hard"]["counts"]["bwd"] for r in res],
         "brick_hash_encode": [r["ngp"]["counts"]["brick_fwd"] for r in res],
         "brick_hash_encode_bwd": [r["ngp"]["counts"]["brick_bwd"]
@@ -3991,7 +4273,7 @@ def phase_dp(arrays, views, dense: dict, frame_specs: dict) -> dict:
     print(f"data parallel (b): launches a rank {launches} (one process "
           f"{one}), plain calls {sum(plain)}")
     for name, per_rank in launches.items():
-        trains = name in ("fused_nerf_mlp", "fused_nerf_mlp_bwd",
+        trains = name in ("fused_nerf_mlp_enc.train", "fused_nerf_mlp_bwd",
                           "brick_hash_encode", "brick_hash_encode_bwd")
         if min(per_rank) == 0 or (set(per_rank) != {one[name]} if trains
                                   else sum(per_rank) != one[name]):
@@ -4082,10 +4364,7 @@ def main(argv=None):
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         log = _build.library_path(lib).with_suffix(".log")
-        print(f"ptxas {lib}:",
-              " | ".join(line.strip() for line in log.read_text().splitlines()
-                         if "Used" in line or "spill" in line
-                         or "Potential Performance Loss" in line))
+        print(f"ptxas {lib}:", " | ".join(ptxas_report(log.read_text())))
     shape, smem = mlp_kernel.launch_shape(POINTS[1]), \
         mlp_train.shared_memory_bytes(8)
     print(f"8x256 MLP kernels: {shape['blocks']} persistent blocks of 128 "
@@ -4299,21 +4578,26 @@ def main(argv=None):
     train_fine = xla["encode"]["readings"][1]
     eval_fine = xla["encode"]["readings"][-1]
     # phase 12: img_fit runs no kernel; the host-loader NeRF run launches
-    # #3/#4 and #5 (host_loader_launches)
+    # #1 and #5 (host_loader_launches); the training route runs #1 (its
+    # train_launches) and #5's encode arm, #3/#4 only phase 4's checks
     host_counts = host["nerf"]["counts"]
     print(smi)
     summary = {"kernels": [
-        entry("fused_nerf_mlp_enc", "fused_nerf_mlp.cu", "mlp_kernel.py:366",
-              launches, list(checks.values()), frame["freq_rm"], compact),
-        {**entry("fused_nerf_mlp", "fused_nerf_mlp.cu", "mlp_train.py:168",
-                 counts["fwd"], train_checks["fwd"],
-                 more=compact["train"]["fwd"]),
-         "host_loader_launches": host_counts["fwd"]},
+        {**entry("fused_nerf_mlp_enc", "fused_nerf_mlp.cu",
+                 "mlp_kernel.py:366", launches, list(checks.values()),
+                 frame["freq_rm"], compact),
+         "train_launches": counts["enc"],
+         "host_loader_launches": host_counts["enc"]},
+        entry("fused_nerf_mlp", "fused_nerf_mlp.cu", "mlp_train.py:168",
+              counts["fwd"], train_checks["fwd"],
+              more=compact["train"]["fwd"]),
         {**entry("fused_nerf_mlp_bwd", "fused_nerf_mlp_bwd.cu",
                  "mlp_train.py:225", counts["bwd"], train_checks["bwd"],
                  more=compact["train"]["bwd"]),
+         "encode_launches": counts["bwd_encode"],
          "host_loader_launches": host_counts["bwd"],
          "step_shapes": train_checks["bwd_step"]},
+        encode_grad_entry(train_checks["bwd_step"], deform_train),
         *deform_entries(deform, deform_train),
         entry("brick_encode_eval", "brick_encode_eval.cu",
               "eval_encode.py:202 and :245", ngp["launches"]["encode"],

@@ -77,12 +77,26 @@
 // cotangent, so all their deltas are zero.
 
 #include "mlp_bwd_tile.cuh"
+#include "mlp_encode.cuh"
 
 namespace {
 
 using namespace nerf;
 
 constexpr int kStages = 3;   // 96 KB of weight ring
+constexpr int kGradThreads = 256;   // threads of a block of the encoding's
+                                    // gradient
+
+// Where a tile's encoded inputs come from: the bf16 features x (n_pad, 64)
+// and v (n_pad, 32), zero past n, or, in the encode arm, the f32 points and
+// directions (n, 3) and their bands.
+struct Inputs {
+  const bf16* x;
+  const bf16* v;
+  const float* pts;
+  const float* dirs;
+  int xyz_freqs, view_freqs;
+};
 
 struct BwdSmem {
   Ring<kStages> ring;
@@ -150,12 +164,13 @@ __device__ __forceinline__ void dx_out(const float (&acc)[kXDim / 2],
 }
 
 // A consumer warpgroup's share of the delta kernel: its 64 rows of every
-// tile the block takes; with kDx, their input gradient to dx.
-template <bool kDx>
+// tile the block takes, encoded from the points with kEnc; with kDx, their
+// input gradient to dx.
+template <bool kDx, bool kEnc>
 __device__ __forceinline__ void delta_tiles(
     BwdSmem& s, uint32_t* mask_words, Pipe<kStages>& pipe, int rounds,
-    const bf16* __restrict__ x, const bf16* __restrict__ v,
-    const float* __restrict__ g, int n, int n_pad, const float* __restrict__ b,
+    const Inputs& in, const float* __restrict__ g, int n, int n_pad,
+    const float* __restrict__ b,
     int depth, int skip, bf16* __restrict__ act, bf16* __restrict__ dlt,
     float* __restrict__ bias_part, float* __restrict__ dx) {
   const int tid = threadIdx.x;
@@ -187,8 +202,13 @@ __device__ __forceinline__ void delta_tiles(
     const int row0 = tile * kTileM + wg * kWgRows;
     float* bp = bias_part +
                 static_cast<size_t>(tile * 2 + wg) * b_pack_size(depth);
-    load_rows(x, n_pad, row0, kXDim, s.x[wg], t);
-    load_rows(v, n_pad, row0, kVDim, s.v[wg], t);
+    if (kEnc) {
+      encode(in.pts, n, row0, in.xyz_freqs, s.x[wg], kXDim, t);
+      encode(in.dirs, n, row0, in.view_freqs, s.v[wg], kVDim, t);
+    } else {
+      load_rows(in.x, n_pad, row0, kXDim, s.x[wg], t);
+      load_rows(in.v, n_pad, row0, kVDim, s.v[wg], t);
+    }
     for (int e = t; e < kWgRows * 4; e += kWgThreads)
       gs[e] = row0 + (e >> 2) < n ? g[static_cast<size_t>(row0) * 4 + e] : 0.0f;
     ws.read_back();   // the last tile's d_0, before the recompute's layer 0
@@ -331,10 +351,9 @@ __device__ __forceinline__ void delta_tiles(
   if (ws.leader) bulk_wait_all();
 }
 
-template <bool kDx>
+template <bool kDx, bool kEnc>
 __global__ void __launch_bounds__(kThreads, 1)
-nerf_mlp_bwd_delta_kernel(const bf16* __restrict__ x,
-                          const bf16* __restrict__ v,
+nerf_mlp_bwd_delta_kernel(const __grid_constant__ Inputs in,
                           const float* __restrict__ g, int n, int n_pad,
                           const bf16* __restrict__ img,
                           const bf16* __restrict__ img_t,
@@ -363,8 +382,8 @@ nerf_mlp_bwd_delta_kernel(const bf16* __restrict__ x,
     }
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    delta_tiles<kDx>(s, mask_words, pipe, rounds, x, v, g, n, n_pad, b, depth,
-                     skip, act, dlt, bias_part, dx);
+    delta_tiles<kDx, kEnc>(s, mask_words, pipe, rounds, in, g, n, n_pad, b,
+                           depth, skip, act, dlt, bias_part, dx);
   }
 }
 
@@ -372,6 +391,31 @@ __global__ void __launch_bounds__(kWgThreadsAll, 1)
 nerf_mlp_bwd_wgrad_kernel(const __grid_constant__ Products ps, int n_pad,
                           int chunk, long long e_w, float* __restrict__ part) {
   wgrad_blocks(ps, n_pad, chunk, e_w, part);
+}
+
+// dL/dp (n, 3) of the encoded points from their f32 gradient gx (n, 64,
+// freq_encode's layout [x, sin(2^0 x), cos(2^0 x), ...], each over the
+// 3 dims), a thread a (point, dim): the identity's column plus each band's
+// chain rule, bands in increasing order.
+__global__ void __launch_bounds__(kGradThreads)
+nerf_encode_grad_kernel(const float* __restrict__ pts,
+                        const float* __restrict__ gx, int n, int freqs,
+                        float* __restrict__ gp) {
+  const long long e =
+      static_cast<long long>(blockIdx.x) * kGradThreads + threadIdx.x;
+  if (e >= 3LL * n) return;
+  const int d = static_cast<int>(e % 3);
+  const float* __restrict__ row = gx + (e / 3) * kXDim;
+  const float p = pts[e];
+  float acc = row[d];
+  for (int band = 0; band < freqs; ++band) {
+    // scaling by 2^band is exact in f32, as in the encode
+    const float scale = static_cast<float>(1 << band);
+    float sn, cs;
+    sincosf(p * scale, &sn, &cs);
+    acc += scale * (cs * row[3 + 6 * band + d] - sn * row[6 + 6 * band + d]);
+  }
+  gp[e] = acc;
 }
 
 // out[r][e] = sum of in[c][e] over c in [r * group, min(C, (r + 1) * group)),
@@ -398,9 +442,11 @@ int fused_nerf_mlp_bwd_wgrad_smem_bytes() {
 // Gradients of the packed f32 weights (grad_w, e_w elements) and biases
 // (grad_b, e_b) on `stream`, and, where grad_x is not null, of the encoded
 // points: grad_x f32 (n_pad, 64), zero in rows past n. x (n_pad, 64) and v
-// (n_pad, 32) are the bf16 encoded features with zero rows past n, g (n, 4)
-// f32 the cotangent; img and img_t the forward and transposed images of the
-// bf16 weight pack.
+// (n_pad, 32) are the bf16 encoded features with zero rows past n; where
+// both are null, the delta kernel encodes pts and dirs (n, 3 f32 each) with
+// xyz_freqs and view_freqs bands itself (the encode arm; nerf_encode_grad
+// takes its grad_x on to the points). g (n, 4) f32 is the cotangent; img
+// and img_t the forward and transposed images of the bf16 weight pack.
 // Workspaces (the caller sizes them, see ops/mlp_train.py), tile-order
 // planes of the columns named:
 //   act bf16 h_0 .. h_{depth-1}, feat (256 each), g_act (128), x (64),
@@ -415,14 +461,21 @@ int fused_nerf_mlp_bwd_wgrad_smem_bytes() {
 // D once for each 128 gradient rows). Returns cudaGetLastError() of the
 // last launch, or cudaErrorInvalidValue for arguments the kernels do not
 // take.
-int fused_nerf_mlp_bwd(const void* x, const void* v, const float* g, int n,
-                       int n_pad, const void* img, const void* img_t,
-                       const float* b, int depth, int skip, void* act,
-                       void* dlt, float* part_w, float* tmp_w, float* part_b,
-                       float* tmp_b, float* grad_w, float* grad_b,
-                       float* grad_x, long long e_w, long long e_b, int chunk,
-                       int group_w, int group_b, void* stream,
-                       long long* bulk_bytes) {
+int fused_nerf_mlp_bwd(const void* x, const void* v, const float* pts,
+                       const float* dirs, int xyz_freqs, int view_freqs,
+                       const float* g, int n, int n_pad, const void* img,
+                       const void* img_t, const float* b, int depth, int skip,
+                       void* act, void* dlt, float* part_w, float* tmp_w,
+                       float* part_b, float* tmp_b, float* grad_w,
+                       float* grad_b, float* grad_x,
+                       long long e_w, long long e_b, int chunk, int group_w,
+                       int group_b, void* stream, long long* bulk_bytes) {
+  const bool enc = x == nullptr;
+  if (enc != (v == nullptr) ||
+      (enc && (pts == nullptr || dirs == nullptr || xyz_freqs < 0 ||
+               view_freqs < 0 || 3 * (1 + 2 * xyz_freqs) > kXDim ||
+               3 * (1 + 2 * view_freqs) > kVDim)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0 || n_pad % kTileM != 0 || n_pad < n ||
       chunk % kWgPoints != 0 ||
       depth + 6 > kMaxProducts || skip < 0 || skip >= depth - 1 ||
@@ -430,23 +483,25 @@ int fused_nerf_mlp_bwd(const void* x, const void* v, const float* g, int n,
       b_pack_size(depth) != e_b || group_w < 1 || group_b < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* vb = static_cast<const bf16*>(v);
+  const Inputs in{static_cast<const bf16*>(x), static_cast<const bf16*>(v),
+                  pts, dirs, xyz_freqs, view_freqs};
   bf16* actb = static_cast<bf16*>(act);
   bf16* dltb = static_cast<bf16*>(dlt);
 
   // persistent blocks, one an SM, or fewer when there are fewer tiles
-  static LaunchCache delta_cache[2], wgrad_cache;
+  static LaunchCache delta_cache[2][2], wgrad_cache;
   const size_t smem = bwd_smem_bytes(depth);
   int sms = 0;
-  auto delta = grad_x ? nerf_mlp_bwd_delta_kernel<true>
-                      : nerf_mlp_bwd_delta_kernel<false>;
-  cudaError_t err = prepare_launch(delta_cache[grad_x != nullptr], delta,
-                                   smem, &sms);
+  const bool dx = grad_x != nullptr;
+  auto delta = dx ? (enc ? nerf_mlp_bwd_delta_kernel<true, true>
+                         : nerf_mlp_bwd_delta_kernel<true, false>)
+                  : (enc ? nerf_mlp_bwd_delta_kernel<false, true>
+                         : nerf_mlp_bwd_delta_kernel<false, false>);
+  cudaError_t err = prepare_launch(delta_cache[dx][enc], delta, smem, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = n_pad / kTileM;
   delta<<<tiles < sms ? tiles : sms, kThreads, smem, st>>>(
-      xb, vb, g, n, n_pad, static_cast<const bf16*>(img),
+      in, g, n, n_pad, static_cast<const bf16*>(img),
       static_cast<const bf16*>(img_t), b, depth, skip, actb, dltb, part_b,
       grad_x);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
@@ -514,6 +569,24 @@ int fused_nerf_mlp_bwd(const void* x, const void* v, const float* g, int n,
     return e2;
   return reduce_two_pass(reduce_rows_kernel, part_b, tmp_b, grad_b,
                          n_pad / kWgRows, e_b, group_b, st);
+}
+
+
+// dL/dp (n, 3) f32 of points pts (n, 3) from the f32 gradient gx (n, 64)
+// of their frequency encoding with `freqs` bands (the input gradient arm's
+// grad_x), on `stream`. Returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+int nerf_encode_grad(const float* pts, const float* gx, int n, int freqs,
+                     float* gp, void* stream) {
+  if (n <= 0 || freqs < 0 || 3 * (1 + 2 * freqs) > kXDim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = 3LL * n;
+  nerf_encode_grad_kernel<<<static_cast<unsigned>(
+                                (items + kGradThreads - 1) / kGradThreads),
+                            kGradThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      pts, gx, n, freqs, gp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

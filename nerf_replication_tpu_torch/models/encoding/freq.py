@@ -6,12 +6,17 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import tracing
+
 
 def freq_encode(x: torch.Tensor, n_freqs: int,
                 include_input: bool = True) -> torch.Tensor:
     """(..., D) -> (..., D * (include_input + 2 * n_freqs)), laid out
     ``[x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...]``, each over all D
-    dims. Scaling by 2^i is exact in float32."""
+    dims. Scaling by 2^i is exact in float32. Counts its calls
+    (``tracing.counts["freq_encode.calls"]``): the kernels encode on chip,
+    so a route on them makes none."""
+    tracing.counts["freq_encode.calls"] += 1
     feats = [x] if include_input else []
     for i in range(n_freqs):
         xb = x * (2.0 ** i)

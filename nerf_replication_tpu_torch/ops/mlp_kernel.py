@@ -17,9 +17,10 @@ memory, so that each slab of a matrix is one contiguous run for a bulk
 copy.
 
 * :func:`fused_nerf_mlp_enc` encodes raw points and directions in the
-  kernel (the eval path);
+  kernel (the eval path, and the training forward of ops/mlp_train.py);
 * :func:`fused_nerf_mlp` takes encoded bf16 features (N, 64) and (N, 32)
-  (the training path, ops/mlp_train.py).
+  (``mlp_train.fused_nerf_mlp_diff``, the features-in counterpart of the
+  JAX package's).
 
 Only the canonical architecture is covered, as on the TPU: width 256, one
 skip, one 128-wide view layer, frequency encoders with at most 10 point
@@ -91,9 +92,10 @@ def layout(depth: int, skip: int, x_dim: int,
         vec("alpha", ALPHA_PAD, "alpha.bias", keep=1),
         vec("v", HALF, "views.0.bias"),
         vec("rgb", RGB_COLS, "rgb.bias", keep=3)]
-    # csrc/fused_nerf_mlp_bwd.cu names the planes; x and v are copies
+    # csrc/fused_nerf_mlp_bwd.cu names the planes; x and v are the
+    # encodings as the delta kernel loaded or encoded them
     act = (("h", WIDTH),) * depth + (("feat", WIDTH), ("g_act", HALF),
-                                     (None, X_DIM), (None, V_DIM))
+                                     ("x", X_DIM), ("v", V_DIM))
     dlt = (("d", WIDTH),) * depth + (("d_af", WIDTH + ALPHA_PAD),
                                      ("d_gpre", HALF), ("d_rgb", RGB_COLS))
     return tile_mlp.Layout(depth, skip, tuple(weights), tuple(biases), act,
@@ -146,13 +148,29 @@ def fused_nerf_mlp_enc_reference(packed: tile_mlp.Pack, pts: torch.Tensor,
 
 
 def encode_features(pts: torch.Tensor, dirs: torch.Tensor, xyz_freqs: int,
-                    view_freqs: int, x_dtype: torch.dtype = torch.bfloat16):
-    """Raw (N, 3) points and directions -> the features-in kernel's bf16
-    inputs x (N, 64) and v (N, 32), zero-padded, contiguous. ``x_dtype``
-    float32 keeps x unrounded (the kernel's wrapper rounds it), so that a
-    gradient into x is not rounded to bf16 on its way back."""
-    return (_encode(pts, xyz_freqs, X_DIM).to(x_dtype).contiguous(),
+                    view_freqs: int):
+    """Raw (N, 3) points and directions -> the features-in kernels' bf16
+    inputs x (N, 64) and v (N, 32), zero-padded, contiguous. The encoding
+    ends in a cast to bf16, so a gradient taken back through it is rounded
+    to bf16 on its way to the points; the training route hands the kernels
+    the points instead (``mlp_train.FusedNeRFMLPFn``), and the encoding's
+    gradient stays f32 there."""
+    return (_encode(pts, xyz_freqs, X_DIM).to(torch.bfloat16).contiguous(),
             _encode(dirs, view_freqs, V_DIM).to(torch.bfloat16).contiguous())
+
+
+def bands(lay: tile_mlp.Layout) -> tuple[int, int]:
+    """The frequency bands (point, direction) of the encodings whose
+    columns ``lay``'s MLP reads: 3 (1 + 2 F) encoded columns each. Raises
+    for a width no 3-D frequency encoding with its input has."""
+    widths = {m.name: m.keep_rows for m in lay.weights}
+    out = []
+    for dim in (widths["0"], widths["vd"]):
+        if dim % 3 or (dim // 3) % 2 == 0:
+            raise ValueError(f"fused kernel: {dim} encoded columns are no "
+                             f"3-D frequency encoding with its input")
+        out.append((dim // 3 - 1) // 2)
+    return out[0], out[1]
 
 
 def fused_nerf_mlp_reference(packed: tile_mlp.Pack, x: torch.Tensor,
@@ -208,18 +226,8 @@ def fused_nerf_mlp_enc(packed: tile_mlp.Pack, pts: torch.Tensor,
                                             view_freqs)
     if pts.device.type != "cuda":
         raise ValueError(f"fused kernel: unsupported device {pts.device}")
-    n = pts.shape[0]
-    for name, t in (("pts", pts), ("dirs", dirs)):
-        if t.dtype != torch.float32 or t.shape != (n, 3) \
-                or not t.is_contiguous() or t.device != pts.device:
-            raise ValueError(f"fused kernel: {name} must be a contiguous "
-                             f"float32 ({n}, 3) tensor on {pts.device}")
+    n = check_points(pts, dirs, xyz_freqs, view_freqs)
     tile_mlp.check_pack(packed, pts.device)
-    if 3 * (1 + 2 * xyz_freqs) > X_DIM or 3 * (1 + 2 * view_freqs) > V_DIM:
-        raise ValueError(f"fused kernel: at most {(X_DIM // 3 - 1) // 2} "
-                         f"and {(V_DIM // 3 - 1) // 2} bands")
-    if n >= 2 ** 31 // 4:
-        raise ValueError(f"fused kernel: {n} points exceed the int32 index")
     out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
     if n == 0:
         return out
@@ -233,6 +241,25 @@ def fused_nerf_mlp_enc(packed: tile_mlp.Pack, pts: torch.Tensor,
     _build.check_launch(lib, err, "fused_nerf_mlp_enc")
     tracing.counts["fused_nerf_mlp_enc.launches"] += 1
     return out
+
+
+def check_points(pts: torch.Tensor, dirs: torch.Tensor, xyz_freqs: int,
+                 view_freqs: int) -> int:
+    """The number of points of the encoding kernels' inputs: f32,
+    contiguous (N, 3) points and directions on one CUDA device, with bands
+    whose encodings fit the kernels' columns; raises otherwise."""
+    n = pts.shape[0]
+    for name, t in (("pts", pts), ("dirs", dirs)):
+        if t.dtype != torch.float32 or t.shape != (n, 3) \
+                or not t.is_contiguous() or t.device != pts.device:
+            raise ValueError(f"fused kernel: {name} must be a contiguous "
+                             f"float32 ({n}, 3) tensor on {pts.device}")
+    if 3 * (1 + 2 * xyz_freqs) > X_DIM or 3 * (1 + 2 * view_freqs) > V_DIM:
+        raise ValueError(f"fused kernel: at most {(X_DIM // 3 - 1) // 2} "
+                         f"and {(V_DIM // 3 - 1) // 2} bands")
+    if n >= 2 ** 31 // 4:
+        raise ValueError(f"fused kernel: {n} points exceed the int32 index")
+    return n
 
 
 def check_features(x: torch.Tensor, v: torch.Tensor) -> int:
@@ -341,4 +368,5 @@ def make_fused_apply(net):
 __all__ = ["layout", "layout_of", "fused_nerf_mlp_enc",
            "fused_nerf_mlp_enc_reference",
            "fused_nerf_mlp", "fused_nerf_mlp_reference", "encode_features",
-           "unsupported", "make_fused_apply", "build", "flops_per_point"]
+           "bands", "check_points", "check_features", "unsupported",
+           "make_fused_apply", "build", "flops_per_point"]

@@ -30,7 +30,12 @@ the backward's input-gradient launches
 (``"fused_nerf_mlp_bwd.input_grad_launches"``); its deformation's kernels
 add the span ``dnerf.deform_backward`` (their backward, once per pass)
 and ``"fused_deform_mlp.launches"``, ``"fused_deform_mlp_bwd.launches"``
-and their plain versions' ``.calls``.
+and their plain versions' ``.calls``. The training route's encodes:
+``"fused_nerf_mlp_bwd.encode_launches"`` (#5's delta kernel encoding its
+tiles), ``"fused_nerf_mlp_bwd.encode_grad_launches"`` (the encoding's
+gradient, where the points need one), ``"encode_grad_reference.calls"``
+(its plain version) and ``"freq_encode.calls"`` (an encoding in PyTorch,
+none on the card's training route).
 """
 
 from __future__ import annotations

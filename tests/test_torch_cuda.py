@@ -290,6 +290,16 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda,
         mlp_train.fused_nerf_mlp_bwd(packed, x, v, g.double())
     with pytest.raises(ValueError):
         mlp_kernel.fused_nerf_mlp(packed, x[:, :63].contiguous(), v)
+    pts, dirs = _ray_points(8, seed=0, device=cuda)
+    with pytest.raises(ValueError):   # the encode arm takes f32 points
+        mlp_train.fused_nerf_mlp_bwd(packed, pts.double(), dirs.double(), g)
+    with pytest.raises(ValueError):
+        mlp_train.fused_nerf_mlp_bwd(packed, pts, dirs[:4], g)
+    gx = torch.zeros(8, 64, device=cuda)
+    with pytest.raises(ValueError):   # the encoding's gradient: (N, 64) f32
+        mlp_train.encode_grad(pts, gx[:, :63].contiguous(), 10)
+    with pytest.raises(ValueError):
+        mlp_train.encode_grad(pts, gx, 11)
 
 
 @pytest.mark.cuda
@@ -617,3 +627,81 @@ def test_gather_probes_on_gpu(cuda):
     with pytest.raises(ValueError):
         probe.row_gather(torch.zeros(4, 256, device=cuda),
                          torch.zeros(2, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 129, 4096, 262144, 786432])
+def test_encode_arm_matches_the_features_arm(cuda, monkeypatch, n):
+    """#5's encode arm (the training route's: the delta kernel encodes the
+    points and directions itself) against the features-in arm on
+    ``encode_features`` of the same points, at ragged small counts and a
+    4096-ray step's 262,144 coarse and 786,432 fine points, trained
+    weights: every workspace plane (the encodings x and v, activations,
+    deltas), grad_w and grad_b, and #1's forward against #3's, bit for bit,
+    or where libdevice's sincosf and PyTorch's sin or cos round an encoding
+    to another bf16, the elements counted and the encode arm held to the
+    features-in arm's check against the plain backward
+    (chip_smoke.encode_arm_agreement). With the input gradient: grad_w
+    and grad_b unchanged, dL/dx bit-equal to the features-in arm's where
+    the encodings agree, and the encoding-gradient kernel's dL/dp the
+    plain backward's on the points to GRAD_REL of its norm and the chain
+    rule in float64 of the arm's own dL/dx through ``freq_encode`` to
+    ENCODE_GRAD_REL of the terms (chip_smoke.encode_grad_agreement).
+    Run with ``-s`` for the counts."""
+    net = load_model(_cfg(monkeypatch), cuda)
+    packed = tile_mlp.pack(HARD, net.fine.state_dict())
+    pts, dirs = _ray_points(n, seed=n, device=cuda)
+    x, v = mlp_kernel.encode_features(pts, dirs, 10, 4)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    cot = torch.randn(n, 4, device=cuda, generator=g) * torch.tensor(
+        [1e-4, 1e-4, 1e-4, 1e-3], device=cuda)
+    keep = {}
+    grads = mlp_train.fused_nerf_mlp_bwd(packed, x, v, cot, keep)
+    before = (tracing.counts["fused_nerf_mlp_bwd.encode_launches"],
+              tracing.counts["fused_nerf_mlp_bwd.encode_grad_launches"])
+    e = chip_smoke.encode_arm_agreement(packed, pts, dirs, x, v, cot, grads,
+                                        keep["planes"])
+    del keep
+    *_, gx = mlp_train.fused_nerf_mlp_bwd(packed, x, v, cot,
+                                          with_input_grad=True)
+    c = chip_smoke.encode_grad_agreement(
+        packed, pts, dirs, cot, e.pop("grads"), gx,
+        e["differ"]["x"] == e["differ"]["v"] == 0)
+    assert (tracing.counts["fused_nerf_mlp_bwd.encode_launches"],
+            tracing.counts["fused_nerf_mlp_bwd.encode_grad_launches"]) == (
+        before[0] + 2, before[1] + 1)
+    print(f"encode arm, N={n}: {chip_smoke.describe_encode(e, c)}")
+    assert e["ok"], e
+    assert c["ok"], c
+
+
+@pytest.mark.cuda
+def test_training_route_encodes_on_chip(cuda, monkeypatch):
+    """The training apply on the card hands the kernels the points: a pass
+    launches #1 and #5's encode arm once each, never #3 or the features-in
+    arm, and makes no ``freq_encode`` call; where the points need a
+    gradient (a D-NeRF's moved points) the encoding-gradient kernel runs
+    once and the points get a finite (N, 3) f32 gradient. The raw output is
+    the eval route's (#1 on the same points) bit for bit."""
+    net = load_model(_cfg(monkeypatch), cuda)
+    apply_fn = mlp_train.make_fused_train_apply(net)
+    pts, dirs = _ray_points(4096, seed=1, device=cuda)
+    pts, dirs = pts.view(64, 64, 3), dirs.view(64, 64, 3)
+    keys = ("freq_encode.calls", "fused_nerf_mlp_enc.launches",
+            "fused_nerf_mlp.launches", "fused_nerf_mlp_bwd.launches",
+            "fused_nerf_mlp_bwd.encode_launches",
+            "fused_nerf_mlp_bwd.encode_grad_launches")
+    for needs_grad in (False, True):
+        p = pts.clone().requires_grad_(needs_grad)
+        before = [tracing.counts[k] for k in keys]
+        raw = apply_fn(p, dirs, "fine")
+        raw.square().sum().backward()
+        torch.cuda.synchronize()
+        got = [tracing.counts[k] - b for k, b in zip(keys, before)]
+        assert got == [0, 1, 0, 1, 1, int(needs_grad)], got
+        want = mlp_kernel.make_fused_apply(net)(pts, dirs, "fine")
+        assert torch.equal(raw.detach(), want)
+        if needs_grad:
+            assert p.grad.shape == pts.shape
+            assert bool(torch.isfinite(p.grad).all())
+            assert float(p.grad.abs().max()) > 0

@@ -19,6 +19,7 @@ from nerf_replication_tpu_torch.config import make_cfg, parse_args
 from nerf_replication_tpu_torch.datasets import DeviceRayPipeline
 from nerf_replication_tpu_torch.datasets.nerf.blender import Dataset
 from nerf_replication_tpu_torch.models import make_network
+from nerf_replication_tpu_torch.models.encoding.freq import freq_encode
 from nerf_replication_tpu_torch.models.nerf.dnerf_network import DNeRFNetwork
 from nerf_replication_tpu_torch.models.nerf.network import NeRFMLP
 from nerf_replication_tpu_torch.ops import (
@@ -261,11 +262,13 @@ def test_plain_input_gradient_is_autograds_in_f64():
 
 
 def test_fused_fn_returns_the_input_gradient_when_asked():
-    """``FusedNeRFMLPFn`` gives x its gradient when x needs one: the plain
-    backward's f32 input gradient, not zeros; for an f32 x (a D-NeRF's
-    moved points' encoding, which the forward rounds to bf16) exactly that,
-    unrounded, and for a bf16 x rounded to bf16. v's stays zero by
-    contract, and without x needing one no input gradient is formed."""
+    """``FusedNeRFMLPFn`` gives its inputs x their gradient when x needs
+    one: the plain backward's f32 input gradient, not zeros; for bf16
+    features rounded to bf16, for points (the training route) the points'
+    f32 gradient through the encoding exactly, unrounded. v's stays zero
+    by contract, and without x needing one no input gradient is formed.
+    (test_points_route_keeps_the_encoding_gradient_in_f32 holds the
+    points' against the old features route.)"""
     mlp, lay = _mlp(depth=8, skip=4)
     packed, inverse, params = tile_mlp.packer(lay)(
         dict(mlp.named_parameters()))
@@ -282,18 +285,18 @@ def test_fused_fn_returns_the_input_gradient_when_asked():
     assert float(xg.grad.float().abs().max()) > 0
     assert torch.equal(xg.grad, want.to(torch.bfloat16))
     assert float(vg.grad.abs().max()) == 0.0
-    x32 = mlp_kernel.encode_features(*(torch.randn(200, 3, generator=g)
-                                       for _ in range(2)), 10, 4,
-                                     torch.float32)[0]
+    pts, dirs = (torch.randn(200, 3, generator=g) for _ in range(2))
     *_, want32 = mlp_train.fused_nerf_mlp_bwd_reference(
-        packed, x32.to(torch.bfloat16), v, cot, with_input_grad=True)
-    xg = x32.clone().requires_grad_(True)
-    raw32 = mlp_train.FusedNeRFMLPFn.apply(packed, inverse, xg, v, *params)
+        packed, pts, dirs, cot, with_input_grad=True)
+    pg = pts.clone().requires_grad_(True)
+    raw32 = mlp_train.FusedNeRFMLPFn.apply(packed, inverse, pg, dirs,
+                                           *params)
     torch.testing.assert_close(raw32, mlp_train.FusedNeRFMLPFn.apply(
-        packed, inverse, x32.to(torch.bfloat16), v, *params), rtol=0, atol=0)
+        packed, inverse, *mlp_kernel.encode_features(pts, dirs, 10, 4),
+        *params), rtol=0, atol=0)
     (raw32 * cot).sum().backward()
-    assert xg.grad.dtype == torch.float32
-    assert torch.equal(xg.grad, want32)
+    assert pg.grad.dtype == torch.float32
+    assert torch.equal(pg.grad, want32)
     assert not torch.equal(want32, want32.to(torch.bfloat16).float())
     calls = tracing.counts["fused_nerf_mlp_bwd_reference.calls"]
     mlp.zero_grad(set_to_none=True)
@@ -301,6 +304,122 @@ def test_fused_fn_returns_the_input_gradient_when_asked():
      * cot).sum().backward()
     assert tracing.counts["fused_nerf_mlp_bwd_reference.calls"] == calls + 1
     assert all(q.grad is not None for q in params)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plain_encoding_gradient_is_autograds(dtype):
+    """The encoding-gradient kernel's plain version, dL/dp = g[d] + sum_b
+    2^b (cos(2^b p_d) g[sin col] - sin(2^b p_d) g[cos col]), is autograd's
+    gradient through ``freq_encode`` in float64, with no bf16 round trip:
+    in float64 to 1e-5 (rtol), in float32 to 1e-5 of the terms' absolute
+    sum (f32 sines, products and sums of 21 terms; the arguments reach 2^9
+    x 6 rad). A wrong sign, band scale or column fails."""
+    g = torch.Generator().manual_seed(5)
+    # float32 points, so that both sides encode the same arguments
+    p = (12.0 * torch.rand(300, 3, generator=g) - 6.0).double()
+    gx = torch.randn(300, 64, generator=g, dtype=torch.float64)
+    gx[:, 63] = 0.0
+    p64 = p.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(freq_encode(p64, 10), p64, gx[:, :63])
+    got = mlp_train.encode_grad_reference(p.to(dtype), gx.to(dtype), 10)
+    assert got.dtype == dtype and got.shape == (300, 3)
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-12)
+        return
+    scale = gx[:, :3].abs() + sum(
+        2.0 ** b * (gx[:, 3 + 6 * b:6 + 6 * b].abs()
+                    + gx[:, 6 + 6 * b:9 + 6 * b].abs()) for b in range(10))
+    assert float(((got.double() - want).abs() / scale).max()) <= 1e-5
+
+
+def test_points_route_keeps_the_encoding_gradient_in_f32():
+    """REGRESSION: the training route hands ``FusedNeRFMLPFn`` the moved
+    points, and their gradient is the plain input gradient dL/dx (f32)
+    taken through the encoding in f32 (``encode_grad_reference``), bit for
+    bit. The old route encoded first (``mlp_kernel._encode``, which ends in
+    a bf16 round trip), so autograd rounded dL/dx to bf16 at that node
+    before the chain rule: its gradient is exactly the chain rule of the
+    bf16-rounded dL/dx. The two differ, and the new one is the closer to
+    the chain rule of the f32 dL/dx in float64."""
+    mlp, lay = _mlp(depth=8, skip=4)
+    packed, inverse, params = tile_mlp.packer(lay)(
+        dict(mlp.named_parameters()))
+    g = torch.Generator().manual_seed(6)
+    p = 4.0 * torch.rand(200, 3, generator=g) - 2.0
+    d = F.normalize(torch.randn(200, 3, generator=g), dim=-1)
+    cot = torch.randn(200, 4, generator=g)
+    keep = {}
+    *_, want_new = mlp_train.fused_nerf_mlp_bwd_reference(
+        packed, p, d, cot, keep, with_input_grad=True)
+    gx = keep["grad_x"]
+
+    new = p.clone().requires_grad_(True)
+    (mlp_train.FusedNeRFMLPFn.apply(packed, inverse, new, d, *params)
+     * cot).sum().backward()
+    old = p.clone().requires_grad_(True)
+    x = mlp_kernel._encode(old, 10, 64)
+    v = mlp_kernel.encode_features(p, d, 10, 4)[1]
+    (mlp_train.FusedNeRFMLPFn.apply(packed, inverse, x, v, *params)
+     * cot).sum().backward()
+
+    assert torch.equal(new.grad, want_new)
+    q = p.clone().requires_grad_(True)
+    (want_old,) = torch.autograd.grad(
+        freq_encode(q, 10), q, gx[:, :63].to(torch.bfloat16).float())
+    assert torch.equal(old.grad, want_old)
+    assert not torch.equal(new.grad, old.grad)
+    q = p.double().requires_grad_(True)
+    (exact,) = torch.autograd.grad(freq_encode(q, 10), q, gx[:, :63].double())
+    err_new = float((new.grad.double() - exact).norm())
+    err_old = float((old.grad.double() - exact).norm())
+    print(f"points' gradient against the f64 chain rule: f32 route "
+          f"{err_new:.3e}, bf16 round trip {err_old:.3e}")
+    assert err_new * 10 < err_old
+
+
+@pytest.mark.parametrize("deform", [False, True])
+def test_training_step_counts_its_encodes(batch, deform):
+    """One CPU training loss and backward on the kernels' route (their
+    plain versions here): the canonical MLP's plain versions encode with
+    ``freq_encode`` (twice a pass, forward and backward: 8 a step), the
+    features-in versions never run, and the encoding gradient's plain
+    version runs once a pass for a D-NeRF (the moved points need a
+    gradient) and never for a static NeRF. The launch counters of the
+    encode arm and the encoding gradient stay 0 off the card."""
+    keys = ("freq_encode.calls", "encode_grad_reference.calls",
+            "fused_nerf_mlp_enc_reference.calls",
+            "fused_nerf_mlp_reference.calls",
+            "fused_nerf_mlp_bwd_reference.calls",
+            "fused_nerf_mlp_bwd.encode_launches",
+            "fused_nerf_mlp_bwd.encode_grad_launches")
+    if deform:
+        cfg = _cfg("network.deform.W", "256", "network.deform.D", "2",
+                   "network.deform.skips", "[0]")
+    else:
+        cfg = make_cfg(parse_args([
+            "--cfg_file", "configs/nerf/hard.yaml", "device", "cpu",
+            "task_arg.N_samples", "8", "task_arg.N_importance", "8"]))
+    net = make_network(cfg)
+    wrapper = NetworkWrapper(net, cfg)
+    assert wrapper.renderer.train_apply is not net
+    b = batch if deform else {k: v for k, v in batch.items()
+                              if k != "times"}
+    before = {k: tracing.counts[k] for k in keys}
+    with mock.patch.object(deform_mlp, "encode_inputs",
+                           wraps=deform_mlp.encode_inputs) as deform_encode:
+        loss, _ = wrapper.loss_fn(b, None, train=False)
+        loss.backward()
+    got = {k: tracing.counts[k] - before[k] for k in keys}
+    # Psi_t's plain versions encode its inputs (two freq_encode calls each)
+    canonical = got["freq_encode.calls"] - 2 * deform_encode.call_count
+    assert canonical == 8, got
+    assert got["encode_grad_reference.calls"] == (2 if deform else 0), got
+    assert got["fused_nerf_mlp_enc_reference.calls"] == 2
+    assert got["fused_nerf_mlp_reference.calls"] == 0
+    assert got["fused_nerf_mlp_bwd_reference.calls"] == 2
+    assert got["fused_nerf_mlp_bwd.encode_launches"] == 0
+    assert got["fused_nerf_mlp_bwd.encode_grad_launches"] == 0
+    assert all(q.grad is not None for q in net.parameters())
 
 
 def test_dynamic_scene_times_reach_every_batch(tmp_path):

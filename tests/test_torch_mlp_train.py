@@ -358,8 +358,9 @@ def test_workspace_planes_layout():
 def test_workspace_planes_detile_every_element(depth, n_pad):
     """An arange-filled workspace, de-tiled: every element of every plane
     is its own offset by the tile-order formula, planes in the order the C
-    function's comment gives, the x and v copies last in the activations
-    and left out of the planes, and the sizes the wrapper allocates."""
+    function's comment gives, the x and v planes (the encodings the delta
+    kernel loaded or encoded) last in the activations, and the sizes the
+    wrapper allocates."""
     n = n_pad - 61
     a_cols = [256] * (depth + 1) + [128, 64, 32]
     d_cols = [256] * depth + [272, 128, 16]
@@ -369,7 +370,8 @@ def test_workspace_planes_detile_every_element(depth, n_pad):
     dlt = torch.arange(n_pad * sum(d_cols), dtype=torch.int64)
     got = tile_mlp.workspace_planes(lay, act, dlt, n, n_pad)
     names = ([("h", i) for i in range(depth)] + [("feat", None),
-             ("g_act", None)], [("d", i) for i in range(depth)]
+             ("g_act", None), ("x", None), ("v", None)],
+             [("d", i) for i in range(depth)]
              + [("d_af", None), ("d_gpre", None), ("d_rgb", None)])
     pts = torch.arange(n)[:, None]
     for cols_of, named in zip((a_cols, d_cols), names):
@@ -643,3 +645,58 @@ def test_param_grads_bit_equal_through_an_explicit_pack():
     assert torch.equal(packed.w.view(torch.int16),
                        w.detach().to(torch.bfloat16).view(torch.int16))
     assert torch.equal(packed.b.view(torch.int32), b.detach().view(torch.int32))
+
+
+@pytest.mark.parametrize("points_need_grad", [False, True])
+def test_points_route_matches_the_features_route(points_need_grad):
+    """A hard.yaml-shaped NeRF MLP (8 x 256, skip 4, 10 / 4 bands) run
+    twice, as a step's coarse and fine passes are: ``FusedNeRFMLPFn``
+    handed the raw points and directions (the training route: #1's encode
+    in the forward, the encode arm in the backward; their plain versions
+    here) gives raw outputs and every parameter gradient bit-equal to the
+    features-in route on ``encode_features`` of the same points, whether
+    or not the points need a gradient (a D-NeRF's moved points do), and
+    then the points' gradient is (N, 3) f32."""
+    g = torch.Generator().manual_seed(8)
+    mlp = NeRFMLP(IN, VIEW, depth=8, skips=(4,), dtype=torch.float32,
+                  generator=g)
+    with torch.no_grad():
+        for name, q in mlp.named_parameters():
+            if name.endswith("bias"):
+                q.copy_(0.1 * torch.randn(q.shape, generator=g))
+    batches = [(4.0 * torch.rand(300, 3, generator=g) - 2.0,
+                F.normalize(torch.randn(300, 3, generator=g), dim=-1),
+                torch.randn(300, 4, generator=g)) for _ in range(2)]
+    pack_of = tile_mlp.packer(mlp_kernel.layout(8, 4, IN, VIEW))
+    assert mlp_kernel.bands(mlp_kernel.layout(8, 4, IN, VIEW)) == (10, 4)
+
+    def run(route):
+        mlp.zero_grad(set_to_none=True)
+        raws, leaves = [], []
+        for p, d, cot in batches:
+            p = p.clone().requires_grad_(points_need_grad)
+            packed, inverse, params = pack_of(dict(mlp.named_parameters()))
+            raw = mlp_train.FusedNeRFMLPFn.apply(packed, inverse,
+                                                 *route(p, d), *params)
+            (raw * cot).sum().backward()
+            raws.append(raw.detach())
+            leaves.append(p)
+        return raws, leaves, {k: q.grad.clone()
+                              for k, q in mlp.named_parameters()}
+
+    calls = tracing.counts["fused_nerf_mlp_enc_reference.calls"]
+    raws, pts, grads = run(lambda p, d: (p, d))
+    assert tracing.counts["fused_nerf_mlp_enc_reference.calls"] == calls + 2
+    want_raws, _, want = run(lambda p, d: mlp_kernel.encode_features(
+        p.detach(), d, 10, 4))
+    for a, b in zip(raws, want_raws):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for key in want:
+        assert torch.equal(grads[key].view(torch.int32),
+                           want[key].view(torch.int32)), key
+    for p in pts:
+        if points_need_grad:
+            assert p.grad.shape == (300, 3) and p.grad.dtype == torch.float32
+            assert float(p.grad.abs().max()) > 0
+        else:
+            assert p.grad is None
